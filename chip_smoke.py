@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -8,21 +8,42 @@ Builds the port's CUDA kernels from ``pcss_unet_tpu_torch/csrc`` (into
 
 1. ``build``: the card (name, power limit) and the kernels' build time.
 2. ``kernel``: each kernel against its plain PyTorch version on the card, on
-   the inputs the w16 2048×1024 chw+int8 forward really gives it (recorded
-   from one forward), in bfloat16, plus one float32 case per kernel with
-   TF32 off; max |d| against the stated tolerance, kernel and plain times
-   from CUDA events.
+   the inputs each main path really gives it (recorded from one forward of
+   each of the three paths below), in bfloat16, plus one float32 case per
+   kernel with TF32 off; max |d| against the stated tolerance, kernel and
+   plain times from CUDA events, per path.  The headline path of K1–K4 is
+   the w16 2048×1024 chw+int8 forward, that of K5 (w64 ``dec_0``), K6 (w64
+   ``dec_2``) and K2′ (w64 ``enc_0``, ``enc_1``, ``dec_final``) the w64
+   1920×1088 NHWC forward; K7, on no model path, runs at the w64 ``dec_1``
+   conv shape [1,272,480,512] → 512.  ``weight_prep``: the per-frame int8
+   quantization of the w64 int8 blocks' weights.  ``w64_vs_plain``: the w64
+   forward through the kernels against the same forward with every kernel
+   swapped for its plain version, within twice the plain forward's change
+   under a one-ulp nudge of its input: both int8 postures in bfloat16 (the
+   main paths' engines) and float32 (TF32 off), and the NHWC fused posture
+   without int8 in float32.
 3. ``golden``: the committed ``tests/golden/deploy_w16`` net through
    ``InferenceEngine(layout="chw", fold_bn=True, quantize="int8")`` in
    bfloat16 on the 8 validation frames (PSNR ≥ 11.69 dB), and in float32
    against the same engine on the CPU.
-4. ``main_path``: full-width 2048×1024 frames through ``render_u8`` with the
-   kernels' launch counters zeroed just before and read just after
-   (per frame: K1 ×1, K2 ×6, K3 ×1, K4 ×1), and the time per frame.
+4. ``main_path``: full-width 2048×1024 w16 frames through the chw+int8
+   ``render_u8`` with the kernels' launch counters zeroed just before and
+   read just after (per frame: K1 ×1, K2 ×6, K3 ×1, K4 ×1), the time per
+   frame, then one frame under ``torch.profiler``.
+5. ``golden_nhwc``: the golden net as in 3 through
+   ``InferenceEngine(layout="nhwc", fold_bn=True, quantize="int8")``.
+6. ``main_path_w64_nhwc``: 1920×1080 frames padded to 1920×1088 through the
+   NHWC fused+int8 ``render_u8`` of the w64 net ``(64, 128, 512, 1024)``
+   with seeded weights (per frame: K1 ×1, K2′ ×3 and so K2 ×3, K3 ×1,
+   K5 ×1, K6 ×1, K4 ×1; the stage routing is printed), then a profile.
+7. ``main_path_w64_chw``: the same frames through the chw+int8 engine (per
+   frame: K1 ×1, K2 ×4, K3 ×1, K5 ×1, K4 ×1), then a profile.
 
-Then the ``{"kernels": [...]}`` line, the card's name and power limit as
-``nvidia-smi`` prints them, and the result line.  Any failure raises and
-exits non-zero; with no CUDA device the script exits 2 and prints nothing.
+Then the ``{"kernels": [...]}`` line (``launches``: the sum over the three
+main-path runs; ``ms``, ``plain_ms`` and ``bound_ms``: per frame of the
+kernel's headline path; ``max_abs_err``: over every path), the card's name and power limit as ``nvidia-smi`` prints
+them, and the result line.  Any failure raises and exits non-zero; with no
+CUDA device the script exits 2 and prints nothing.
 """
 
 from __future__ import annotations
@@ -44,6 +65,11 @@ PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
 FRAME_H, FRAME_W = 1024, 2048
 MAIN_FRAMES = 10
+W64 = (64, 128, 512, 1024)
+W64_H, W64_W = 1080, 1920       # padded to 1088 rows by the engine's ×16
+W64_FRAMES = 5
+NO_LIBRARY = ("no single PyTorch call computes this function (a whole "
+              "block, or an int8 conv with per-band dynamic scales)")
 
 
 def emit(obj) -> None:
@@ -110,31 +136,42 @@ def golden_frames():
     return meta, xv, yv
 
 
-def record_calls(engine, frames):
-    """Run one forward with every kernel wrapper recording its arguments
-    (the inputs the main path gives each kernel)."""
-    from pcss_unet_tpu_torch.infer import chw_engine, frame
-
-    calls = {"scrub": [], "convblock": [], "int8": [], "u8": []}
-    patched = [(frame, "fused_scrub_standardize", "scrub"),
-               (chw_engine, "fused_conv_block_chw", "convblock"),
-               (chw_engine, "fused_block_int8_nhwc", "int8"),
-               (frame, "fused_mask_to_u8", "u8")]
-    originals = [getattr(mod, name) for mod, name, _ in patched]
+@contextlib.contextmanager
+def swapped(replacements):
+    """Module attributes ``(module, name, fn)`` replaced while inside."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in replacements]
     try:
-        for (mod, name, key), fn in zip(patched, originals):
-            def recorder(*args, _fn=fn, _key=key, **kw):
-                calls[_key].append((args, kw))
-                return _fn(*args, **kw)
-            setattr(mod, name, recorder)
-        engine.render_u8(frames)
-    finally:
-        for (mod, name, _), fn in zip(patched, originals):
+        for mod, name, fn in replacements:
             setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def record_calls(engine, frames, patched):
+    """Run one forward with the given kernel wrappers (module, name, key)
+    recording their arguments (the inputs the main path gives each), made
+    contiguous: the kernel timings then measure the kernels, not the layout
+    copies the callers' views need."""
+    import torch
+
+    calls = {key: [] for _, _, key in patched}
+
+    def recorder(fn, key):
+        def record(*args, **kw):
+            calls[key].append((tuple(a.contiguous() if torch.is_tensor(a)
+                                     else a for a in args), kw))
+            return fn(*args, **kw)
+        return record
+
+    with swapped([(mod, name, recorder(getattr(mod, name), key))
+                  for mod, name, key in patched]):
+        engine.render_u8(frames)
     return calls
 
 
-def profile_frame(engine, frames, frame_ms: float) -> dict:
+def profile_frame(phase, engine, frames, frame_ms: float) -> dict:
     """One frame under torch.profiler: time of the device-side events
     (kernels, copies) by name, and their sum against the measured frame
     time (the device's busy share)."""
@@ -153,35 +190,46 @@ def profile_frame(engine, frames, frame_ms: float) -> dict:
 
     busy = sum(dev_ms(e) for e in events)
     top = sorted(events, key=dev_ms, reverse=True)[:15]
-    return {"phase": "profile", "device_busy_ms": busy, "frame_ms": frame_ms,
+    return {"phase": phase, "device_busy_ms": busy, "frame_ms": frame_ms,
             "idle_share": 1.0 - busy / frame_ms if busy else None,
             "top_device_ms": [[e.key[:70], dev_ms(e), e.count] for e in top]}
 
 
-def check_kernel(name, kernel, plain, calls, tol_fn, work_fn, f32_case):
-    """Kernel vs plain on each recorded call (bf16 path) and on one float32
-    case with TF32 off; returns the kernels-line entry."""
+def check_kernel(name, kernel, plain, paths, tol_fn, work_fn, f32_case):
+    """Kernel vs plain on each call recorded from each main path (``paths``:
+    [(path, calls)], the kernel's headline path first; bf16) and on one
+    float32 case with TF32 off.  Returns the kernels-line entry: max |d|
+    over every path, time, plain time and bound per frame of the headline
+    path."""
     import torch
 
-    worst, ms, plain_ms, t_bound, by_ops = 0.0, 0.0, 0.0, 0.0, 0.0
-    for args, kw in calls:
-        # the tap strategy only orders the kernel's sum; the plain version
-        # has one order
-        pkw = {k: v for k, v in kw.items() if k != "taps"}
-        got = kernel(*args, **kw)
-        want = plain(*args, **pkw)
-        torch.cuda.synchronize()
-        d = (got.float() - want.float()).abs().max().item()
-        tol = tol_fn(want, args)
-        if not (d <= tol):
-            raise AssertionError(f"{name}: max |d| {d} > tol {tol} at "
-                                 f"{[tuple(a.shape) for a in args if hasattr(a, 'shape')]}")
-        worst = max(worst, d)
-        ms += cuda_ms(lambda: kernel(*args, **kw))
-        plain_ms += cuda_ms(lambda: plain(*args, **pkw), iters=5, warmup=1)
-        b, kind = work_fn(args, kw)
-        t_bound += b
-        by_ops += b if kind == "operations" else 0.0
+    per_path = {}
+    for path, calls in paths:
+        worst, ms, plain_ms, t_bound, by_ops = 0.0, 0.0, 0.0, 0.0, 0.0
+        for args, kw in calls:
+            # the tap strategy only orders the kernel's sum; the plain
+            # version has one order
+            pkw = {k: v for k, v in kw.items() if k != "taps"}
+            got = kernel(*args, **kw)
+            want = plain(*args, **pkw)
+            torch.cuda.synchronize()
+            d = (got.float() - want.float()).abs().max().item()
+            tol = tol_fn(want, args)
+            if not (d <= tol):
+                raise AssertionError(f"{name} ({path}): max |d| {d} > tol {tol} at "
+                                     f"{[tuple(a.shape) for a in args if hasattr(a, 'shape')]}")
+            worst = max(worst, d)
+            ms += cuda_ms(lambda: kernel(*args, **kw))
+            plain_ms += cuda_ms(lambda: plain(*args, **pkw), iters=5, warmup=1)
+            b, kind = work_fn(args, kw)
+            t_bound += b
+            by_ops += b if kind == "operations" else 0.0
+        per_path[path] = {
+            "calls_per_frame": len(calls), "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": t_bound,
+            "bound_by": "operations" if by_ops > t_bound / 2 else "bytes",
+            "shapes": [[tuple(a.shape) for a in args if hasattr(a, "shape")][:1]
+                       for args, _ in calls]}
     with no_tf32():
         args, kw = f32_case
         got = kernel(*args, **kw)
@@ -191,23 +239,226 @@ def check_kernel(name, kernel, plain, calls, tol_fn, work_fn, f32_case):
         tol32 = tol_fn(want, args)
         if not (d32 <= tol32):
             raise AssertionError(f"{name} float32: max |d| {d32} > tol {tol32}")
-    emit({"phase": "kernel", "name": name, "calls_per_frame": len(calls),
-          "max_abs_err": worst, "max_abs_err_f32": d32, "ms": ms,
-          "plain_ms": plain_ms, "bound_ms": t_bound})
-    return {"name": name, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": t_bound,
-            "bound_by": "operations" if by_ops > t_bound / 2 else "bytes",
-            "library_ms": None}
+    emit({"phase": "kernel", "name": name, "max_abs_err_f32": d32,
+          "paths": per_path})
+    head = per_path[paths[0][0]]
+    return {"name": name, "library_ms": None,
+            "max_abs_err": max(p["max_abs_err"] for p in per_path.values()),
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+
+
+def f32(call):
+    import torch
+
+    args, kw = call
+    return (tuple(a.float() if torch.is_tensor(a) and a.is_floating_point()
+                  else a for a in args),
+            {k: (v.float() if torch.is_tensor(v) else v) for k, v in kw.items()})
+
+
+def rel_tol(scale):
+    return lambda want, args: scale * max(1.0, want.float().abs().max().item())
+
+
+# bf16 output: one bf16 rounding of the output plus flips of the hidden
+# tile's bf16 rounding from a different float32 sum order; float32 (TF32
+# off): sum-order noise only
+def conv_tol(want, args):
+    import torch
+
+    return ((2e-2 if want.dtype == torch.bfloat16 else 1e-4)
+            * max(1.0, want.float().abs().max().item()))
+
+
+def peak_for(dtype):
+    import torch
+
+    return PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+
+
+def conv_work(args, kw):
+    x, w1, _, w2, _ = args
+    n, cin, h, wp = x.shape
+    cmid, cout = w1.shape[1], w2.shape[0]
+    ops = 2.0 * n * h * wp * (9 * cin * cmid + cmid * cout)
+    out_bytes = n * cout * h * wp * x.element_size()
+    byt = nbytes(x, w1, w2, kw.get("residual")) + out_bytes
+    return bound_ms(byt, ops, peak_for(x.dtype))
+
+
+def conv_nhwc_work(args, kw):
+    x, w1, _, w2, _ = args
+    n, h, w, cin = x.shape
+    cmid, cout = w1.shape[1], w2.shape[0]
+    ops = 2.0 * n * h * w * (9 * cin * cmid + cmid * cout)
+    out_bytes = n * h * w * cout * x.element_size()
+    return bound_ms(nbytes(x, w1, w2) + out_bytes, ops, peak_for(x.dtype))
+
+
+def block128_work(args, kw):
+    x, w1, _, w2, _ = args
+    n, h, w, c = x.shape
+    cout = w2.shape[1]
+    ops = 2.0 * n * h * w * (9 * c * c + c * cout)
+    out_bytes = n * h * w * cout * x.element_size()
+    return bound_ms(nbytes(x, w1, w2) + out_bytes, ops, peak_for(x.dtype))
+
+
+def int8_work(args, kw):
+    x, w1q, _, _, w2q, _, _ = args
+    n, h, w, c = x.shape
+    ops = 2.0 * n * h * w * (9 * c * w1q.shape[2] + w2q.numel())
+    out_bytes = n * h * w * w2q.shape[1] * x.element_size()
+    return bound_ms(nbytes(x, w1q, w2q) + out_bytes, ops, PEAK_INT8_OPS)
+
+
+def conv3x3_int8_work(args, kw):
+    import torch
+
+    x, wq, _, _ = args
+    n, h, w, c = x.shape
+    co = wq.shape[2]
+    ops = 2.0 * n * h * w * 9 * c * co
+    out_bytes = n * h * w * co * (2 if kw["out_dtype"] == torch.bfloat16 else 4)
+    return bound_ms(nbytes(x, wq) + out_bytes, ops, PEAK_INT8_OPS)
+
+
+def scrub_work(args, kw):
+    return bound_ms(2 * nbytes(args[0]), 0, 1)
+
+
+def u8_work(args, kw):
+    return bound_ms(nbytes(args[0]) * 5 // 4, 0, 1)
+
+
+def vs_plain_phase(engine, frames, plain, kernels) -> None:
+    """One forward (TF32 off) through the kernels against the same forward
+    with every kernel wrapper swapped for its plain version (``plain``:
+    (module, name, fn)) on the card, held to the forward's own noise floor:
+    how far the plain forward moves when each input value moves by one
+    float32 ulp.  The int8 postures are not continuous: a one-ulp change
+    can move an int8 rounding tie, and on the seeded w64 net a tie moves
+    the mask by up to ~0.1, so the kernels (equal to their plain versions
+    up to float32 sum order) must stay within twice that floor, in max and
+    in mean |d|; without int8 the floor is ~2e-5 and the limits are 1e-3
+    (max) and 1e-5 (mean)."""
+    import torch
+
+    from pcss_unet_tpu_torch.ops.kernels import reset_launch_counts
+
+    with no_tf32():
+        reset_launch_counts()
+        got = engine.run_padded(frames)
+        launched = {k.__name__: k.launches for k in kernels if k.launches}
+        with swapped(plain):
+            want = engine.run_padded(frames)
+            nudged = engine.run_padded(frames * (1 + 2.0 ** -23))
+        torch.cuda.synchronize()
+    if not launched or any(k.launches != launched.get(k.__name__, 0)
+                           for k in kernels):
+        raise AssertionError(f"{engine.layout}: kernel launches {launched} "
+                             "before the plain swap, and none under it")
+    d, floor = (got - want).abs(), (nudged - want).abs()
+    line = {"phase": "w64_vs_plain", "layout": engine.layout,
+            "dtype": str(engine._dtype).replace("torch.", ""),
+            "quantize": engine.quantize,
+            "max_abs_err": d.max().item(), "mean_abs_err": d.mean().item(),
+            "floor_max": floor.max().item(), "floor_mean": floor.mean().item(),
+            "kernels_launched": launched}
+    line["tol_max"] = max(2 * line["floor_max"], 1e-3)
+    line["tol_mean"] = max(2 * line["floor_mean"], 1e-5)
+    if engine.model is not None:
+        line["routes"] = engine.model.routes()
+    emit(line)
+    if not (line["max_abs_err"] <= line["tol_max"]
+            and line["mean_abs_err"] <= line["tol_mean"]):
+        raise AssertionError(f"w64 {engine.layout} {line['dtype']} "
+                             f"{engine.quantize}: kernels vs plain mask "
+                             f"|d| beyond twice the noise floor: {line}")
+
+
+def golden_phase(phase, variables, meta, xv, yv, layout):
+    """deploy_w16 through the ``layout`` int8 posture: PSNR in bf16 on the
+    card, and the float32 card engine against the float32 CPU engine."""
+    import torch
+
+    from pcss_unet_tpu_torch.infer import InferenceEngine
+
+    kw = dict(means=np.asarray(meta["means"], np.float32),
+              stds=np.asarray(meta["stds"], np.float32), fold_bn=True,
+              quantize="int8", layout=layout)
+    engine = InferenceEngine(None, variables, dtype=torch.bfloat16,
+                             device="cuda", **kw)
+    psnrs = []
+    for x, y in zip(xv, yv):
+        pred = engine(x)[..., 0]
+        psnrs.append(10 * math.log10(1.0 / max(float(np.mean((pred - y[..., 0]) ** 2)), 1e-12)))
+    psnr = float(np.mean(psnrs))
+    with no_tf32():
+        e32 = InferenceEngine(None, variables, dtype=torch.float32,
+                              device="cuda", **kw)
+        c32 = InferenceEngine(None, variables, dtype=torch.float32,
+                              device="cpu", **kw)
+        d_cpu = max(float(np.abs(e32(x) - c32(x)).max()) for x in xv)
+    line = {"phase": phase, "psnr_db_bf16": psnr, "min_psnr_db": 11.69,
+            "max_abs_err_f32_card_vs_cpu": d_cpu, "tol": 2e-2}
+    if engine.model is not None:
+        line["routes"] = engine.model.routes()
+    emit(line)
+    if not psnr >= 11.69:
+        raise AssertionError(f"{phase} PSNR {psnr} < 11.69 dB")
+    if not d_cpu <= 2e-2:
+        raise AssertionError(f"{phase}: float32 card vs CPU mask max |d| {d_cpu}")
+
+
+def main_path(phase, engine, frames, n_frames, want, card):
+    """``n_frames`` frames through ``render_u8`` with every launch counter
+    zeroed just before and read just after; every kernel must have launched
+    exactly ``want[name]`` times per frame (0 if absent)."""
+    import torch
+
+    from pcss_unet_tpu_torch.ops.kernels import KERNELS, reset_launch_counts
+
+    engine.render_u8(frames)            # warm
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [engine.render_u8(frames) for _ in range(n_frames)]
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) / n_frames * 1e3
+    launches = {k.__name__: k.launches for k in KERNELS}
+    for name, count in launches.items():
+        if count != want.get(name, 0) * n_frames:
+            raise AssertionError(f"{phase}: {name} launched {count} times in "
+                                 f"{n_frames} frames, want {want.get(name, 0)} each")
+    out = outs[-1]
+    b, h, w, _ = frames.shape
+    if (tuple(out.shape) != (b, h, w, 1) or out.dtype != torch.uint8
+            or not torch.equal(out, outs[0]) or out.min() == out.max()):
+        raise AssertionError(f"{phase}: bad output {tuple(out.shape)} {out.dtype}")
+    line = {"phase": phase, "frames": n_frames, "frame_hw": [h, w],
+            "ms_per_frame": frame_ms, "launches": launches,
+            "launches_per_frame_want": want, "card": card}
+    if engine.model is not None:
+        line["routes"] = engine.model.routes()
+    emit(line)
+    emit(profile_frame(f"profile_{phase}", engine, frames, frame_ms))
+    return launches
 
 
 def main() -> int:
     import torch
 
-    from pcss_unet_tpu_torch.infer import InferenceEngine, load_variables
-    from pcss_unet_tpu_torch.ops.kernels import (KERNELS, _build,
-                                                 reset_launch_counts)
+    from pcss_unet_tpu_torch.infer import (InferenceEngine, chw_engine, frame,
+                                           load_variables, pad_to_multiple)
+    from pcss_unet_tpu_torch.models import unet as unet_mod
+    from pcss_unet_tpu_torch.models.init import seeded_variables
+    from pcss_unet_tpu_torch.ops.kernels import KERNELS, _build
     from pcss_unet_tpu_torch.ops.kernels import block_int8 as kb8
+    from pcss_unet_tpu_torch.ops.kernels import conv3x3_int8 as kc7
     from pcss_unet_tpu_torch.ops.kernels import convblock as kcb
+    from pcss_unet_tpu_torch.ops.kernels import convblock128 as kc128
+    from pcss_unet_tpu_torch.ops.kernels import deploy
     from pcss_unet_tpu_torch.ops.kernels import fused as kfu
 
     if not torch.cuda.is_available():
@@ -224,77 +475,136 @@ def main() -> int:
     emit({"phase": "build", "card": card, "seconds": build_s,
           "ptxas": ptxas})
 
-    # ---------------------------------------------------------- kernels
+    # ------------------------------------------------- engines and inputs
     meta, xv, yv = golden_frames()
     variables = load_variables(os.path.join(REPO, "tests", "golden",
                                             "deploy_w16.npz"))
-    means = np.asarray(meta["means"], np.float32)
-    stds = np.asarray(meta["stds"], np.float32)
-    kw = dict(means=means, stds=stds, fold_bn=True, quantize="int8",
-              layout="chw")
-    engine = InferenceEngine(None, variables, dtype=torch.bfloat16,
-                             device="cuda", **kw)
+    stats = dict(means=np.asarray(meta["means"], np.float32),
+                 stds=np.asarray(meta["stds"], np.float32))
+    kw = dict(fold_bn=True, quantize="int8", dtype=torch.bfloat16,
+              device="cuda", **stats)
+    engine = InferenceEngine(None, variables, layout="chw", **kw)
     gen = torch.Generator(device="cuda").manual_seed(0)
     frames = torch.rand((1, FRAME_H, FRAME_W, 4), generator=gen,
                         device="cuda")
-    calls = record_calls(engine, frames)
+    # every kernel wrapper the forwards call, by the name they call it under
+    wrappers = {"scrub": (frame, "fused_scrub_standardize"),
+                "u8": (frame, "fused_mask_to_u8"),
+                "convblock": (chw_engine, "fused_conv_block_chw"),
+                "nhwc": (unet_mod, "fused_conv_block_nhwc"),
+                "int8": (deploy, "fused_block_int8_nhwc"),
+                "kchunked": (deploy, "fused_block_int8_kchunked"),
+                "block128": (deploy, "fused_block128_nhwc")}
+    calls = {"w16_chw": record_calls(engine, frames, [
+        (*wrappers[k], k) for k in ("scrub", "convblock", "int8", "u8")])}
 
-    def rel_tol(scale):
-        return lambda want, args: scale * max(1.0, want.float().abs().max().item())
+    v64 = seeded_variables(W64, seed=0)
+    e64_nhwc = InferenceEngine(None, v64, layout="nhwc", **kw)
+    e64_chw = InferenceEngine(None, v64, layout="chw", **kw)
+    rng = np.random.default_rng(0)
+    f64, _ = pad_to_multiple(rng.random((1, W64_H, W64_W, 4), np.float32),
+                             e64_nhwc.pad_multiple)
+    frames64 = torch.from_numpy(f64).cuda()
+    calls["w64_nhwc"] = record_calls(e64_nhwc, frames64, [
+        (*wrappers[k], k) for k in ("scrub", "nhwc", "int8", "kchunked",
+                                    "block128", "u8")])
+    calls["w64_chw"] = record_calls(e64_chw, frames64, [
+        (*wrappers[k], k) for k in ("scrub", "convblock", "int8", "kchunked",
+                                    "u8")])
 
-    def conv_work(args, kw):
-        x, w1, _, w2, _ = args
-        n, cin, h, wp = x.shape
-        cmid, cout = w1.shape[1], w2.shape[0]
-        ops = 2.0 * n * h * wp * (9 * cin * cmid + cmid * cout)
-        out_bytes = n * cout * h * wp * x.element_size()
-        byt = nbytes(x, w1, w2, kw.get("residual")) + out_bytes
-        peak = PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 else PEAK_F32_FLOPS
-        return bound_ms(byt, ops, peak)
+    def on(key, *paths):
+        """The recorded calls of wrapper ``key`` on each path, headline
+        path first; every path that called it must be listed."""
+        called = {p for p, c in calls.items() if c.get(key)}
+        if called != set(paths):
+            raise AssertionError(f"{key}: called on {sorted(called)}, "
+                                 f"checked on {sorted(paths)}")
+        return [(p, calls[p][key]) for p in paths]
 
-    def int8_work(args, kw):
-        x, w1q, _, _, w2q, _, _ = args
-        n, h, w, c = x.shape
-        ops = 2.0 * n * h * w * (9 * c * w1q.shape[2] + w2q.numel())
-        out_bytes = n * h * w * w2q.shape[1] * x.element_size()
-        return bound_ms(nbytes(x, w1q, w2q) + out_bytes, ops, PEAK_INT8_OPS)
+    def first(key, path, i=0):
+        return calls[path][key][i]
 
-    def scrub_work(args, kw):
-        return bound_ms(2 * nbytes(args[0]), 0, 1)
-
-    def u8_work(args, kw):
-        return bound_ms(nbytes(args[0]) * 5 // 4, 0, 1)
-
-    def f32(call):
-        args, kw = call
-        return (tuple(a.float() if torch.is_tensor(a) and a.is_floating_point()
-                      else a for a in args),
-                {k: (v.float() if torch.is_tensor(v) else v)
-                 for k, v in kw.items()})
-
+    # ---------------------------------------------------------- kernels
+    all3 = ("w16_chw", "w64_nhwc", "w64_chw")
     entries = [
         check_kernel("fused_scrub_standardize", kfu.fused_scrub_standardize,
-                     kfu.scrub_standardize_plain, calls["scrub"],
-                     rel_tol(1e-6), scrub_work, calls["scrub"][0]),
-        # bf16 output: one bf16 rounding of the output plus flips of the
-        # hidden tile's bf16 rounding from a different float32 sum order;
-        # float32 (TF32 off): sum-order noise only
+                     kfu.scrub_standardize_plain, on("scrub", *all3),
+                     rel_tol(1e-6), scrub_work, first("scrub", "w16_chw")),
         check_kernel("fused_conv_block_chw", kcb.fused_conv_block_chw,
-                     kcb.conv_block_chw_plain, calls["convblock"],
-                     lambda want, args: (2e-2 if want.dtype == torch.bfloat16
-                                         else 1e-4)
-                     * max(1.0, want.float().abs().max().item()),
-                     conv_work, f32(calls["convblock"][-2])),
+                     kcb.conv_block_chw_plain,
+                     on("convblock", "w16_chw", "w64_chw"), conv_tol,
+                     conv_work, f32(first("convblock", "w16_chw", -2))),
         # same quantized integers and the same float32 steps on both sides:
         # at most one bf16 rounding apart
         check_kernel("fused_block_int8_nhwc", kb8.fused_block_int8_nhwc,
-                     kb8.block_int8_nhwc_plain, calls["int8"],
-                     rel_tol(1e-2), int8_work, f32(calls["int8"][0])),
+                     kb8.block_int8_nhwc_plain, on("int8", *all3),
+                     rel_tol(1e-2), int8_work, f32(first("int8", "w16_chw"))),
         check_kernel("fused_mask_to_u8", kfu.fused_mask_to_u8,
-                     kfu.mask_to_u8_plain, calls["u8"], lambda *_: 0.0,
-                     u8_work, calls["u8"][0]),
+                     kfu.mask_to_u8_plain, on("u8", *all3), lambda *_: 0.0,
+                     u8_work, first("u8", "w16_chw")),
+        # K5: as K3, the chunk sums in the same order on both sides
+        check_kernel("fused_block_int8_kchunked", kb8.fused_block_int8_kchunked,
+                     kb8.block_int8_kchunked_plain,
+                     on("kchunked", "w64_nhwc", "w64_chw"), rel_tol(1e-2),
+                     int8_work, f32(first("kchunked", "w64_nhwc"))),
+        check_kernel("fused_block128_nhwc", kc128.fused_block128_nhwc,
+                     kc128.block128_nhwc_plain, on("block128", "w64_nhwc"),
+                     conv_tol, block128_work, f32(first("block128", "w64_nhwc"))),
     ]
-    meta_rows = {
+    xk7 = torch.randn((1, 272, 480, 512), generator=gen, device="cuda").bfloat16()
+    wk7 = torch.randint(-127, 127, (9, 512, 512), generator=gen, device="cuda",
+                        dtype=torch.int8)
+    k_rows, co_tile = kc7.pick_tiles(272, 480, 512, 512)
+    k7_call = ((xk7, wk7, torch.full((512,), 1e-3, device="cuda"),
+                torch.zeros(512, device="cuda")),
+               dict(k_rows=k_rows, co_tile=co_tile, negative_slope=0.2,
+                    out_dtype=torch.bfloat16))
+    entries += [
+        # same integers and float32 steps: one output rounding at most
+        check_kernel("conv3x3_int8_nhwc", kc7.conv3x3_int8_nhwc,
+                     lambda *a, co_tile=None, **k: kc7.conv3x3_int8_plain(*a, **k),
+                     [("w64_dec_1a", [k7_call])], rel_tol(1e-2),
+                     conv3x3_int8_work,
+                     (f32(k7_call)[0], dict(k7_call[1], out_dtype=torch.float32))),
+        check_kernel("fused_conv_block_nhwc", kcb.fused_conv_block_nhwc,
+                     kcb.conv_block_nhwc_plain, on("nhwc", "w64_nhwc"), conv_tol,
+                     conv_nhwc_work, f32(first("nhwc", "w64_nhwc", 1))),
+    ]
+    del calls
+    # a yardstick for K7, not the same function: cuDNN's bf16 conv at its shape
+    wbf = wk7.to(torch.bfloat16).permute(2, 1, 0).reshape(512, 512, 3, 3).contiguous()
+    xbf = xk7.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    emit({"phase": "kernel_yardstick", "name": "conv3x3_int8_nhwc",
+          "bf16_cudnn_conv_ms": cuda_ms(lambda: torch.nn.functional.conv2d(
+              xbf, wbf.contiguous(memory_format=torch.channels_last), padding=1))})
+
+    # the constant weight preparation every w64 frame repeats: the int8
+    # quantization of the int8 blocks' weights, as ConvBlock calls it
+    int8_blocks = [getattr(e64_nhwc.model, b) for b in ("dec_0", "dec_1")]
+    emit({"phase": "weight_prep", "blocks": ["dec_0", "dec_1"],
+          "ms_per_frame": cuda_ms(lambda: [deploy.int8_weights(
+              b.conv_a.weight.permute(2, 3, 1, 0),
+              b.conv_b.weight.permute(2, 3, 1, 0)) for b in int8_blocks])})
+
+    # the w64 forward through the kernels against every kernel's plain version
+    plain = [(*wrappers["scrub"], kfu.scrub_standardize_plain),
+             (*wrappers["u8"], kfu.mask_to_u8_plain),
+             (*wrappers["convblock"],
+              lambda *a, taps=None, **k: kcb.conv_block_chw_plain(*a, **k)),
+             (*wrappers["nhwc"], kcb.conv_block_nhwc_plain),
+             (*wrappers["int8"], kb8.block_int8_nhwc_plain),
+             (*wrappers["kchunked"], kb8.block_int8_kchunked_plain),
+             (*wrappers["block128"], kc128.block128_nhwc_plain)]
+    for engine64 in (e64_nhwc, e64_chw):
+        vs_plain_phase(engine64, frames64, plain, KERNELS)
+    for layout, quantize in (("nhwc", "int8"), ("chw", "int8"),
+                             ("nhwc", "none")):
+        vs_plain_phase(InferenceEngine(
+            None, v64, layout=layout, **dict(kw, dtype=torch.float32,
+                                             quantize=quantize)),
+            frames64, plain, KERNELS)
+
+    sources = {
         "fused_scrub_standardize": ("pcss_unet_tpu_torch/csrc/fused.cu",
                                     "pcss_unet_tpu/ops/pallas/fused.py:57"),
         "fused_conv_block_chw": ("pcss_unet_tpu_torch/csrc/convblock.cu",
@@ -303,55 +613,37 @@ def main() -> int:
                                   "pcss_unet_tpu/ops/pallas/block_int8.py:112"),
         "fused_mask_to_u8": ("pcss_unet_tpu_torch/csrc/fused.cu",
                              "pcss_unet_tpu/ops/pallas/fused.py:97"),
+        "fused_block_int8_kchunked": ("pcss_unet_tpu_torch/csrc/block_int8.cu",
+                                      "pcss_unet_tpu/ops/pallas/block_int8.py:241"),
+        "fused_block128_nhwc": ("pcss_unet_tpu_torch/csrc/convblock128.cu",
+                                "pcss_unet_tpu/ops/pallas/convblock128.py:91"),
+        "conv3x3_int8_nhwc": ("pcss_unet_tpu_torch/csrc/conv3x3_int8.cu",
+                              "pcss_unet_tpu/ops/pallas/conv3x3_int8.py:116"),
+        "fused_conv_block_nhwc": ("pcss_unet_tpu_torch/csrc/convblock.cu",
+                                  "pcss_unet_tpu/ops/pallas/convblock.py:428"),
     }
 
-    # ----------------------------------------------------------- golden
-    psnrs = []
-    for x, y in zip(xv, yv):
-        pred = engine(x)[..., 0]
-        psnrs.append(10 * math.log10(1.0 / max(float(np.mean((pred - y[..., 0]) ** 2)), 1e-12)))
-    psnr = float(np.mean(psnrs))
-    with no_tf32():
-        e32 = InferenceEngine(None, variables, dtype=torch.float32,
-                              device="cuda", **kw)
-        c32 = InferenceEngine(None, variables, dtype=torch.float32,
-                              device="cpu", **kw)
-        d_cpu = max(float(np.abs(e32(x) - c32(x)).max()) for x in xv)
-    emit({"phase": "golden", "psnr_db_bf16": psnr, "min_psnr_db": 11.69,
-          "max_abs_err_f32_card_vs_cpu": d_cpu, "tol": 2e-2})
-    if not psnr >= 11.69:
-        raise AssertionError(f"golden PSNR {psnr} < 11.69 dB")
-    if not d_cpu <= 2e-2:
-        raise AssertionError(f"float32 card vs CPU mask max |d| {d_cpu}")
-
-    # -------------------------------------------------------- main path
-    engine.render_u8(frames)            # warm
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    outs = [engine.render_u8(frames) for _ in range(MAIN_FRAMES)]
-    torch.cuda.synchronize()
-    frame_ms = (time.perf_counter() - t0) / MAIN_FRAMES * 1e3
-    launches = {k.__name__: k.launches for k in KERNELS}
-    want = {"fused_scrub_standardize": 1, "fused_conv_block_chw": 6,
-            "fused_block_int8_nhwc": 1, "fused_mask_to_u8": 1}
-    for name, per_frame in want.items():
-        if launches[name] != per_frame * MAIN_FRAMES:
-            raise AssertionError(f"{name}: {launches[name]} launches in "
-                                 f"{MAIN_FRAMES} frames, want {per_frame} each")
-    out = outs[-1]
-    if (tuple(out.shape) != (1, FRAME_H, FRAME_W, 1) or out.dtype != torch.uint8
-            or not torch.equal(out, outs[0]) or out.min() == out.max()):
-        raise AssertionError(f"bad main-path output {tuple(out.shape)} {out.dtype}")
-    emit({"phase": "main_path", "frames": MAIN_FRAMES,
-          "frame_hw": [FRAME_H, FRAME_W], "ms_per_frame": frame_ms,
-          "launches": launches, "card": card})
-    emit(profile_frame(engine, frames, frame_ms))
+    # ------------------------------------------------ golden, main paths
+    golden_phase("golden", variables, meta, xv, yv, "chw")
+    runs = [main_path("main_path", engine, frames, MAIN_FRAMES, {
+        "fused_scrub_standardize": 1, "fused_conv_block_chw": 6,
+        "fused_block_int8_nhwc": 1, "fused_mask_to_u8": 1}, card)]
+    golden_phase("golden_nhwc", variables, meta, xv, yv, "nhwc")
+    runs.append(main_path("main_path_w64_nhwc", e64_nhwc, frames64, W64_FRAMES, {
+        "fused_scrub_standardize": 1, "fused_conv_block_nhwc": 3,
+        "fused_conv_block_chw": 3, "fused_block_int8_nhwc": 1,
+        "fused_block_int8_kchunked": 1, "fused_block128_nhwc": 1,
+        "fused_mask_to_u8": 1}, card))
+    runs.append(main_path("main_path_w64_chw", e64_chw, frames64, W64_FRAMES, {
+        "fused_scrub_standardize": 1, "fused_conv_block_chw": 4,
+        "fused_block_int8_nhwc": 1, "fused_block_int8_kchunked": 1,
+        "fused_mask_to_u8": 1}, card))
 
     for e in entries:
         e["route"] = "cuda"
-        e["source"], e["replaces"] = meta_rows[e["name"]]
-        e["launches"] = launches[e["name"]]
+        e["source"], e["replaces"] = sources[e["name"]]
+        e["launches"] = sum(r[e["name"]] for r in runs)
+    emit({"library_ms_null_because": NO_LIBRARY})
     emit({"kernels": [{k: e[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -1,108 +1,41 @@
-// K3: whole int8 ConvBlock in NHWC (replaces
-// pcss_unet_tpu/ops/pallas/block_int8.py::fused_block_int8_nhwc, body _kernel).
+// K3 and K5: a whole folded ConvBlock in int8 on NHWC (replace
+// pcss_unet_tpu/ops/pallas/block_int8.py::fused_block_int8_nhwc, body
+// _kernel, and ::fused_block_int8_kchunked, body _kchunk_kernel).
 //
 // Per band of k_rows rows:
-//   a1 = max|band rows and one halo row above and below| / 127 + 1e-12
-//        (halo rows outside the frame count as zero)
-//   acc = 3x3 SAME conv of quant(x, a1) with the int8 weights, int32 sums
-//   h = bf16(leaky(acc * (a1 * s1) + b1))
+//   a1_j = max|band rows and one halo row above and below, channels of chunk j|
+//          / 127 + 1e-12   (halo rows outside the frame count as zero)
+//   f = sum over chunks j, in order, of f32(int32 3x3 of quant(x_j, a1_j)) * (a1_j * s1)
+//   h = leaky(f + b1)            K3: one chunk (all C), h rounded to bf16
+//                                K5: C / c_chunk chunks, h kept in float32
 //   a2 = max|h over the band| / 127 + 1e-12
 //   out = leaky(int8 1x1 of quant(h, a2) * (a2 * s2) + b2), stored in x's dtype
-// quant(v, s) = clip(rint(v / s), -127, 127) with true division.
+// quant(v, s) = clip(rint(v / s), -127, 127) with true division.  The two
+// kernels differ only in the chunking and in h's type: K3 casts h to bf16
+// before a2, K5 does not, as in the reference.
 //
 // Both scales reduce over a whole band, and blocks run in no order, so the
 // block is three launches on one stream:
-//   1. rowmax_kernel: max|x| of every input row (the band scale a1 is the max
-//      of k_rows + 2 row maxima), and zero the per-band max |h|;
-//   2. conv3x3_kernel: stage three input rows quantized with the band's a1 in
-//      shared memory, 3x3 through taps.cuh (__dp4a on int8), dequantize, bias,
-//      leaky, bf16 h into a scratch tensor, per-band max |h| by atomicMax on
-//      the float bits (non-negative floats order like their bits);
+//   1. rowmax_kernel: max|x| of every (row, chunk), and zero the per-band max |h|;
+//   2. conv3x3_int8_kernel (int8_conv.cuh): the 3x3, chunks in order so the
+//      float32 sum order is fixed, h into a scratch tensor, per-band max |h|;
 //   3. pointwise_kernel: quantize h by a2, int8 1x1, dequantize, bias, leaky,
 //      store.
 //
-// What bounds it on the H100: at w16 dec_0 (x [1,128,256,256], Cmid 256,
-// Cout 128) the block does 20.4 G int8 multiply-adds (bound 0.02 ms at the
-// 1979 TOP/s int8 tensor-core rate) and moves ~25 MB (~0.008 ms): operations.
-// This first kernel runs them as __dp4a on the CUDA cores, well below the
-// tensor-core rate; the h scratch round trip adds 2x16 MB.
-#include "common.cuh"
-#include "taps.cuh"
+// What bounds them on the H100: at w16 dec_0 (K3, x [1,128,256,256], Cmid
+// 256, Cout 128) 20.4 G int8 multiply-adds, at w64 dec_0 (K5, x
+// [1,136,240,1024], Cmid 1024, Cout 512) 325 G: operations (0.02 / 0.33 ms
+// at the 1979 TOP/s int8 tensor-core rate) far above the bytes (~25 / ~135 MB).
+// These first kernels run them as __dp4a on the CUDA cores, well below the
+// tensor-core rate; the h scratch round trip adds 2 x 16 MB (K3) and
+// 2 x 134 MB (K5, float32 h).
+#include "int8_conv.cuh"
 
 namespace {
 
-constexpr int PX = 32;  // output pixels (columns of one row) per block
-
-template <typename T>
-__global__ void rowmax_kernel(const T* __restrict__ x, float* __restrict__ rowmax,
-                              unsigned int* __restrict__ bandmax, int row_elems, int h,
-                              int k_rows) {
-  const T* xr = x + (size_t)blockIdx.x * row_elems;
-  float m = 0.f;
-  for (int i = threadIdx.x; i < row_elems; i += blockDim.x) m = fmaxf(m, fabsf(to_float(xr[i])));
-  m = block_max(m);
-  if (threadIdx.x == 0) {
-    rowmax[blockIdx.x] = m;
-    const int row = blockIdx.x % h;
-    if (row % k_rows == 0) bandmax[(blockIdx.x / h) * (h / k_rows) + row / k_rows] = 0u;
-  }
-}
-
-template <typename T>
-__global__ void conv3x3_kernel(const T* __restrict__ x, const int4* __restrict__ w1p,
-                               const float* __restrict__ s1, const float* __restrict__ b1,
-                               const float* __restrict__ rowmax,
-                               unsigned int* __restrict__ bandmax,
-                               __nv_bfloat16* __restrict__ hbuf, int h, int w, int c, int cmid,
-                               int k_rows, float slope) {
-  extern __shared__ int4 smem4[];
-  int8_t* xq = reinterpret_cast<int8_t*>(smem4);  // [3][PX + 2][c]
-  const int col0 = blockIdx.x * PX, row = blockIdx.y, n = blockIdx.z;
-  const int band = row / k_rows, nbands = h / k_rows;
-
-  float amax = 0.f;
-  const int r_lo = max(band * k_rows - 1, 0), r_hi = min(band * k_rows + k_rows, h - 1);
-  for (int r = r_lo; r <= r_hi; ++r) amax = fmaxf(amax, rowmax[n * h + r]);
-  const float a1 = __fadd_rn(__fdiv_rn(amax, 127.f), 1e-12f);
-
-  const int tile = 3 * (PX + 2) * c;
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const int ch = i % c, col = (i / c) % (PX + 2), r = i / (c * (PX + 2));
-    const int gr = row + r - 1, gc = col0 + col - 1;
-    float v = 0.f;
-    if (gr >= 0 && gr < h && gc >= 0 && gc < w)
-      v = to_float(x[(((size_t)n * h + gr) * w + gc) * c + ch]);
-    xq[i] = quant_i8(v, a1);
-  }
-  __syncthreads();
-
-  const int cw16 = c / 16;
-  float hmax = 0.f;
-  for (int m = threadIdx.x; m < cmid; m += blockDim.x) {
-    int acc[PX];
-#pragma unroll
-    for (int p = 0; p < PX; ++p) acc[p] = 0;
-    conv3x3_band_taps_i8<PX>(smem4, cw16, w1p + m, cmid, acc);
-    const float scale = __fmul_rn(a1, s1[m]);
-#pragma unroll
-    for (int p = 0; p < PX; ++p) {
-      const int col = col0 + p;
-      if (col < w) {
-        const float v = leaky(__fadd_rn(__fmul_rn(__int2float_rn(acc[p]), scale), b1[m]), slope);
-        const __nv_bfloat16 hb = __float2bfloat16_rn(v);
-        hbuf[(((size_t)n * h + row) * w + col) * cmid + m] = hb;
-        hmax = fmaxf(hmax, fabsf(__bfloat162float(hb)));
-      }
-    }
-  }
-  hmax = block_max(hmax);
-  if (threadIdx.x == 0) atomicMax(&bandmax[n * nbands + band], __float_as_uint(hmax));
-}
-
-template <typename T>
-__global__ void pointwise_kernel(const __nv_bfloat16* __restrict__ hbuf,
-                                 const int4* __restrict__ w2p, const float* __restrict__ s2,
-                                 const float* __restrict__ b2,
+template <typename T, typename HT>
+__global__ void pointwise_kernel(const HT* __restrict__ hbuf, const int4* __restrict__ w2p,
+                                 const float* __restrict__ s2, const float* __restrict__ b2,
                                  const unsigned int* __restrict__ bandmax, T* __restrict__ out,
                                  int h, int w, int cmid, int cout, int k_rows, float slope) {
   extern __shared__ int4 smem4[];
@@ -114,8 +47,7 @@ __global__ void pointwise_kernel(const __nv_bfloat16* __restrict__ hbuf,
 
   for (int i = threadIdx.x; i < PX * cmid; i += blockDim.x) {
     const int p = i / cmid, m = i % cmid, col = col0 + p;
-    const float v =
-        col < w ? __bfloat162float(hbuf[(((size_t)n * h + row) * w + col) * cmid + m]) : 0.f;
+    const float v = col < w ? to_float(hbuf[(((size_t)n * h + row) * w + col) * cmid + m]) : 0.f;
     hq[i] = quant_i8(v, a2);
   }
   __syncthreads();
@@ -148,37 +80,21 @@ __global__ void pointwise_kernel(const __nv_bfloat16* __restrict__ hbuf,
   }
 }
 
-int threads_for(int channels) {
-  const int t = ((channels + 31) / 32) * 32;
-  return t > 256 ? 256 : t;
-}
-
-template <typename T>
+template <typename T, typename HT>
 int launch(const void* x, const void* w1p, const void* s1, const void* b1, const void* w2p,
            const void* s2, const void* b2, void* out, void* rowmax, void* bandmax, void* hbuf,
-           int n, int h, int w, int c, int cmid, int cout, int k_rows, float slope,
+           int n, int h, int w, int c, int c_chunk, int cmid, int cout, int k_rows, float slope,
            cudaStream_t stream) {
-  rowmax_kernel<T><<<n * h, 256, 0, stream>>>((const T*)x, (float*)rowmax,
-                                              (unsigned int*)bandmax, w * c, h, k_rows);
-  PCSS_CHECK_LAUNCH();
-
-  const dim3 grid((w + PX - 1) / PX, h, n);
-  const size_t smem_conv = (size_t)3 * (PX + 2) * c;
-  cudaError_t e = cudaFuncSetAttribute(conv3x3_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem_conv);
-  if (e != cudaSuccess) return (int)e;
-  conv3x3_kernel<T><<<grid, threads_for(cmid), smem_conv, stream>>>(
-      (const T*)x, (const int4*)w1p, (const float*)s1, (const float*)b1, (const float*)rowmax,
-      (unsigned int*)bandmax, (__nv_bfloat16*)hbuf, h, w, c, cmid, k_rows, slope);
-  PCSS_CHECK_LAUNCH();
-
+  int e = launch_conv3x3_int8<T, HT>(x, w1p, s1, b1, rowmax, bandmax, hbuf, n, h, w, c, c_chunk,
+                                     cmid, cmid, k_rows, slope, 1, stream);
+  if (e) return e;
   const size_t smem_pw = (size_t)PX * cmid;
-  e = cudaFuncSetAttribute(pointwise_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem_pw);
-  if (e != cudaSuccess) return (int)e;
-  pointwise_kernel<T><<<grid, threads_for(cout), smem_pw, stream>>>(
-      (const __nv_bfloat16*)hbuf, (const int4*)w2p, (const float*)s2, (const float*)b2,
+  cudaError_t ce = cudaFuncSetAttribute(pointwise_kernel<T, HT>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_pw);
+  if (ce != cudaSuccess) return (int)ce;
+  const dim3 grid((w + PX - 1) / PX, h, n);
+  pointwise_kernel<T, HT><<<grid, threads_for(cout), smem_pw, stream>>>(
+      (const HT*)hbuf, (const int4*)w2p, (const float*)s2, (const float*)b2,
       (const unsigned int*)bandmax, (T*)out, h, w, cmid, cout, k_rows, slope);
   PCSS_CHECK_LAUNCH();
   return 0;
@@ -188,21 +104,31 @@ int launch(const void* x, const void* w1p, const void* s1, const void* b1, const
 
 extern "C" {
 
-// x [n,h,w,c]; w1p int8 [9][c/16][cmid][16]; w2p int8 [cmid/16][cout][16];
-// s1/b1 [cmid], s2/b2 [cout] float32.  Scratch: rowmax float32 [n*h],
-// bandmax uint32 [n*h/k_rows], hbuf bf16 [n,h,w,cmid].
+// x [n,h,w,c] bf16 or float32; w1p int8 [9][c/16][cmid][16]; w2p int8
+// [cmid/16][cout][16]; s1/b1 [cmid], s2/b2 [cout] float32.  K3: c_chunk = c,
+// hbuf bf16; K5: c_chunk < c, hbuf float32 (hidden_f32).  Scratch: rowmax
+// float32 [n*h*(c/c_chunk)], bandmax uint32 [n*h/k_rows], hbuf [n,h,w,cmid].
 int pcss_block_int8_nhwc(const void* x, const void* w1p, const void* s1, const void* b1,
                          const void* w2p, const void* s2, const void* b2, void* out,
                          void* rowmax, void* bandmax, void* hbuf, int n, int h, int w, int c,
-                         int cmid, int cout, int k_rows, float slope, int is_bf16,
-                         void* stream) {
-  if (c % 16 || cmid % 16 || k_rows < 1 || h % k_rows) return (int)cudaErrorInvalidValue;
+                         int c_chunk, int cmid, int cout, int k_rows, float slope, int is_bf16,
+                         int hidden_f32, void* stream) {
+  if (c % 16 || cmid % 16 || c_chunk < 16 || c_chunk % 16 || c % c_chunk || k_rows < 1 ||
+      h % k_rows)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16 && hidden_f32)
+    return launch<__nv_bfloat16, float>(x, w1p, s1, b1, w2p, s2, b2, out, rowmax, bandmax, hbuf,
+                                        n, h, w, c, c_chunk, cmid, cout, k_rows, slope, s);
   if (is_bf16)
-    return launch<__nv_bfloat16>(x, w1p, s1, b1, w2p, s2, b2, out, rowmax, bandmax, hbuf, n, h,
-                                 w, c, cmid, cout, k_rows, slope, s);
-  return launch<float>(x, w1p, s1, b1, w2p, s2, b2, out, rowmax, bandmax, hbuf, n, h, w, c, cmid,
-                       cout, k_rows, slope, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(x, w1p, s1, b1, w2p, s2, b2, out, rowmax,
+                                                bandmax, hbuf, n, h, w, c, c_chunk, cmid, cout,
+                                                k_rows, slope, s);
+  if (hidden_f32)
+    return launch<float, float>(x, w1p, s1, b1, w2p, s2, b2, out, rowmax, bandmax, hbuf, n, h,
+                                w, c, c_chunk, cmid, cout, k_rows, slope, s);
+  return launch<float, __nv_bfloat16>(x, w1p, s1, b1, w2p, s2, b2, out, rowmax, bandmax, hbuf,
+                                      n, h, w, c, c_chunk, cmid, cout, k_rows, slope, s);
 }
 
 }  // extern "C"

@@ -10,18 +10,19 @@
 //
 // Tap t = dy*3 + dx + 1 with dy in {0,1,2} (ext row) and dx in {-1,0,1}: the
 // order of an HWIO kernel reshaped to [9, C, Co], as the reference uses.
-// The int8 block kernel uses this now; the bf16 block kernels and the single
-// int8 conv reuse the same tap order when they are ported.
+// The int8 kernels (whole block, k-chunked block, single conv) use it; the
+// bf16 block kernels keep the same tap order in their own float loops.
 #pragma once
 
 #include "common.cuh"
 
-// acc[p] += sum over taps and input channels of ext * w for one output
-// channel, int8 x int8 -> int32 with __dp4a on 16-channel int4 words.
+// acc[p] += sum over taps and the input-channel words [k0, k1) of ext * w for
+// one output channel, int8 x int8 -> int32 with __dp4a on 16-channel int4
+// words.  [k0, k1) is the whole channel range or one contraction chunk.
 //   ext    the tile above, as int4 words: [3][PX + 2][cw16]
 //   wtap   this output channel's weights: word (t, k) at wtap[(t*cw16 + k)*wstride]
 template <int PX>
-__device__ __forceinline__ void conv3x3_band_taps_i8(const int4* ext, int cw16,
+__device__ __forceinline__ void conv3x3_band_taps_i8(const int4* ext, int cw16, int k0, int k1,
                                                      const int4* __restrict__ wtap,
                                                      int wstride, int (&acc)[PX]) {
 #pragma unroll 1
@@ -29,7 +30,7 @@ __device__ __forceinline__ void conv3x3_band_taps_i8(const int4* ext, int cw16,
     const int dy = t / 3, dxp1 = t % 3;  // dxp1 = dx + 1
     const int4* xrow = ext + (dy * (PX + 2) + dxp1) * cw16;
 #pragma unroll 1
-    for (int k = 0; k < cw16; ++k) {
+    for (int k = k0; k < k1; ++k) {
       const int4 wv = __ldg(wtap + (size_t)(t * cw16 + k) * wstride);
 #pragma unroll
       for (int p = 0; p < PX; ++p) {

@@ -12,15 +12,15 @@ whole forward:
 - pools, upsamples, the folded head resize and the skip-adds work on the
   padded tensor (resize matrices are zero-padded, so pad columns stay zero)
 - wide stages with no channels-major kernel are plain convolutions, except
-  where the int8 gate sends them through the NHWC K3 kernel
-  (``fused_block_int8_nhwc``) in a local NHWC interlude
+  where the int8 gate sends them through the NHWC int8 kernels (K3
+  ``fused_block_int8_nhwc``, or K5 ``fused_block_int8_kchunked`` where K3's
+  weights would not fit) in a local NHWC interlude; with ``wide="nhwc"``
+  the 128-channel stages there take K6 ``fused_block128_nhwc``
 - exit: slice, pixel shuffle, sigmoid back to [N, H, W, out_ch]
 
 Semantics match ``UNet`` at inference on BN-folded variables; pinned against
 the reference engine by ``tests/test_torch_chw_engine.py``.  The stage
-routing is the reference's: the same gates pick the same kernels.  Stages
-whose reference kernel is not ported yet raise ``NotImplementedError``
-instead of running plain code.
+routing is the reference's: the same gates pick the same kernels.
 """
 
 from __future__ import annotations
@@ -30,11 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from pcss_unet_tpu_torch.models.unet import widths_from_params
-from pcss_unet_tpu_torch.ops.int8 import quantize_kernel_int8
-from pcss_unet_tpu_torch.ops.kernels.block_int8 import (fused_block_int8_nhwc,
-                                                        pick_k_rows_int8,
-                                                        pick_kchunked)
 from pcss_unet_tpu_torch.ops.kernels.convblock import fused_conv_block_chw
+from pcss_unet_tpu_torch.ops.kernels.deploy import block_kernel_nhwc
 from pcss_unet_tpu_torch.ops.resize import (apply_matrix,
                                             compose_resize_matrices,
                                             interp_matrix)
@@ -137,55 +134,25 @@ def _block_nhwc_plain(x, p, dtype):
     return hid.permute(0, 2, 3, 1)
 
 
-def _pick_k_rows_128(h: int, w: int, c: int, cout: int) -> int | None:
-    """Copy of the reference's ``convblock128.pick_k_rows_128``: whether its
-    NHWC 128-channel kernel (not ported yet) would take a stage."""
-    if c % 128 or cout % 64:
-        return None
-    budget = 14 * 1024 * 1024
-    for k in (8, 4, 2):
-        if h % k or (k * w) % 16:
-            continue
-        bands = 3 * 2 * k * w * c * 2
-        ext = (k + 2) * w * c * 2
-        taps = 2 * k * w * c * 2
-        acc = k * w * c * 4
-        hbuf = k * w * c * 2
-        acc2 = k * w * cout * 4
-        out = 2 * k * w * cout * 2
-        wgt = (9 * c * c + c * cout) * 2
-        if bands + ext + taps + acc + hbuf + acc2 + out + wgt <= budget:
-            return k
-    return None
+def _int8_stage(cin: int, cout: int) -> bool:
+    """The reference's int8 gate on a block's channel counts."""
+    return cin >= 256 and (cin * cout < 2 ** 18 or cin >= 1024)
 
 
 def _block_nhwc_dispatch(x, p, *, dtype, int8: bool):
     """NHWC-interlude block dispatch with the reference's gates: the int8
-    whole-block kernel for the ≥256-in stages, the 128-channel NHWC kernel
-    when it fits, plain convolutions otherwise."""
-    _, h, w, cin = x.shape
+    whole-block kernels for the int8 stages, the 128-channel kernel (K6)
+    for the 128-in stages, each where its shape pick fits
+    (``ops.kernels.deploy``); plain convolutions otherwise."""
+    cin = x.shape[3]
     cout = p["conv_b"]["kernel"].shape[-1]
-    if int8 and cin >= 256 and (cin * cout < 2 ** 18 or cin >= 1024):
-        k = pick_k_rows_int8(h, w, cin, cout)
-        if k:
-            dev = x.device
-            w1q, s1 = quantize_kernel_int8(_param(p["conv_a"]["kernel"], dev))
-            w2q, s2 = quantize_kernel_int8(_param(p["conv_b"]["kernel"], dev))
-            return fused_block_int8_nhwc(
-                x.to(dtype), w1q.reshape(9, *w1q.shape[2:]), s1,
-                _param(p["conv_a"]["bias"], dev).float(), w2q[0, 0], s2,
-                _param(p["conv_b"]["bias"], dev).float(), k_rows=k,
-                negative_slope=0.2)
-        if pick_kchunked(h, w, cin, cout):
-            raise NotImplementedError(
-                f"int8 stage {cin}→{cout} at {h}x{w} needs the k-chunked int8 "
-                "kernel (fused_block_int8_kchunked), not ported yet: ROADMAP "
-                "Queue 2, item 3")
-    if cin == 128 and cout <= 128 and _pick_k_rows_128(h, w, cin, cout):
-        raise NotImplementedError(
-            f"stage {cin}→{cout} at {h}x{w} needs the NHWC 128-channel kernel "
-            "(fused_block128_nhwc), not ported yet: ROADMAP Queue 2, item 6")
-    return _block_nhwc_plain(x, p, dtype)
+    dev = x.device
+    hit = block_kernel_nhwc(
+        x, _param(p["conv_a"]["kernel"], dev), _param(p["conv_a"]["bias"], dev),
+        _param(p["conv_b"]["kernel"], dev), _param(p["conv_b"]["bias"], dev),
+        dtype=dtype, int8=int8 and _int8_stage(cin, cout),
+        block128=cin == 128 and cout <= 128)
+    return _block_nhwc_plain(x, p, dtype) if hit is None else hit[1]
 
 
 def _to_nhwc(x: torch.Tensor, w: int) -> torch.Tensor:
@@ -246,8 +213,7 @@ def chw_forward(variables: dict, x: torch.Tensor, *,
         if _chw_fusable(cin, cout, use128_chw):
             return _block_chw(x, p, cur_w, taps=t, dtype=dtype,
                               residual=residual)
-        int8_stage = (int8 and cin >= 256
-                      and (cin * cout < 2 ** 18 or cin >= 1024))
+        int8_stage = int8 and _int8_stage(cin, cout)
         if wide == "einsum" or (wide == "auto" and not int8_stage):
             return _block_chw_plain(x, p, dtype=dtype, residual=residual)
         out = _to_chw(_block_nhwc_dispatch(_to_nhwc(x, cur_w), p,

@@ -5,12 +5,15 @@ to ``pad_multiple``, NaN/Inf-scrubbed and standardized (the K1 kernel),
 run through the network, scrubbed and clipped to [0, 1]; ``render_u8``
 adds the serving quantization (the K4 kernel).
 
-``layout="chw"`` is the deployment posture: the channels-major engine
-(``infer.chw_engine``) with the K2 and K3 kernels.  ``layout="nhwc"`` runs
-the plain module forward (``models.unet.UNet``).  The engine runs on the card
-(``device="cuda"``, the default) or, with ``device="cpu"``, on the plain
-versions of the kernels.  The reference's ``use_pallas`` and
-``pallas_interpret`` switches have no counterpart: the device decides.
+``layout="chw"`` runs the channels-major engine (``infer.chw_engine``);
+``layout="nhwc"`` runs the module forward (``models.unet.UNet``).  With
+``fold_bn`` either one is a deployment posture: the module gets the
+reference's ``fused_inference`` switch (and ``int8_inference`` with
+``quantize="int8"``), so its blocks take the same kernels the reference's
+gates pick.  The engine runs on the card (``device="cuda"``, the default)
+or, with ``device="cpu"``, on the plain versions of the kernels, with the
+same routing.  The reference's ``use_pallas`` and ``pallas_interpret``
+switches have no counterpart: the device decides.
 """
 
 from __future__ import annotations
@@ -88,16 +91,6 @@ class InferenceEngine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: the engine runs on the card "
                                "unless device='cpu' is passed")
-        if layout == "nhwc" and self.device.type == "cuda" and (
-                fold_bn or quantize == "int8"):
-            raise NotImplementedError(
-                "layout='nhwc' with fold_bn/int8 on the card needs the NHWC "
-                "block kernels (fused_block128_nhwc, fused_conv_block_nhwc), "
-                "not ported yet: ROADMAP Queue 2, item 6; use layout='chw'")
-        if quantize == "int8" and layout == "nhwc":
-            raise NotImplementedError(
-                "quantize='int8' with layout='nhwc' is not ported yet; "
-                "use layout='chw'")
         if fold_bn:
             variables = fold_batchnorm(variables)
         self.layout = layout
@@ -114,8 +107,10 @@ class InferenceEngine:
             pad_multiple = max(pad_multiple, 2 ** len(widths))
             self.model = None
         else:
-            self.model = unet_for_variables(variables, dtype=dtype,
-                                            device=self.device)
+            self.model = unet_for_variables(
+                variables, dtype=dtype, device=self.device,
+                fused_inference=fold_bn,
+                int8_inference=fold_bn and quantize == "int8")
         self.pad_multiple = pad_multiple
 
     def _preprocess(self, x: torch.Tensor) -> torch.Tensor:

@@ -13,9 +13,18 @@ Same architecture and parameter names as the reference:
 - odd-size inputs resized to even first
 
 Frames are NHWC at the public interface, as in the reference; inside, the
-modules run NCHW.  This is the plain forward of ``layout="nhwc"`` and the
-tests' reference for the channels-major engine.  Training-only parts of the
-reference (remat, spatial windows) are not ported yet.
+modules run NCHW.  This is the forward of ``layout="nhwc"`` and the tests'
+reference for the channels-major engine.
+
+The deployment posture (``fused_inference`` / ``int8_inference`` on a
+BN-folded net at eval) routes each ConvBlock as the reference's gates do
+(``_int8able``, ``_fusable128``, ``_fusable``, same precedence): int8
+whole-block kernels (K3, or K5 where K3's weights would not fit) for the
+≥256-channel inputs, the NHWC 128-channel kernel (K6), the channels-major
+kernel through its NHWC wrapper (K2′) for ≤64-channel inputs, plain
+convolutions otherwise.  The kernels take NHWC; the NCHW activations reach
+them as permuted views.  Training-only parts of the reference (remat,
+spatial windows) are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,12 +36,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pcss_unet_tpu_torch.ops.kernels.convblock import fused_conv_block_nhwc
+from pcss_unet_tpu_torch.ops.kernels.deploy import block_kernel_nhwc
 from pcss_unet_tpu_torch.ops.pixelshuffle import (pixel_shuffle_nhwc,
                                                   pixel_unshuffle_nhwc)
 from pcss_unet_tpu_torch.ops.resize import (apply_matrix,
                                             compose_resize_matrices,
                                             interp_matrix,
                                             resize_bilinear_align_corners)
+
 
 def _norm(normalization: str, ch: int) -> nn.Module:
     if normalization == "batch_norm":
@@ -51,21 +63,74 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 class ConvBlock(nn.Module):
     """3×3 conv → norm → LeakyReLU(0.2) → Dropout2d → 1×1 conv → norm →
     LeakyReLU(0.2), on NCHW.  BatchNorm runs in float32; activations are
-    cast back to ``dtype``."""
+    cast back to ``dtype``.  ``fused_inference`` / ``int8_inference`` turn
+    on the deployment kernels for folded (``normalization='none'``) blocks
+    at eval."""
 
     def __init__(self, in_ch: int, features: int, dropout_rate: float = 0.2,
                  normalization: str = "batch_norm",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 fused_inference: bool = False, int8_inference: bool = False):
         super().__init__()
         self.bn = normalization == "batch_norm"
         self.dtype = dtype
+        self.features = features
+        self.fused_inference = fused_inference
+        self.int8_inference = int8_inference
+        self.route = None    # the path the last forward took (route log)
         self.conv_a = nn.Conv2d(in_ch, in_ch, 3, padding=1)
         self.norm_a = _norm(normalization, in_ch)
         self.dropout = nn.Dropout2d(dropout_rate)    # inert at eval
         self.conv_b = nn.Conv2d(in_ch, features, 1)
         self.norm_b = _norm(normalization, features)
 
+    # The reference's deployment gates (pcss_unet_tpu/models/unet.py:138-182)
+    # on the NCHW input's channel count.  The port's activation is always
+    # LeakyReLU(0.2) and it has no dilation, so those terms are constant;
+    # normalization is 'batch_norm' or 'none' (folded).
+    def _deployable(self) -> bool:
+        return not self.training and not self.bn
+
+    def _fusable128(self, x: torch.Tensor) -> bool:
+        return (self.fused_inference and self._deployable()
+                and x.shape[1] == 128 and self.features <= 128)
+
+    def _fusable(self, x: torch.Tensor) -> bool:
+        return (self.fused_inference and self._deployable()
+                and x.shape[1] <= 64 and self.features <= 128)
+
+    def _int8able(self, x: torch.Tensor) -> bool:
+        cin = x.shape[1]
+        return (self.int8_inference and self._deployable() and cin >= 256
+                and (cin * self.features < 2 ** 18 or cin >= 1024))
+
+    def _kernel_block(self, x: torch.Tensor) -> torch.Tensor | None:
+        """The block through a deployment kernel (named in ``self.route``),
+        or None where the gates leave it to the plain convolutions."""
+        cin = x.shape[1]
+        xh = x.to(self.dtype).permute(0, 2, 3, 1)              # NHWC view
+        b1, b2 = self.conv_a.bias.float(), self.conv_b.bias.float()
+        hit = block_kernel_nhwc(
+            xh, self.conv_a.weight.permute(2, 3, 1, 0), b1,    # HWIO
+            self.conv_b.weight.permute(2, 3, 1, 0), b2, dtype=self.dtype,
+            int8=self._int8able(x), block128=self._fusable128(x))
+        if hit is not None:
+            self.route, out = hit
+            return out
+        if self._fusable(x):
+            w1 = self.conv_a.weight.permute(2, 3, 0, 1).reshape(9, cin, cin)
+            self.route = "fused_conv_block_nhwc"
+            return fused_conv_block_nhwc(
+                xh, w1.to(self.dtype), b1[:, None],
+                self.conv_b.weight[:, :, 0, 0].to(self.dtype), b2[:, None],
+                negative_slope=0.2)
+        return None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self._kernel_block(x)
+        if out is not None:
+            return out.permute(0, 3, 1, 2)
+        self.route = "plain"
         for conv, norm in ((self.conv_a, self.norm_a),
                            (self.conv_b, self.norm_b)):
             x = _conv(conv, x, self.dtype)
@@ -98,13 +163,16 @@ class UNet(nn.Module):
     (64, 128, 512, 1024); ``forward(x)`` takes NHWC frames [B, H, W, in_ch]
     and returns the sigmoid mask [B, H, W, out_ch] (float32 for float32
     input, else ``dtype``).  Call ``.eval()`` first: BatchNorm uses its
-    running statistics and dropout is inert only in eval mode."""
+    running statistics and dropout is inert only in eval mode.
+    ``fused_inference`` / ``int8_inference`` are the reference's deployment
+    switches (see the module docstring)."""
 
     def __init__(self, in_ch: int = 4, out_ch: int = 1,
                  dropout_rate: float = 0.2,
                  encoder_widths: Sequence[int] = (64, 128, 512, 1024),
                  normalization: str = "batch_norm",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 fused_inference: bool = False, int8_inference: bool = False):
         super().__init__()
         widths = tuple(encoder_widths)
         if len(widths) < 2:
@@ -113,7 +181,9 @@ class UNet(nn.Module):
         self.encoder_widths = widths
         self.normalization = normalization
         self.dtype = dtype
-        kw = dict(normalization=normalization, dtype=dtype)
+        kw = dict(normalization=normalization, dtype=dtype,
+                  fused_inference=fused_inference,
+                  int8_inference=int8_inference)
         prev = in_ch * 4
         for i, width in enumerate(widths):
             self.add_module(f"enc_{i}",
@@ -125,6 +195,11 @@ class UNet(nn.Module):
             prev = width
         self.dec_final = ConvBlock(prev, in_ch * 4, dropout_rate / 2, **kw)
         self.head = nn.Conv2d(in_ch * 4, out_ch * 4, 1)
+
+    def routes(self) -> dict[str, str | None]:
+        """Block name → the path its last forward took (the route log)."""
+        return {name: m.route for name, m in self.named_children()
+                if isinstance(m, ConvBlock)}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         orig_dtype = x.dtype
@@ -182,10 +257,13 @@ def widths_from_params(params) -> tuple[tuple[int, ...], int, int]:
 
 
 def unet_for_variables(variables: dict, *, dtype: torch.dtype = torch.float32,
-                       device: str | torch.device = "cuda") -> UNet:
+                       device: str | torch.device = "cuda",
+                       fused_inference: bool = False,
+                       int8_inference: bool = False) -> UNet:
     """Build the UNet a variables tree describes (widths, channels, and
     ``normalization='none'`` when the tree is BN-folded), load its weights,
-    and return it in eval mode on ``device``."""
+    and return it in eval mode on ``device``, with the given deployment
+    switches."""
     from pcss_unet_tpu_torch.models.torch_import import from_flax_variables
 
     params = variables["params"]
@@ -193,6 +271,7 @@ def unet_for_variables(variables: dict, *, dtype: torch.dtype = torch.float32,
     normalization = ("batch_norm" if "norm_a" in params["enc_0"]
                      else "none")
     model = UNet(in_ch=in_ch, out_ch=out_ch, encoder_widths=widths,
-                 normalization=normalization, dtype=dtype)
+                 normalization=normalization, dtype=dtype,
+                 fused_inference=fused_inference, int8_inference=int8_inference)
     model.load_state_dict(from_flax_variables(variables))
     return model.eval().to(device)

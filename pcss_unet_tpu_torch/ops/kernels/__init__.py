@@ -4,16 +4,22 @@ module, each with its plain PyTorch version beside it.
 Every wrapper takes the plain version for a CPU tensor and launches its
 kernel (or raises) for a CUDA tensor, and counts kernel launches in a
 ``launches`` attribute.  Sources live in ``pcss_unet_tpu_torch/csrc/`` and
-are built by ``_build`` at first use.
+are built by ``_build`` at first use.  ``deploy`` turns a folded block's
+weights into the int8 and 128-channel kernels' operands for both forwards.
 """
 
-from pcss_unet_tpu_torch.ops.kernels.block_int8 import fused_block_int8_nhwc
-from pcss_unet_tpu_torch.ops.kernels.convblock import fused_conv_block_chw
+from pcss_unet_tpu_torch.ops.kernels.block_int8 import (fused_block_int8_kchunked,
+                                                        fused_block_int8_nhwc)
+from pcss_unet_tpu_torch.ops.kernels.conv3x3_int8 import conv3x3_int8_nhwc
+from pcss_unet_tpu_torch.ops.kernels.convblock import (fused_conv_block_chw,
+                                                       fused_conv_block_nhwc)
+from pcss_unet_tpu_torch.ops.kernels.convblock128 import fused_block128_nhwc
 from pcss_unet_tpu_torch.ops.kernels.fused import (fused_mask_to_u8,
                                                    fused_scrub_standardize)
 
 KERNELS = (fused_scrub_standardize, fused_conv_block_chw,
-           fused_block_int8_nhwc, fused_mask_to_u8)
+           fused_block_int8_nhwc, fused_mask_to_u8, fused_block_int8_kchunked,
+           fused_block128_nhwc, conv3x3_int8_nhwc, fused_conv_block_nhwc)
 
 
 def reset_launch_counts() -> None:

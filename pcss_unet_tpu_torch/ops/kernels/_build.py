@@ -38,7 +38,11 @@ _SIGNATURES = {
     "pcss_convblock_chw": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _F, _I, _P),
     "pcss_block_int8_nhwc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                             _I, _I, _I, _I, _I, _I, _F, _I, _P),
+                             _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    "pcss_block128_nhwc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                           _P),
+    "pcss_conv3x3_int8_nhwc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _F, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -111,6 +115,13 @@ def library() -> ctypes.CDLL:
             lib.pcss_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def aligned(t):
+    """Contiguous with a 16-byte aligned start, as the kernels' 16-byte
+    loads read (a contiguous view may start anywhere)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check_device(x, *operands) -> None:

@@ -10,6 +10,10 @@ reference's tap strategies (``stack``, ``acc_shift``, ``chunk128``,
 ``loop``, ``rowpack``) only reorder the float32 sum; the wrapper validates
 the name and one kernel serves them all.  The output does not depend on the
 reference's band height ``k_rows``, so the port takes none.
+
+K2′ ``fused_conv_block_nhwc`` is the reference's NHWC wrapper around the
+same kernel: pad W to the lane multiple and H to the band multiple, go
+channels-major, run K2, come back and crop.
 """
 
 from __future__ import annotations
@@ -121,3 +125,70 @@ def fused_conv_block_chw(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 
 fused_conv_block_chw.launches = 0
+
+
+# ------------------------------------------------- K2′: the NHWC wrapper
+
+
+def _pick_k_rows(cin: int, cmid: int, cout: int, wp: int, itemsize: int = 2,
+                 acc_shift: bool = False, has_residual: bool = False) -> int:
+    """The reference's band height for its TPU VMEM budget (a copy).  The
+    NHWC wrapper pads H to a multiple of it; the output does not depend on
+    it (the pad rows are zero, as SAME padding reads them)."""
+    budget = 14 * 1024 * 1024
+    n_acc = 3 if acc_shift else 1
+    for k in (32, 16, 8, 4, 2, 1):
+        band = 3 * 2 * cin * k * wp * itemsize
+        ext = cin * (k + 2) * wp * itemsize
+        mid = cmid * k * wp * (n_acc * 4 + itemsize)
+        out = cout * k * wp * (4 + 2 * itemsize)
+        if has_residual:
+            out += cout * k * wp * 2 * itemsize
+        if band + ext + mid + out <= budget:
+            return k
+    return 1
+
+
+def _nhwc_call(x, w1, w2, k_rows, taps, block):
+    """Pad W to the lane multiple and H to the band multiple, go
+    channels-major, run ``block`` on that, come back and crop.  The permutes
+    are views: a channels-major caller's tensor reaches ``block`` with one
+    padded copy and no transpose."""
+    n, h, w, cin = x.shape
+    wp = (w // 128 + 1) * 128
+    if k_rows is None:
+        k_rows = _pick_k_rows(cin, w1.shape[1], w2.shape[0], wp,
+                              itemsize=x.element_size(),
+                              acc_shift=taps == "acc_shift")
+    hp = -(-h // k_rows) * k_rows
+    xc = F.pad(x.permute(0, 3, 1, 2), (0, wp - w, 0, hp - h))
+    return block(xc).permute(0, 2, 3, 1)[:, :h, :w]
+
+
+def conv_block_nhwc_plain(x, w1, b1, w2, b2, *, k_rows: int | None = None,
+                          negative_slope: float = 0.2) -> torch.Tensor:
+    """Plain version of the NHWC wrapper: the same padding around
+    :func:`conv_block_chw_plain`."""
+    return _nhwc_call(x, w1, w2, k_rows, "stack", lambda xc: conv_block_chw_plain(
+        xc, w1, b1, w2, b2, negative_slope=negative_slope))
+
+
+def fused_conv_block_nhwc(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                          w2: torch.Tensor, b2: torch.Tensor, *,
+                          k_rows: int | None = None,
+                          negative_slope: float = 0.2,
+                          taps: str = "stack") -> torch.Tensor:
+    """NHWC wrapper of K2: x [N,H,W,Cin] → [N,H,W,Cout] (a view of the
+    kernel's channels-major output).  Operands as
+    :func:`fused_conv_block_chw`; ``k_rows=None`` takes the reference's
+    pick."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be [N, H, W, Cin], got {tuple(x.shape)}")
+    out = _nhwc_call(x, w1, w2, k_rows, taps, lambda xc: fused_conv_block_chw(
+        xc, w1, b1, w2, b2, negative_slope=negative_slope, taps=taps))
+    if x.device.type != "cpu":
+        fused_conv_block_nhwc.launches += 1
+    return out
+
+
+fused_conv_block_nhwc.launches = 0

@@ -13,12 +13,6 @@ import torch
 from pcss_unet_tpu_torch.ops.kernels import _build
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous with a 16-byte aligned start, as the float4 kernels read."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def scrub_standardize_plain(x: torch.Tensor, means: torch.Tensor,
                             stds: torch.Tensor,
                             out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -43,7 +37,7 @@ def fused_scrub_standardize(x: torch.Tensor, means: torch.Tensor,
         raise ValueError(f"kernel takes float32 in, float32/bfloat16 out; got "
                          f"{x.dtype} → {out_dtype}")
     _build.check_device(x, means, stds)
-    x = _aligned(x)
+    x = _build.aligned(x)
     mean = means.float().contiguous()
     inv_std = (1.0 / (stds.float() + 1e-8)).contiguous()
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
@@ -71,7 +65,7 @@ def fused_mask_to_u8(x: torch.Tensor) -> torch.Tensor:
         return mask_to_u8_plain(x)
     if x.dtype != torch.float32:
         raise ValueError(f"kernel takes a float32 mask, got {x.dtype}")
-    x = _aligned(x)
+    x = _build.aligned(x)
     out = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
     _build.call("pcss_mask_to_u8", x.data_ptr(), out.data_ptr(), x.numel(),
                 torch.cuda.current_stream(x.device).cuda_stream)

@@ -104,18 +104,16 @@ def test_chw_forward_guards(rng):
 
 
 def test_unported_stages_raise(rng):
-    """Stages whose reference kernel is not ported raise, not run plain:
-    the 128-channel NHWC kernel (use128_chw=False, wide='nhwc') and the
-    k-chunked int8 kernel (a 1024-in stage)."""
-    _, folded = _variables((16, 64, 128))     # dec_0: 128 → 64
-    x = torch.zeros(1, 32, 64, 4)
-    with pytest.raises(NotImplementedError, match="fused_block128_nhwc"):
-        chw_forward(folded, x, dtype=torch.float32, use128_chw=False,
-                    wide="nhwc")
-    _, folded = _variables((64, 1024))        # dec_0: 1024 → 64
-    with pytest.raises(NotImplementedError, match="kchunked"):
-        chw_forward(folded, torch.zeros(1, 16, 64, 4), dtype=torch.float32,
-                    int8=True)
+    """The stages that raised before K5 and K6 were ported now run them and
+    match the reference (2e-4, as test_chw_forward_int8_matches_jax): the
+    128-channel NHWC kernel (use128_chw=False, wide='nhwc', dec_0 128 → 64)
+    and the k-chunked int8 kernel (dec_0 1024 → 64)."""
+    x = rng.standard_normal((1, 32, 64, 4)).astype(np.float32)
+    got, want = _run_both((16, 64, 128), x, use128_chw=False, wide="nhwc")
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    x = rng.standard_normal((1, 16, 64, 4)).astype(np.float32)
+    got, want = _run_both((64, 1024), x, int8=True)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
 
 
 def _engines(kw_jax, kw_port, widths=(16, 32, 128, 256), seed=7):

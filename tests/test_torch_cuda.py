@@ -16,7 +16,9 @@ import torch
 
 from pcss_unet_tpu_torch.ops.kernels import _build
 from pcss_unet_tpu_torch.ops.kernels import block_int8 as kb8
+from pcss_unet_tpu_torch.ops.kernels import conv3x3_int8 as kc7
 from pcss_unet_tpu_torch.ops.kernels import convblock as kcb
+from pcss_unet_tpu_torch.ops.kernels import convblock128 as kc128
 from pcss_unet_tpu_torch.ops.kernels import fused as kfu
 
 pytestmark = pytest.mark.cuda
@@ -154,3 +156,99 @@ def test_block_int8_kernel(dev, gen, dtype, c, co, n, h, w):
         torch.cuda.synchronize()
         # same integers, same float32 steps: one output rounding at most
         _close(got, want, 1e-2 if dtype == torch.bfloat16 else 1e-6)
+
+
+def _int8_block_operands(gen, dev, dtype, n, h, w, c, co):
+    params = {
+        "conv_a": {"kernel": gen.standard_normal((3, 3, c, c)) * 0.05,
+                   "bias": gen.standard_normal(c) * 0.1},
+        "conv_b": {"kernel": gen.standard_normal((1, 1, c, co)) * 0.05,
+                   "bias": gen.standard_normal(co) * 0.1},
+    }
+    x = torch.from_numpy(gen.standard_normal((n, h, w, c)).astype(np.float32))
+    return x.to(dev, dtype), kb8.pack_block_int8_params(params, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,co,n,h,w,k,cc", [
+    (256, 64, 1, 4, 32, 4, 128),     # two chunks, one band
+    (256, 64, 1, 8, 32, 2, 128),     # four bands: two at the frame edges
+    (1024, 512, 1, 8, 40, 4, 256),   # w64 dec_0 channels, W not a multiple of 32
+    (512, 128, 2, 4, 16, 2, 256),    # batched
+])
+def test_block_int8_kchunked_kernel(dev, gen, dtype, c, co, n, h, w, k, cc):
+    x, ops = _int8_block_operands(gen, dev, dtype, n, h, w, c, co)
+    before = kb8.fused_block_int8_kchunked.launches
+    got = kb8.fused_block_int8_kchunked(x, *ops, k_rows=k, c_chunk=cc)
+    assert kb8.fused_block_int8_kchunked.launches == before + 1
+    want = kb8.block_int8_kchunked_plain(x, *ops, k_rows=k, c_chunk=cc)
+    torch.cuda.synchronize()
+    # same integers, same float32 steps in the same order: one output
+    # rounding at most
+    _close(got, want, 1e-2 if dtype == torch.bfloat16 else 1e-6)
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("c,cout,n,h,w", [
+    (128, 64, 1, 16, 24),
+    (128, 128, 2, 8, 200),    # W over one 128-column tile
+    (256, 64, 1, 4, 20),      # two hidden-channel blocks
+])
+def test_block128_kernel(dev, gen, dtype, rel, c, cout, n, h, w):
+    params = {
+        "conv_a": {"kernel": gen.standard_normal((3, 3, c, c)) * 0.05,
+                   "bias": gen.standard_normal(c) * 0.1},
+        "conv_b": {"kernel": gen.standard_normal((1, 1, c, cout)) * 0.1,
+                   "bias": gen.standard_normal(cout) * 0.1},
+    }
+    ops = kc128.pack_block128_params(params, dtype=dtype, device=dev)
+    x = torch.from_numpy(gen.standard_normal((n, h, w, c)).astype(np.float32)).to(dev, dtype)
+    before = kc128.fused_block128_nhwc.launches
+    got = kc128.fused_block128_nhwc(x, *ops)
+    assert kc128.fused_block128_nhwc.launches == before + 1
+    want = kc128.block128_nhwc_plain(x, *ops)
+    torch.cuda.synchronize()
+    _close(got, want, rel)
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_convblock_nhwc_kernel(dev, gen, dtype, rel):
+    params = {
+        "conv_a": {"kernel": gen.standard_normal((3, 3, 64, 64)) * 0.2,
+                   "bias": gen.standard_normal(64) * 0.1},
+        "conv_b": {"kernel": gen.standard_normal((1, 1, 64, 16)) * 0.2,
+                   "bias": gen.standard_normal(16) * 0.1},
+    }
+    ws = kcb.pack_convblock_params(params, dtype=dtype, device=dev)
+    x = torch.from_numpy(gen.standard_normal((2, 30, 130, 64)).astype(np.float32)).to(dev, dtype)
+    before = (kcb.fused_conv_block_nhwc.launches, kcb.fused_conv_block_chw.launches)
+    got = kcb.fused_conv_block_nhwc(x, *ws)
+    assert (kcb.fused_conv_block_nhwc.launches,
+            kcb.fused_conv_block_chw.launches) == (before[0] + 1, before[1] + 1)
+    want = kcb.conv_block_nhwc_plain(x, *ws)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (2, 30, 130, 16)
+    _close(got, want, rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,c,co,k,cot,slope", [
+    (1, 8, 16, 128, 256, 8, 256, 0.2),
+    (2, 12, 40, 256, 256, 4, 128, None),   # two Co tiles, no activation
+])
+def test_conv3x3_int8_kernel(dev, gen, dtype, out_dtype, n, h, w, c, co, k,
+                             cot, slope):
+    x = torch.from_numpy(gen.standard_normal((n, h, w, c)).astype(np.float32)).to(dev, dtype)
+    wq = torch.from_numpy(gen.integers(-127, 127, (9, c, co)).astype(np.int8)).to(dev)
+    ws = torch.from_numpy(gen.random(co).astype(np.float32) * 1e-2).to(dev)
+    bias = torch.from_numpy(gen.standard_normal(co).astype(np.float32) * 0.1).to(dev)
+    kw = dict(k_rows=k, negative_slope=slope, out_dtype=out_dtype)
+    before = kc7.conv3x3_int8_nhwc.launches
+    got = kc7.conv3x3_int8_nhwc(x, wq, ws, bias, co_tile=cot, **kw)
+    assert kc7.conv3x3_int8_nhwc.launches == before + 1
+    want = kc7.conv3x3_int8_plain(x, wq, ws, bias, **kw)
+    torch.cuda.synchronize()
+    _close(got, want, 1e-2 if out_dtype == torch.bfloat16 else 1e-6)

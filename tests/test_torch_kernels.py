@@ -9,11 +9,15 @@ import pytest
 import torch
 
 from pcss_unet_tpu.ops.pallas import block_int8 as jb8
+from pcss_unet_tpu.ops.pallas import conv3x3_int8 as jc7
 from pcss_unet_tpu.ops.pallas import convblock as jcb
+from pcss_unet_tpu.ops.pallas import convblock128 as jc128
 from pcss_unet_tpu.ops.pallas import fused as jfused
 from pcss_unet_tpu.ops.pallas.taps import conv3x3_band_taps as j_taps
 from pcss_unet_tpu_torch.ops.kernels import block_int8 as tb8
+from pcss_unet_tpu_torch.ops.kernels import conv3x3_int8 as tc7
 from pcss_unet_tpu_torch.ops.kernels import convblock as tcb
+from pcss_unet_tpu_torch.ops.kernels import convblock128 as tc128
 from pcss_unet_tpu_torch.ops.kernels import fused as tfused
 from pcss_unet_tpu_torch.ops.kernels.taps import conv3x3_band_taps as t_taps
 
@@ -243,3 +247,217 @@ def test_block_int8_wrapper_validates():
         tb8.fused_block_int8_nhwc(x, w1q, s, b, w2q, s2, b2, k_rows=3)
     with pytest.raises(ValueError, match="int8"):
         tb8.fused_block_int8_nhwc(x, w1q.float(), s, b, w2q, s2, b2, k_rows=4)
+
+
+# --------------------------------------------------------------------- K5
+
+
+@pytest.mark.parametrize("c,co,h,w,k_rows,c_chunk", [
+    (256, 64, 4, 32, 4, 128),     # tests/test_int8.py's shape, two chunks
+    (256, 64, 8, 32, 2, 128),     # four bands: two at the frame edges
+    (512, 128, 4, 16, 2, 128),    # four chunks
+])
+def test_block_int8_kchunked_plain_matches(rng, c, co, h, w, k_rows, c_chunk):
+    """k-chunked int8 block ≡ the reference kernel at float32: the same
+    per-chunk scales and integers, float32 chunk sums in the same order;
+    the bound is 1e-3, as K3's (measured ≤ 4.8e-7)."""
+    params = _int8_params(rng, c, co)
+    x = rng.standard_normal((1, h, w, c)).astype(np.float32)
+    want = np.asarray(jb8.fused_block_int8_kchunked(
+        jnp.asarray(x), *jb8.pack_block_int8_params(params), k_rows=k_rows,
+        c_chunk=c_chunk, interpret=True))
+    got = tb8.fused_block_int8_kchunked(
+        _t(x), *tb8.pack_block_int8_params(params), k_rows=k_rows,
+        c_chunk=c_chunk).numpy()
+    d = float(np.abs(got - want).max())
+    print(f"kchunked {c}->{co} {h}x{w} k={k_rows} cc={c_chunk}: max |d| = {d:.3g}")
+    assert d <= 1e-3, d
+
+
+def test_block_int8_kchunked_one_chunk_is_k3_before_rounding(rng):
+    """With one chunk K5 differs from K3 only in keeping h in float32:
+    the two agree to one bf16 rounding of h's scale (5e-2 of the output
+    range), and are not equal (h is not rounded)."""
+    params = _int8_params(rng, 256, 64)
+    x = _t(rng.standard_normal((1, 8, 16, 256)).astype(np.float32))
+    ops = tb8.pack_block_int8_params(params)
+    k3 = tb8.fused_block_int8_nhwc(x, *ops, k_rows=4)
+    k5 = tb8.fused_block_int8_kchunked(x, *ops, k_rows=4, c_chunk=256)
+    d = float((k3 - k5).abs().max())
+    assert 0 < d <= 5e-2 * float(k3.abs().max()), d
+
+
+def test_block_int8_kchunked_validates():
+    x = torch.zeros(1, 8, 8, 256)
+    w1q = torch.zeros(9, 256, 256, dtype=torch.int8)
+    w2q = torch.zeros(256, 64, dtype=torch.int8)
+    s, b = torch.ones(256), torch.zeros(256)
+    s2, b2 = torch.ones(64), torch.zeros(64)
+    with pytest.raises(ValueError, match="c_chunk"):
+        tb8.fused_block_int8_kchunked(x, w1q, s, b, w2q, s2, b2, k_rows=4,
+                                      c_chunk=96)
+
+
+# --------------------------------------------------------------------- K6
+
+
+@pytest.mark.parametrize("c,cout,h,w", [
+    (128, 64, 16, 24),     # tests/test_convblock_kernel.py's shape
+    (128, 128, 8, 40),     # Cout = Cmid
+    (256, 64, 4, 20),      # two 128-channel blocks of hidden channels
+])
+def test_block128_plain_matches(rng, c, cout, h, w):
+    """K6 ≡ the reference at float32, where its interpret mode and the TPU
+    semantics agree (rtol/atol 2e-4, the reference's tolerance)."""
+    params = _convblock_params(rng, c, c, cout)
+    x = rng.standard_normal((1, h, w, c)).astype(np.float32)
+    k = jc128.pick_k_rows_128(h, w, c, cout)
+    assert k is not None
+    want = np.asarray(jc128.fused_block128_nhwc(
+        jnp.asarray(x), *jc128.pack_block128_params(params, dtype=jnp.float32),
+        k_rows=k, interpret=True))
+    got = tc128.fused_block128_nhwc(
+        _t(x), *tc128.pack_block128_params(params, dtype=torch.float32)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_block128_rounds_hidden_to_bf16(rng):
+    """The plain twin keeps the TPU semantics: bf16 input rounds h to bf16
+    (the reference's interpret mode would compute in float32)."""
+    params = _convblock_params(rng, 128, 128, 64)
+    x = _t(rng.standard_normal((1, 4, 8, 128)).astype(np.float32))
+    ops = tc128.pack_block128_params(params, dtype=torch.bfloat16)
+    got = tc128.fused_block128_nhwc(x.bfloat16(), *ops)
+    assert got.dtype == torch.bfloat16
+    w1, b1, w2, b2 = ops
+    hid = torch.nn.functional.conv2d(
+        x.bfloat16().float().permute(0, 3, 1, 2),
+        w1.float().reshape(3, 3, 128, 128).permute(3, 2, 0, 1), padding=1)
+    hid = torch.nn.functional.leaky_relu(hid + b1[:, None, None], 0.2)
+    out = torch.einsum("nmhw,mo->nhwo", hid.bfloat16().float(), w2.float())
+    want = torch.nn.functional.leaky_relu(out + b2, 0.2).bfloat16()
+    assert torch.equal(got, want)
+
+
+def test_block128_pack_matches(rng):
+    params = _convblock_params(rng, 128, 128, 64)
+    for got, want in zip(tc128.pack_block128_params(params, dtype=torch.float32),
+                         jc128.pack_block128_params(params, dtype=jnp.float32)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_block128_wrapper_validates():
+    w1 = torch.zeros(9, 128, 128)
+    with pytest.raises(ValueError, match="C % 128"):
+        tc128.fused_block128_nhwc(torch.zeros(1, 4, 4, 64), w1, torch.zeros(128),
+                                  torch.zeros(128, 64), torch.zeros(64))
+    with pytest.raises(ValueError, match="Cout"):
+        tc128.fused_block128_nhwc(torch.zeros(1, 4, 4, 128), w1, torch.zeros(128),
+                                  torch.zeros(128, 256), torch.zeros(256))
+
+
+# --------------------------------------------------------------------- K2′
+
+
+@pytest.mark.parametrize("n,cin,cmid,cout,h,w,k", [
+    (1, 16, 16, 64, 32, 48, 8),      # enc_0 shape class
+    (1, 64, 64, 16, 24, 130, 8),     # dec_final class; W just over a lane tile
+    (1, 16, 16, 32, 30, 96, 6),      # H not divisible by k → row padding
+    (3, 16, 16, 32, 16, 32, 8),      # batched
+    (1, 16, 16, 32, 30, 96, None),   # the reference's k_rows pick
+])
+def test_convblock_nhwc_plain_matches(rng, n, cin, cmid, cout, h, w, k):
+    """The NHWC wrapper ≡ the reference's (rtol/atol 2e-4, float32)."""
+    params = _convblock_params(rng, cin, cmid, cout)
+    x = rng.standard_normal((n, h, w, cin)).astype(np.float32)
+    want = np.asarray(jcb.fused_conv_block_nhwc(
+        jnp.asarray(x), *jcb.pack_convblock_params(params, dtype=jnp.float32),
+        k_rows=k, interpret=True, stack_taps=True))
+    got = tcb.fused_conv_block_nhwc(
+        _t(x), *tcb.pack_convblock_params(params, dtype=torch.float32), k_rows=k)
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    plain = tcb.conv_block_nhwc_plain(
+        _t(x), *tcb.pack_convblock_params(params, dtype=torch.float32), k_rows=k)
+    assert torch.equal(plain, got)
+
+
+def test_pick_k_rows_equal_over_grid():
+    for cin, cmid, cout in ((16, 16, 64), (64, 64, 128), (16, 16, 16),
+                            (128, 128, 64), (64, 64, 16)):
+        for wp in (128, 256, 512, 1024, 2048):
+            for itemsize in (2, 4):
+                for acc_shift in (False, True):
+                    for res in (False, True):
+                        args = (cin, cmid, cout, wp, itemsize, acc_shift, res)
+                        assert tcb._pick_k_rows(*args) == jcb._pick_k_rows(*args), args
+
+
+# --------------------------------------------------------------------- K7
+
+
+def _k7_operands(rng, n, h, w, c, co):
+    x = rng.standard_normal((n, h, w, c)).astype(np.float32)
+    k = rng.integers(-127, 127, (3, 3, c, co)).astype(np.int8)
+    ws = rng.random(co).astype(np.float32) * 1e-2
+    bias = rng.standard_normal(co).astype(np.float32) * 0.1
+    return x, k.reshape(9, c, co), ws, bias
+
+
+@pytest.mark.parametrize("n,h,w,c,co,slope", [
+    (1, 8, 16, 128, 256, 0.2),     # tests/test_int8.py's shape
+    (1, 8, 16, 128, 256, None),    # no activation
+    (2, 12, 8, 256, 128, 0.2),     # batched, three bands of 4
+])
+def test_conv3x3_int8_plain_matches(rng, n, h, w, c, co, slope):
+    """The single int8 conv ≡ the reference kernel (rtol 1e-5 / atol 1e-4,
+    the reference's own tolerance), float32 out."""
+    x, k, ws, bias = _k7_operands(rng, n, h, w, c, co)
+    k_rows, co_tile = tc7.pick_tiles(h, w, c, co)
+    want = np.asarray(jc7.conv3x3_int8_nhwc(
+        jnp.asarray(x), jnp.asarray(k), jnp.asarray(ws), jnp.asarray(bias),
+        k_rows=k_rows, co_tile=co_tile, negative_slope=slope,
+        out_dtype=jnp.float32, interpret=True))
+    got = tc7.conv3x3_int8_nhwc(_t(x), _t(k), _t(ws), _t(bias), k_rows=k_rows,
+                                co_tile=co_tile, negative_slope=slope,
+                                out_dtype=torch.float32).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+def test_conv3x3_int8_bf16_out(rng):
+    """bf16 output is the float32 result rounded once."""
+    x, k, ws, bias = _k7_operands(rng, 1, 8, 16, 128, 128)
+    kw = dict(k_rows=4, co_tile=128, negative_slope=0.2)
+    f32 = tc7.conv3x3_int8_nhwc(_t(x), _t(k), _t(ws), _t(bias),
+                                out_dtype=torch.float32, **kw)
+    bf = tc7.conv3x3_int8_nhwc(_t(x), _t(k), _t(ws), _t(bias), **kw)
+    assert bf.dtype == torch.bfloat16 and torch.equal(bf, f32.bfloat16())
+
+
+def test_conv3x3_int8_validates():
+    x = torch.zeros(1, 8, 8, 128)
+    k = torch.zeros(9, 128, 256, dtype=torch.int8)
+    with pytest.raises(ValueError, match="co_tile"):
+        tc7.conv3x3_int8_nhwc(x, k, torch.ones(256), torch.zeros(256),
+                              k_rows=4, co_tile=96)
+
+
+# ---------------------------------------------------------------- pickers
+
+
+def test_slice2_pickers_equal_over_grid():
+    """pick_k_rows_128 and pick_tiles ≡ the reference's over a grid."""
+    for h in (6, 8, 12, 30, 64, 136, 272):
+        for w in (8, 20, 24, 48, 240, 480):
+            for c in (64, 128, 256, 512, 1024):
+                for co in (32, 64, 128, 256, 512):
+                    args = (h, w, c, co)
+                    assert (tc128.pick_k_rows_128(*args)
+                            == jc128.pick_k_rows_128(*args)), args
+                    assert tc7.pick_tiles(*args) == jc7.pick_tiles(*args), args
+
+
+@pytest.mark.parametrize("h,w,c,co", _PICKER_SHAPES + [(272, 480, 128, 64)])
+def test_slice2_pickers_at_model_stages(h, w, c, co):
+    assert tc128.pick_k_rows_128(h, w, c, co) == jc128.pick_k_rows_128(h, w, c, co)
+    assert tc7.pick_tiles(h, w, c, co) == jc7.pick_tiles(h, w, c, co)
