@@ -6,12 +6,17 @@
 Builds the port's CUDA kernels from ``pcss_unet_tpu_torch/csrc`` (into
 ``build/kernels``), then runs these phases, each printing one JSON line:
 
-1. ``build``: the card (name, power limit) and the kernels' build time.
+1. ``build``: the card (name, power limit), the kernels' build time and the
+   ``ptxas`` register/spill report; K2's bf16 tensor-core kernel must not
+   spill.
 2. ``kernel``: each kernel against its plain PyTorch version on the card, on
    the inputs each main path really gives it (recorded from one forward of
    each of the three paths below), in bfloat16, plus one float32 case per
    kernel with TF32 off; max |d| against the stated tolerance, kernel and
-   plain times from CUDA events, per path.  The headline path of K1–K4 is
+   plain times from CUDA events, per path.  Each kernel also prints one
+   ``kernel_call`` line per recorded call (each tensor argument's shape and
+   strides, ms, bound, plain ms, max and signed mean of the difference).
+   The headline path of K1–K4 is
    the w16 2048×1024 chw+int8 forward, that of K5 (w64 ``dec_0``), K6 (w64
    ``dec_2``) and K2′ (w64 ``enc_0``, ``enc_1``, ``dec_final``) the w64
    1920×1088 NHWC forward; K7, on no model path, runs at the w64 ``dec_1``
@@ -52,6 +57,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -82,6 +88,19 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_spills(log: str, kernel: str) -> list[int]:
+    """[spill store bytes, spill load bytes] that ``ptxas -v`` reports for
+    the entry function whose mangled name contains ``kernel``."""
+    lines = log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and kernel in ln:
+            for nxt in lines[i + 1:i + 4]:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", nxt)
+                if m:
+                    return [int(m.group(1)), int(m.group(2))]
+    raise AssertionError(f"no ptxas report for {kernel}")
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -151,17 +170,18 @@ def swapped(replacements):
 
 def record_calls(engine, frames, patched):
     """Run one forward with the given kernel wrappers (module, name, key)
-    recording their arguments (the inputs the main path gives each), made
-    contiguous: the kernel timings then measure the kernels, not the layout
-    copies the callers' views need."""
+    recording their arguments (the inputs the main path gives each) as
+    copies with the caller's strides, so that a wrapper is timed on the
+    layout the main path hands it (K2′, for one, gets an NHWC view of NCHW
+    storage, which its padding turns back into NCHW without a transpose)."""
     import torch
 
     calls = {key: [] for _, _, key in patched}
 
     def recorder(fn, key):
         def record(*args, **kw):
-            calls[key].append((tuple(a.contiguous() if torch.is_tensor(a)
-                                     else a for a in args), kw))
+            calls[key].append((tuple(
+                a.clone() if torch.is_tensor(a) else a for a in args), kw))
             return fn(*args, **kw)
         return record
 
@@ -198,32 +218,45 @@ def profile_frame(phase, engine, frames, frame_ms: float) -> dict:
 def check_kernel(name, kernel, plain, paths, tol_fn, work_fn, f32_case):
     """Kernel vs plain on each call recorded from each main path (``paths``:
     [(path, calls)], the kernel's headline path first; bf16) and on one
-    float32 case with TF32 off.  Returns the kernels-line entry: max |d|
-    over every path, time, plain time and bound per frame of the headline
-    path."""
+    float32 case with TF32 off.  Prints one ``kernel_call`` line per call
+    (each tensor argument's shape and strides, times, bound, max and signed
+    mean of the difference), so that a time can be put on a stage.  Returns
+    the kernels-line entry: max |d| over every path, time, plain time and
+    bound per frame of the headline path."""
     import torch
 
     per_path = {}
     for path, calls in paths:
         worst, ms, plain_ms, t_bound, by_ops = 0.0, 0.0, 0.0, 0.0, 0.0
-        for args, kw in calls:
+        for i, (args, kw) in enumerate(calls):
             # the tap strategy only orders the kernel's sum; the plain
             # version has one order
             pkw = {k: v for k, v in kw.items() if k != "taps"}
             got = kernel(*args, **kw)
             want = plain(*args, **pkw)
             torch.cuda.synchronize()
-            d = (got.float() - want.float()).abs().max().item()
+            diff = got.float() - want.float()
+            d = diff.abs().max().item()
             tol = tol_fn(want, args)
+            shapes = [tuple(a.shape) for a in args if hasattr(a, "shape")]
             if not (d <= tol):
                 raise AssertionError(f"{name} ({path}): max |d| {d} > tol {tol} at "
-                                     f"{[tuple(a.shape) for a in args if hasattr(a, 'shape')]}")
+                                     f"{shapes}")
             worst = max(worst, d)
-            ms += cuda_ms(lambda: kernel(*args, **kw))
-            plain_ms += cuda_ms(lambda: plain(*args, **pkw), iters=5, warmup=1)
+            t = cuda_ms(lambda: kernel(*args, **kw))
+            tp = cuda_ms(lambda: plain(*args, **pkw), iters=5, warmup=1)
             b, kind = work_fn(args, kw)
-            t_bound += b
+            ms, plain_ms, t_bound = ms + t, plain_ms + tp, t_bound + b
             by_ops += b if kind == "operations" else 0.0
+            emit({"phase": "kernel_call", "name": name, "path": path,
+                  "call": i, "args": [[list(a.shape), list(a.stride())]
+                                      for a in args if torch.is_tensor(a)],
+                  "options": {k: list(v.shape) if torch.is_tensor(v) else
+                              v if isinstance(v, (int, float, str)) else str(v)
+                              for k, v in kw.items()},
+                  "ms": t, "plain_ms": tp, "bound_ms": b, "bound_by": kind,
+                  "max_abs_err": d, "mean_signed_err": diff.mean().item(),
+                  "tol": tol})
         per_path[path] = {
             "calls_per_frame": len(calls), "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": t_bound,
@@ -277,13 +310,17 @@ def peak_for(dtype):
 
 
 def conv_work(args, kw):
+    """Operations and input reads over the true columns (those at or past
+    ``true_w`` are only written, as zeros); the output over all of Wp."""
     x, w1, _, w2, _ = args
     n, cin, h, wp = x.shape
     cmid, cout = w1.shape[1], w2.shape[0]
-    ops = 2.0 * n * h * wp * (9 * cin * cmid + cmid * cout)
+    w = kw.get("true_w") or wp
+    ops = 2.0 * n * h * w * (9 * cin * cmid + cmid * cout)
+    res = kw.get("residual")
+    in_bytes = n * h * w * (cin + (0 if res is None else cout)) * x.element_size()
     out_bytes = n * cout * h * wp * x.element_size()
-    byt = nbytes(x, w1, w2, kw.get("residual")) + out_bytes
-    return bound_ms(byt, ops, peak_for(x.dtype))
+    return bound_ms(in_bytes + nbytes(w1, w2) + out_bytes, ops, peak_for(x.dtype))
 
 
 def conv_nhwc_work(args, kw):
@@ -469,11 +506,15 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0
-    log = sorted(_build.BUILD_DIR.glob("*.log"))
-    ptxas = [ln.strip() for ln in (log[-1].read_text().splitlines() if log else [])
+    log = _build.build_log()
+    ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
+    tc_spills = ptxas_spills(log, "convblock_chw_tc_kernel")
     emit({"phase": "build", "card": card, "seconds": build_s,
-          "ptxas": ptxas})
+          "ptxas": ptxas, "convblock_chw_tc_kernel_spill_bytes": tc_spills})
+    if tc_spills != [0, 0]:
+        raise AssertionError(f"K2's tensor-core kernel spills: {tc_spills} "
+                             "bytes (stores, loads)")
 
     # ------------------------------------------------- engines and inputs
     meta, xv, yv = golden_frames()

@@ -8,19 +8,52 @@
 // x [N, Cin, H, Wp] (Wp % 128 == 0; pad columns zero by contract), bf16 or
 // float32.  Rows outside [0, H) and columns outside [0, Wp) read as zero.
 // The hidden value is rounded to the storage dtype before the 1x1, as the
-// reference does; every sum accumulates in float32.
+// reference does; every sum accumulates in float32.  Cin, Cmid, Cout <= 128
+// and Cmid, Cout % 4 == 0 (the C entry refuses anything else).  The entry
+// dispatches on the dtype; neither path falls back to the other.
 //
-// What bounds it on the H100: at the w16 2048x1024 shapes the six calls move
-// about 0.2 GB (bound ~0.06 ms) and do about 28 G multiply-adds; this first
-// kernel runs them on the float32 CUDA cores (67 TFLOP/s peak), not the
-// tensor cores, so it is bound by operations and by shared-memory loads.
-// Design: one block per (n, row, 128-column tile).  The input rows r-1..r+1
-// are staged in shared memory 16 channels at a time; each warp owns 4-wide
-// groups of hidden channels for 64 of the 128 pixels (2 per lane), keeps
-// their float32 sums in registers and reads each weight float4 once per
-// (tap, input channel) as a warp-uniform broadcast.  The rounded hidden tile
-// [Cmid][128] stays in shared memory and feeds the 1x1 the same way.  Cin,
-// Cmid, Cout <= 128 and Cmid, Cout % 4 == 0 (the wrapper checks).
+// bf16: convblock_chw_tc_kernel, an implicit GEMM on the tensor cores
+// (mma.sync m16n8k16 bf16 -> float32, fragments by ldmatrix).  What bounds it
+// on the H100: the w64 chw stages do ~116 G multiply-adds against ~0.4 GB
+// moved, so the work is bound by operations (bf16 tensor-core peak 989
+// TFLOP/s, bound ~0.26 ms); the w16 stages (~28 G, 16-32 channels) are
+// closer to their bytes, and there staging and the launch dominate.  Design:
+// - one block (8 warps) per (n, row, 128-column tile): GEMM M = 128 pixels,
+//   N = Cmid (all of it, so the hidden tile never leaves the chip), K = 9 taps
+//   x Cin in slices of 16;
+// - the rows r-1..r+1 are staged once, pixel-major [3][130][Cin16 + 8] bf16:
+//   16-byte reads along W of 8 channels, transposed in registers (prmt) into
+//   one 16-byte store per pixel.  An A fragment row is then one pixel's 8
+//   consecutive channels, 16-byte aligned for every tap offset dx; the 8
+//   extra channels of stride put the 8 rows of an ldmatrix in distinct banks.
+//   Channels Cin..Cin16 are staged as zeros;
+// - the weights are used as given (w1 [9][Cmid][Cin], w2 [Cout][Cmid]: the
+//   K-contiguous B layout of mma .row.col).  One tap's [Cmid][Cin] slice is
+//   copied by cp.async into one of two buffers while the tensor cores work
+//   on the other; w2 arrives during the last tap.  Pad rows and columns of
+//   the buffers are zeroed once when a channel count is not a multiple of 16;
+// - warp tile 32 pixels x 64 channels (4 x 2 warps) when N > 64, else
+//   16 pixels x N (8 x 1), so no warp idles at the 16- to 64-channel stages;
+// - epilogue 1 in registers (+b1, leaky, round to bf16) into a pixel-major
+//   hidden tile [128][Cmid16 + 8] that replaces the x stage in shared memory;
+//   the 1x1 is a second mma.sync loop over K = Cmid from it against w2;
+// - epilogue 2: +b2, leaky into a float32 [Cout][128 + 4] tile, then 16-byte
+//   accesses along W: + residual (float32), columns >= true_w zeroed, bf16.
+// Shared memory is at most 206 KB (Cin = Cmid = Cout = 128), so one block per
+// SM at the widest stage.  Left for later work: wgmma with TMA-fed swizzled
+// tiles (the only way to the full tensor-core rate), a persistent grid whose
+// next tile's staging overlaps this tile's epilogue, and overlap of the x
+// stage itself with the first taps.
+//
+// float32: convblock_chw_kernel on the CUDA cores (tensor cores would mean
+// TF32, which the float32 tolerance of 1e-4 does not allow).  One block per
+// (n, row, 128-column tile); the input rows are staged in shared memory 16
+// channels at a time; each warp owns 4-wide groups of hidden channels for 64
+// of the 128 pixels (2 per lane), keeps their float32 sums in registers and
+// reads each weight float4 once per (tap, input channel) as a warp-uniform
+// broadcast.  The hidden tile [Cmid][128] stays in shared memory and
+// feeds the 1x1 the same way.  It takes transposed float32 weights (w1t
+// [9][Cin][Cmid], w2t [Cmid][Cout]).
 #include "common.cuh"
 
 namespace {
@@ -31,12 +64,11 @@ constexpr int CC = 16;        // input channels staged per step
 constexpr int NT = 256;       // threads per block: 8 warps
 constexpr int SLOTS = 8;      // 4-channel groups per warp: 8 slots * 4 warps-per-half * 4 = 128
 
-template <typename T>
 __global__ void __launch_bounds__(NT)
-convblock_chw_kernel(const T* __restrict__ x, const float* __restrict__ w1t,
+convblock_chw_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
                      const float* __restrict__ b1, const float* __restrict__ w2t,
-                     const float* __restrict__ b2, const T* __restrict__ residual,
-                     T* __restrict__ out, int cin, int cmid, int cout, int h, int wp,
+                     const float* __restrict__ b2, const float* __restrict__ residual,
+                     float* __restrict__ out, int cin, int cmid, int cout, int h, int wp,
                      int true_w, float slope) {
   extern __shared__ float smem[];
   float* xs = smem;               // [CC][3][XW]
@@ -50,7 +82,7 @@ convblock_chw_kernel(const T* __restrict__ x, const float* __restrict__ w1t,
   const int half = warp & 1, gbase = warp >> 1;
   const int p0 = half * 64 + lane;
   const size_t plane = (size_t)h * wp;
-  const T* xn = x + (size_t)n * cin * plane;
+  const float* xn = x + (size_t)n * cin * plane;
 
   // ---- 3x3 conv into float32 registers ----
   float acc[SLOTS][4][2];
@@ -68,7 +100,7 @@ convblock_chw_kernel(const T* __restrict__ x, const float* __restrict__ w1t,
       const int gr = row + r - 1, gc = col0 + col - 1;
       float v = 0.f;
       if (gr >= 0 && gr < h && gc >= 0 && gc < wp)
-        v = to_float(xn[(size_t)(c0 + ci) * plane + (size_t)gr * wp + gc]);
+        v = xn[(size_t)(c0 + ci) * plane + (size_t)gr * wp + gc];
       xs[i] = v;
     }
     __syncthreads();
@@ -98,7 +130,7 @@ convblock_chw_kernel(const T* __restrict__ x, const float* __restrict__ w1t,
     }
   }
 
-  // ---- bias, leaky, round to the storage dtype: hidden tile in smem ----
+  // ---- bias, leaky: hidden tile in smem ----
 #pragma unroll
   for (int s = 0; s < SLOTS; ++s) {
     const int g = gbase + 4 * s;
@@ -108,8 +140,7 @@ convblock_chw_kernel(const T* __restrict__ x, const float* __restrict__ w1t,
         const int m = 4 * g + k;
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          const float v = leaky(__fadd_rn(acc[s][k][j], b1[m]), slope);
-          hs[m * TW + p0 + 32 * j] = to_float(from_float<T>(v));
+          hs[m * TW + p0 + 32 * j] = leaky(__fadd_rn(acc[s][k][j], b1[m]), slope);
         }
       }
     }
@@ -155,27 +186,353 @@ convblock_chw_kernel(const T* __restrict__ x, const float* __restrict__ w1t,
         for (int j = 0; j < 2; ++j) {
           const int p = p0 + 32 * j;
           float v = leaky(__fadd_rn(acc[s][k][j], b2[o]), slope);
-          if (residual != nullptr) v = __fadd_rn(v, to_float(residual[base + p]));
+          if (residual != nullptr) v = __fadd_rn(v, residual[base + p]);
           if (col0 + p >= true_w) v = 0.f;
-          out[base + p] = from_float<T>(v);
+          out[base + p] = v;
         }
       }
     }
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* w1t, const void* b1, const void* w2t, const void* b2,
-           const void* residual, void* out, int n, int cin, int cmid, int cout, int h, int wp,
-           int true_w, float slope, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)CC * 3 * XW + (size_t)cmid * TW);
-  cudaError_t e = cudaFuncSetAttribute(convblock_chw_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Raise a kernel's dynamic shared-memory limit to `bytes` once per device
+// (bit d of `done`) instead of on every launch.
+int allow_smem(const void* kernel, size_t bytes, unsigned& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (done & bit) return 0;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  done |= bit;
+  return 0;
+}
+
+size_t f32_smem(int cmid) { return sizeof(float) * ((size_t)CC * 3 * XW + (size_t)cmid * TW); }
+
+int launch_f32(const void* x, const void* w1t, const void* b1, const void* w2t, const void* b2,
+               const void* residual, void* out, int n, int cin, int cmid, int cout, int h,
+               int wp, int true_w, float slope, cudaStream_t stream) {
+  static unsigned done = 0;
+  const int e = allow_smem((const void*)convblock_chw_kernel, f32_smem(128), done);
+  if (e) return e;
   const dim3 grid(wp / TW, h, n);
-  convblock_chw_kernel<T><<<grid, NT, smem, stream>>>(
-      (const T*)x, (const float*)w1t, (const float*)b1, (const float*)w2t, (const float*)b2,
-      (const T*)residual, (T*)out, cin, cmid, cout, h, wp, true_w, slope);
+  convblock_chw_kernel<<<grid, NT, f32_smem(cmid), stream>>>(
+      (const float*)x, (const float*)w1t, (const float*)b1, (const float*)w2t,
+      (const float*)b2, (const float*)residual, (float*)out, cin, cmid, cout, h, wp, true_w,
+      slope);
+  PCSS_CHECK_LAUNCH();
+  return 0;
+}
+
+// ---------------------------------------------------------------- bf16 path
+
+using bf16 = __nv_bfloat16;
+constexpr int OS = TW + 4;  // row stride of the float32 output tile (528-byte rows)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a (16x16, row) * b (16x8, col), float32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Shared-memory plan of the bf16 kernel (bytes), shared by host and device.
+// Channel counts are padded to 16 (kp, mp, op); cs and hs are the row strides
+// (bf16) of the x stage / w1 slices and of the hidden tile / w2.  Region 0
+// holds the x stage [3][XW][cs], later the hidden tile [TW][hs] followed by
+// the float32 output tile [op][OS]; then two w1 slices [mp][cs] and w2 [op][hs].
+struct TcPlan {
+  int kp, mp, op, cs, hs;
+  size_t region0, bytes;
+};
+
+__host__ __device__ __forceinline__ TcPlan tc_plan(int cin, int cmid, int cout) {
+  TcPlan p;
+  p.kp = (cin + 15) & ~15;
+  p.mp = (cmid + 15) & ~15;
+  p.op = (cout + 15) & ~15;
+  p.cs = p.kp + 8;
+  p.hs = p.mp + 8;
+  const size_t stage = (size_t)3 * XW * p.cs * 2;
+  const size_t tiles = (size_t)TW * p.hs * 2 + (size_t)p.op * OS * 4;
+  p.region0 = stage > tiles ? stage : tiles;
+  p.bytes = p.region0 + (size_t)2 * p.mp * p.cs * 2 + (size_t)p.op * p.hs * 2;
+  return p;
+}
+
+// rows x cols bf16 (global, row-major) into shared memory with row stride ld:
+// 16-byte cp.async when cols % 8 == 0 (16-byte aligned rows), else element
+// copies (visible after the next __syncthreads)
+__device__ __forceinline__ void load_matrix(bf16* dst, int ld, const bf16* src, int rows,
+                                            int cols) {
+  if ((cols & 7) == 0) {
+    const int per_row = cols >> 3;
+    for (int i = threadIdx.x; i < rows * per_row; i += NT) {
+      const int r = i / per_row, c = (i - r * per_row) << 3;
+      cp_async16(dst + r * ld + c, src + (size_t)r * cols + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += NT) {
+      const int r = i / cols, c = i - r * cols;
+      dst[r * ld + c] = src[(size_t)r * cols + c];
+    }
+  }
+}
+
+// acc[mi][nj] += A (pixels pm + 16 mi .., K from a) x B (channels nb0 + 8 nj ..,
+// rows of b) for k in [0, k_len); a and b already carry the lane's ldmatrix
+// offset.  two: the warp owns 32 pixels (two m tiles), else 16.
+__device__ __forceinline__ void mma_tile(float (&acc)[2][8][4], const bf16* a, int a_ld,
+                                         const bf16* b, int b_ld, int k_len, int nb0, int npad,
+                                         bool two) {
+  for (int k0 = 0; k0 < k_len; k0 += 16) {
+    uint32_t af[2][4];
+    ldsm_x4(af[0], a + k0);
+    if (two) ldsm_x4(af[1], a + 16 * a_ld + k0);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int nb = nb0 + jj * 16;
+      if (nb < npad) {
+        uint32_t bf[4];
+        ldsm_x4(bf, b + nb * b_ld + k0);
+        mma_bf16(acc[0][2 * jj], af[0], bf[0], bf[1]);
+        mma_bf16(acc[0][2 * jj + 1], af[0], bf[2], bf[3]);
+        if (two) {
+          mma_bf16(acc[1][2 * jj], af[1], bf[0], bf[1]);
+          mma_bf16(acc[1][2 * jj + 1], af[1], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+}
+
+// Stage the rows row-1..row+1, columns col0-1..col0+TW of one image x
+// [Cin][H][Wp] into xs [3][XW][cs], pixel-major; channels cin..kp and rows
+// and columns outside the image are zero.  A unit is 8 channels x 8 pixels,
+// read as one 16-byte vector along W per channel and transposed in registers
+// (prmt) into one 16-byte store per pixel.
+__device__ __forceinline__ void stage_rows(bf16* xs, const TcPlan& P, const bf16* xn, int cin,
+                                           int h, int wp, int row, int col0) {
+  const size_t plane = (size_t)h * wp;
+  const int ncg = P.kp >> 3;
+  for (int u = threadIdx.x; u < 3 * 16 * ncg; u += NT) {
+    const int cg = u % ncg, pg = (u / ncg) & 15, r = u / (ncg * 16);
+    const int gr = row + r - 1;
+    uint32_t v[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = cg * 8 + j;
+      uint4 q = make_uint4(0, 0, 0, 0);
+      if (gr >= 0 && gr < h && c < cin)
+        q = *reinterpret_cast<const uint4*>(xn + (size_t)c * plane + (size_t)gr * wp + col0 +
+                                            pg * 8);
+      v[j][0] = q.x;
+      v[j][1] = q.y;
+      v[j][2] = q.z;
+      v[j][3] = q.w;
+    }
+    bf16* dst = xs + (size_t)(r * XW + 1 + pg * 8) * P.cs + cg * 8;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {  // pixel i: channel pairs from words i / 2
+      const uint32_t sel = (i & 1) ? 0x7632u : 0x5410u;
+      uint4 o;
+      o.x = __byte_perm(v[0][i >> 1], v[1][i >> 1], sel);
+      o.y = __byte_perm(v[2][i >> 1], v[3][i >> 1], sel);
+      o.z = __byte_perm(v[4][i >> 1], v[5][i >> 1], sel);
+      o.w = __byte_perm(v[6][i >> 1], v[7][i >> 1], sel);
+      *reinterpret_cast<uint4*>(dst + (size_t)i * P.cs) = o;
+    }
+  }
+  // the halo columns col0 - 1 and col0 + TW (zero outside [0, Wp))
+  for (int u = threadIdx.x; u < 3 * 2 * P.kp; u += NT) {
+    const int c = u % P.kp, s = (u / P.kp) & 1, r = u / (2 * P.kp);
+    const int gr = row + r - 1, gc = s ? col0 + TW : col0 - 1;
+    bf16 val = __ushort_as_bfloat16((unsigned short)0);
+    if (gr >= 0 && gr < h && gc >= 0 && gc < wp && c < cin)
+      val = xn[(size_t)c * plane + (size_t)gr * wp + gc];
+    xs[(size_t)(r * XW + (s ? XW - 1 : 0)) * P.cs + c] = val;
+  }
+}
+
+__global__ void __launch_bounds__(NT, 1)
+convblock_chw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                        const float* __restrict__ b1, const bf16* __restrict__ w2,
+                        const float* __restrict__ b2, const bf16* __restrict__ residual,
+                        bf16* __restrict__ out, int cin, int cmid, int cout, int h, int wp,
+                        int true_w, float slope) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const TcPlan P = tc_plan(cin, cmid, cout);
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);                       // [3][XW][cs]
+  bf16* hid = xs;                                                     // [TW][hs]
+  float* os = reinterpret_cast<float*>(smem_raw + (size_t)TW * P.hs * 2);  // [op][OS]
+  bf16* w1s = reinterpret_cast<bf16*>(smem_raw + P.region0);          // 2 x [mp][cs]
+  bf16* w2s = w1s + 2 * P.mp * P.cs;                                  // [op][hs]
+
+  const int col0 = blockIdx.x * TW, row = blockIdx.y, n = blockIdx.z;
+
+  // pad rows / columns of the weight buffers stay zero: no load writes them
+  if ((cin | cmid | cout) & 15) {
+    uint4* z = reinterpret_cast<uint4*>(w1s);
+    const int nz = (2 * P.mp * P.cs + P.op * P.hs) / 8;
+    for (int i = threadIdx.x; i < nz; i += NT) z[i] = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+  }
+  load_matrix(w1s, P.cs, w1, cmid, cin);  // tap 0
+  cp_async_commit();
+
+  stage_rows(xs, P, x + (size_t)n * cin * h * wp, cin, h, wp, row, col0);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int a_row = lane & 15, a_k = (lane >> 4) << 3;                 // A ldmatrix rows
+  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_k = ((lane >> 3) & 1) << 3;
+  float acc[2][8][4];
+
+  // ---- 3x3: nine taps, w1 slice t+1 (then w2) in flight during tap t ----
+  bool two = P.mp > 64;
+  int pm = two ? (warp & 3) * 32 : warp * 16, nb0 = two ? (warp >> 2) * 64 : 0;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[mi][nj][k] = 0.f;
+  for (int t = 0; t < 9; ++t) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (t < 8)
+      load_matrix(w1s + ((t + 1) & 1) * P.mp * P.cs, P.cs, w1 + (size_t)(t + 1) * cmid * cin,
+                  cmid, cin);
+    else
+      load_matrix(w2s, P.hs, w2, cout, cmid);
+    cp_async_commit();
+    const bf16* a = xs + (size_t)((t / 3) * XW + (t % 3) + pm + a_row) * P.cs + a_k;
+    const bf16* b = w1s + (t & 1) * P.mp * P.cs + b_row * P.cs + b_k;
+    mma_tile(acc, a, P.cs, b, P.cs, P.kp, nb0, P.mp, two);
+  }
+  __syncthreads();  // the hidden tile replaces the x stage
+
+  // ---- epilogue 1: + b1, leaky, round to bf16 -> hidden tile [px][ch] ----
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    if (mi == 1 && !two) break;
+#pragma unroll
+    for (int nj = 0; nj < 8; ++nj) {
+      const int m = nb0 + nj * 8 + 2 * q;  // cmid % 4 == 0: m < cmid <=> m + 1 < cmid
+      if (nb0 + nj * 8 < P.mp) {
+        const bool real = m < cmid;
+        const float c0 = real ? b1[m] : 0.f, c1 = real ? b1[m + 1] : 0.f;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int p = pm + mi * 16 + g + hf * 8;
+          const float v0 = real ? leaky(__fadd_rn(acc[mi][nj][2 * hf], c0), slope) : 0.f;
+          const float v1 = real ? leaky(__fadd_rn(acc[mi][nj][2 * hf + 1], c1), slope) : 0.f;
+          *reinterpret_cast<uint32_t*>(hid + p * P.hs + m) = pack_bf16x2(v0, v1);
+        }
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // ---- 1x1 from the hidden tile ----
+  two = P.op > 64;
+  pm = two ? (warp & 3) * 32 : warp * 16;
+  nb0 = two ? (warp >> 2) * 64 : 0;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[mi][nj][k] = 0.f;
+  mma_tile(acc, hid + (pm + a_row) * P.hs + a_k, P.hs, w2s + b_row * P.hs + b_k, P.hs, P.mp,
+           nb0, P.op, two);
+
+  // ---- epilogue 2: + b2, leaky -> float32 tile [ch][px] ----
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    if (mi == 1 && !two) break;
+#pragma unroll
+    for (int nj = 0; nj < 8; ++nj) {
+      const int o = nb0 + nj * 8 + 2 * q;  // cout % 4 == 0, as above
+      if (nb0 + nj * 8 < P.op && o < cout) {
+        const float c0 = b2[o], c1 = b2[o + 1];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int p = pm + mi * 16 + g + hf * 8;
+          os[o * OS + p] = leaky(__fadd_rn(acc[mi][nj][2 * hf], c0), slope);
+          os[(o + 1) * OS + p] = leaky(__fadd_rn(acc[mi][nj][2 * hf + 1], c1), slope);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- + residual, pad columns to zero, bf16: 8 pixels of one channel a unit ----
+  for (int u = threadIdx.x; u < cout * 16; u += NT) {
+    const int o = u >> 4, pg = u & 15;
+    const float4 lo = *reinterpret_cast<const float4*>(os + o * OS + pg * 8);
+    const float4 hi = *reinterpret_cast<const float4*>(os + o * OS + pg * 8 + 4);
+    float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    const size_t base = (((size_t)n * cout + o) * h + row) * wp + col0 + pg * 8;
+    if (residual != nullptr) {
+      const uint4 rq = *reinterpret_cast<const uint4*>(residual + base);
+      const uint32_t rw[4] = {rq.x, rq.y, rq.z, rq.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {  // bf16 -> float32 is exact: the bits, shifted
+        v[2 * k] = __fadd_rn(v[2 * k], __uint_as_float(rw[k] << 16));
+        v[2 * k + 1] = __fadd_rn(v[2 * k + 1], __uint_as_float(rw[k] & 0xffff0000u));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (col0 + pg * 8 + i >= true_w) v[i] = 0.f;
+    *reinterpret_cast<uint4*>(out + base) =
+        make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]), pack_bf16x2(v[4], v[5]),
+                   pack_bf16x2(v[6], v[7]));
+  }
+}
+
+int launch_tc(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+              const void* residual, void* out, int n, int cin, int cmid, int cout, int h, int wp,
+              int true_w, float slope, cudaStream_t stream) {
+  static unsigned done = 0;
+  const int e = allow_smem((const void*)convblock_chw_tc_kernel, tc_plan(128, 128, 128).bytes,
+                           done);
+  if (e) return e;
+  const dim3 grid(wp / TW, h, n);
+  convblock_chw_tc_kernel<<<grid, NT, tc_plan(cin, cmid, cout).bytes, stream>>>(
+      (const bf16*)x, (const bf16*)w1, (const float*)b1, (const bf16*)w2, (const float*)b2,
+      (const bf16*)residual, (bf16*)out, cin, cmid, cout, h, wp, true_w, slope);
   PCSS_CHECK_LAUNCH();
   return 0;
 }
@@ -184,9 +541,13 @@ int launch(const void* x, const void* w1t, const void* b1, const void* w2t, cons
 
 extern "C" {
 
-// w1t [9][Cin][Cmid] float32 (tap dy*3+dx), w2t [Cmid][Cout] float32, b1/b2
-// float32; residual may be null; true_w = Wp disables the column mask.
-int pcss_convblock_chw(const void* x, const void* w1t, const void* b1, const void* w2t,
+// Dispatch by dtype; b1/b2 float32; residual may be null; true_w = Wp
+// disables the column mask.  All device pointers 16-byte aligned.
+//   bf16 (is_bf16 = 1): tensor-core kernel; w1 [9][Cmid][Cin] and w2
+//     [Cout][Cmid] bf16 as packed (tap dy*3+dx);
+//   float32: CUDA-core kernel; w1 = w1t [9][Cin][Cmid], w2 = w2t [Cmid][Cout]
+//     float32.
+int pcss_convblock_chw(const void* x, const void* w1, const void* b1, const void* w2,
                        const void* b2, const void* residual, void* out, int n, int cin,
                        int cmid, int cout, int h, int wp, int true_w, float slope, int is_bf16,
                        void* stream) {
@@ -194,10 +555,10 @@ int pcss_convblock_chw(const void* x, const void* w1t, const void* b1, const voi
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return launch<__nv_bfloat16>(x, w1t, b1, w2t, b2, residual, out, n, cin, cmid, cout, h, wp,
-                                 true_w, slope, s);
-  return launch<float>(x, w1t, b1, w2t, b2, residual, out, n, cin, cmid, cout, h, wp, true_w,
-                       slope, s);
+    return launch_tc(x, w1, b1, w2, b2, residual, out, n, cin, cmid, cout, h, wp, true_w, slope,
+                     s);
+  return launch_f32(x, w1, b1, w2, b2, residual, out, n, cin, cmid, cout, h, wp, true_w, slope,
+                    s);
 }
 
 }  // extern "C"

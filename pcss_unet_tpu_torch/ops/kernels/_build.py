@@ -98,12 +98,21 @@ def _build(target: Path) -> None:
         os.replace(lib_tmp, target)   # atomic: concurrent builders agree
 
 
+def _target() -> Path:
+    return BUILD_DIR / f"libpcss_kernels-{_digest()}.so"
+
+
+def build_log() -> str:
+    """The compiler's report for the current sources (after :func:`library`)."""
+    return _target().with_suffix(".log").read_text()
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first call."""
     global _lib
     with _lock:
         if _lib is None:
-            target = BUILD_DIR / f"libpcss_kernels-{_digest()}.so"
+            target = _target()
             if not target.exists():
                 _build(target)
             lib = ctypes.CDLL(str(target))

@@ -77,7 +77,11 @@ def fused_conv_block_chw(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     w1 [9, Cmid, Cin] (tap dy·3+dx), b1 [Cmid, 1], w2 [Cout, Cmid],
     b2 [Cout, 1]; weights are used in x's dtype.  ``true_w`` zeroes the
     output columns ≥ true_w (the next block's zero-pad contract);
-    ``residual [N, Cout, H, Wp]`` is added in float32 before that."""
+    ``residual [N, Cout, H, Wp]`` is added in float32 before that.
+
+    On the card the dtype picks the kernel: bfloat16 runs the tensor-core
+    kernel on the bf16 weights as given, float32 the CUDA-core kernel on
+    float32 copies transposed for it (tensor cores would mean TF32)."""
     if taps not in TAP_STRATEGIES:
         raise ValueError(f"unknown tap strategy {taps!r}; expected one of "
                          f"{TAP_STRATEGIES}")
@@ -106,16 +110,20 @@ def fused_conv_block_chw(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if max(cin, cmid, cout) > 128 or cmid % 4 or cout % 4:
         raise ValueError(f"kernel takes Cin, Cmid, Cout <= 128 and Cmid, Cout "
                          f"% 4 == 0; got {cin}, {cmid}, {cout}")
-    x = x.contiguous()
-    # weight scratch: float32, transposed for the kernel's float4 reads
-    w1t = w1.to(x.dtype).float().permute(0, 2, 1).contiguous()   # [9, Cin, Cmid]
-    w2t = w2.to(x.dtype).float().t().contiguous()                 # [Cmid, Cout]
+    x = _build.aligned(x)
+    if x.dtype == torch.bfloat16:
+        # tensor-core kernel: the packed bf16 weights as they are
+        w1k, w2k = _build.aligned(w1.to(x.dtype)), _build.aligned(w2.to(x.dtype))
+    else:
+        # CUDA-core kernel: float32 weights transposed for its float4 reads
+        w1k = w1.float().permute(0, 2, 1).contiguous()   # [9, Cin, Cmid]
+        w2k = w2.float().t().contiguous()                 # [Cmid, Cout]
     b1f = b1.float().reshape(-1).contiguous()
     b2f = b2.float().reshape(-1).contiguous()
-    res = None if residual is None else residual.to(x.dtype).contiguous()
+    res = None if residual is None else _build.aligned(residual.to(x.dtype))
     out = torch.empty((n, cout, h, wp), dtype=x.dtype, device=x.device)
-    _build.call("pcss_convblock_chw", x.data_ptr(), w1t.data_ptr(),
-                b1f.data_ptr(), w2t.data_ptr(), b2f.data_ptr(),
+    _build.call("pcss_convblock_chw", x.data_ptr(), w1k.data_ptr(),
+                b1f.data_ptr(), w2k.data_ptr(), b2f.data_ptr(),
                 None if res is None else res.data_ptr(), out.data_ptr(),
                 n, cin, cmid, cout, h, wp, wp if true_w is None else true_w,
                 float(negative_slope), int(x.dtype == torch.bfloat16),

@@ -99,6 +99,19 @@ def _conv_operands(gen, dev, cin, cmid, cout, n, h, w, dtype):
     (64, 64, 16, 2, 24, 130),
     (128, 128, 32, 1, 30, 200),
     (32, 32, 128, 1, 9, 127),
+    # the rest of the main path's Cin→Cmid→Cout triples
+    (64, 64, 128, 1, 8, 40),
+    (128, 128, 64, 1, 6, 130),
+    (16, 16, 16, 1, 12, 64),
+    (16, 16, 32, 1, 8, 100),
+    (32, 32, 16, 1, 7, 90),
+    # padding edges: channels not multiples of 16 (or of 8), one row,
+    # W = 127 (Wp 128) and W = 128 (Wp 256), a batch of two
+    (20, 12, 4, 1, 5, 60),
+    (24, 20, 8, 2, 4, 33),
+    (16, 16, 16, 1, 1, 127),
+    (64, 64, 16, 1, 1, 128),
+    (20, 12, 4, 2, 3, 128),
 ])
 def test_convblock_kernel(dev, gen, dtype, rel, cin, cmid, cout, n, h, w):
     x, ws, res, w = _conv_operands(gen, dev, cin, cmid, cout, n, h, w, dtype)
@@ -108,6 +121,7 @@ def test_convblock_kernel(dev, gen, dtype, rel, cin, cmid, cout, n, h, w):
         assert kcb.fused_conv_block_chw.launches == before + 1
         want = kcb.conv_block_chw_plain(x, *ws, **kw)
         torch.cuda.synchronize()
+        assert got.dtype == dtype and tuple(got.shape) == tuple(want.shape)
         _close(got, want, rel)
         if "true_w" in kw:
             assert torch.all(got[..., w:] == 0)

@@ -104,6 +104,11 @@ _JAX_TAPS = {
     (16, 16, 64, 32, 48, 8),      # enc_0 shape class
     (64, 64, 16, 24, 130, 8),     # dec_final class; W just over a lane tile
     (16, 16, 32, 30, 96, 6),      # H a multiple of 6, not of 8
+    # the card kernel's padding edges (channels not multiples of 16, one
+    # row, W = 127 with Wp 128, W = 128 with Wp 256)
+    (20, 12, 4, 10, 60, 5),
+    (16, 16, 16, 1, 127, 1),
+    (64, 64, 16, 4, 128, 4),
 ])
 def test_convblock_plain_matches(rng, taps, cin, cmid, cout, h, w, k):
     """Every reference tap strategy ≡ the port's one function (rtol/atol
@@ -123,11 +128,24 @@ def test_convblock_plain_matches(rng, taps, cin, cmid, cout, h, w, k):
                                atol=2e-4)
 
 
-@pytest.mark.parametrize("taps", ["stack", "acc_shift", "rowpack"])
-def test_convblock_epilogue_matches(rng, taps):
+_EPILOGUE_BASE = (16, 16, 32, 16, 100, 8)
+_EPILOGUE_CASES = [("stack", _EPILOGUE_BASE), ("acc_shift", _EPILOGUE_BASE),
+                   ("rowpack", _EPILOGUE_BASE),
+                   # the card kernel's padding edges, as above
+                   ("stack", (20, 12, 4, 10, 60, 5)),
+                   ("stack", (16, 16, 16, 1, 127, 1)),
+                   ("acc_shift", (64, 64, 16, 4, 128, 4))]
+
+
+@pytest.mark.parametrize(
+    "taps,shape", _EPILOGUE_CASES,
+    ids=["stack", "acc_shift", "rowpack", "stack-c20-12-4", "stack-h1-w127",
+         "acc_shift-w128"])
+def test_convblock_epilogue_matches(rng, taps, shape):
     """true_w pad re-zeroing and the fused residual add ≡ the reference
     (rtol/atol 2e-4 over every column, float32)."""
-    cin, cmid, cout, h, w, k, wp = 16, 16, 32, 16, 100, 8, 128
+    cin, cmid, cout, h, w, k = shape
+    wp = (w // 128 + 1) * 128
     params = _convblock_params(rng, cin, cmid, cout)
     x = np.zeros((1, cin, h, wp), np.float32)
     x[..., :w] = rng.standard_normal((1, cin, h, w))
@@ -142,6 +160,23 @@ def test_convblock_epilogue_matches(rng, taps):
         taps=taps, true_w=w, residual=_t(res)).numpy()
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
     assert np.all(got[..., w:] == 0.0)
+
+
+def test_convblock_bf16_cpu_takes_plain_version(rng):
+    """A bf16 CPU call takes the plain version on the bf16 weights as given:
+    equal to it bit for bit, and no kernel launch counted."""
+    params = _convblock_params(rng, 20, 12, 4)
+    w1, b1, w2, b2 = tcb.pack_convblock_params(params, dtype=torch.bfloat16)
+    assert w1.dtype == w2.dtype == torch.bfloat16
+    x = torch.zeros(1, 20, 5, 128, dtype=torch.bfloat16)
+    x[..., :60] = _t(rng.standard_normal((1, 20, 5, 60)).astype(np.float32))
+    res = _t(rng.standard_normal((1, 4, 5, 128)).astype(np.float32)).bfloat16()
+    before = tcb.fused_conv_block_chw.launches
+    got = tcb.fused_conv_block_chw(x, w1, b1, w2, b2, true_w=60, residual=res)
+    want = tcb.conv_block_chw_plain(x, w1, b1, w2, b2, true_w=60, residual=res)
+    assert tcb.fused_conv_block_chw.launches == before
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert torch.all(got[..., 60:] == 0)
 
 
 def test_convblock_wrapper_validates(rng):
