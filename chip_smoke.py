@@ -7,15 +7,20 @@ Builds the port's CUDA kernels from ``pcss_unet_tpu_torch/csrc`` (into
 ``build/kernels``), then runs these phases, each printing one JSON line:
 
 1. ``build``: the card (name, power limit), the kernels' build time and the
-   ``ptxas`` register/spill report; K2's bf16 tensor-core kernel must not
-   spill.
+   ``ptxas`` register/spill report; K2's bf16 tensor-core kernel and the int8
+   tensor-core kernels (K3, K5, K7) must not spill.  For each int8 kernel
+   (the 3×3 and 1×1 ``int8_taps_kernel`` instantiations) it prints the
+   registers, the shared memory per block and the count of ``IMMA`` and
+   ``IDP4A`` instructions in the library's SASS (``cuobjdump``); it fails if
+   an int8 kernel has no ``IMMA`` or any function has an ``IDP4A``.
 2. ``kernel``: each kernel against its plain PyTorch version on the card, on
    the inputs each main path really gives it (recorded from one forward of
    each of the three paths below), in bfloat16, plus one float32 case per
-   kernel with TF32 off; max |d| against the stated tolerance, kernel and
-   plain times from CUDA events, per path.  Each kernel also prints one
-   ``kernel_call`` line per recorded call (each tensor argument's shape and
-   strides, ms, bound, plain ms, max and signed mean of the difference).
+   kernel with TF32 off; max |d| against the stated tolerance (exact for the
+   int8 kernels and K4), kernel and plain times from CUDA events, per path.
+   Each kernel also prints one ``kernel_call`` line per recorded call (each
+   tensor argument's shape and strides, ms, bound, its share of the kernel's
+   time, plain ms, max and signed mean of the difference).
    The headline path of K1–K4 is
    the w16 2048×1024 chw+int8 forward, that of K5 (w64 ``dec_0``), K6 (w64
    ``dec_2``) and K2′ (w64 ``enc_0``, ``enc_1``, ``dec_final``) the w64
@@ -90,17 +95,49 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def ptxas_spills(log: str, kernel: str) -> list[int]:
-    """[spill store bytes, spill load bytes] that ``ptxas -v`` reports for
-    the entry function whose mangled name contains ``kernel``."""
-    lines = log.splitlines()
+def ptxas_entries(log: str, kernel: str) -> list[dict]:
+    """Every entry function whose mangled name contains ``kernel``: its
+    name, registers and [spill store, spill load] bytes from ``ptxas -v``."""
+    lines, found = log.splitlines(), []
     for i, ln in enumerate(lines):
-        if "Compiling entry function" in ln and kernel in ln:
-            for nxt in lines[i + 1:i + 4]:
-                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", nxt)
-                if m:
-                    return [int(m.group(1)), int(m.group(2))]
-    raise AssertionError(f"no ptxas report for {kernel}")
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m and kernel in m.group(1):
+            rep = " ".join(lines[i + 1:i + 4])
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", rep)
+            rg = re.search(r"Used (\d+) registers", rep)
+            found.append({"name": m.group(1), "registers": int(rg.group(1)),
+                          "spill_bytes": [int(sp.group(1)), int(sp.group(2))]})
+    if not found:
+        raise AssertionError(f"no ptxas report for {kernel}")
+    return found
+
+
+def sass_counts(lib_path: str) -> dict:
+    """{function: {"IMMA": n, "IDP4A": n}} over the library's SASS."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {"IMMA": 0, "IDP4A": 0}
+        elif fn is not None:
+            counts[fn]["IMMA"] += len(re.findall(r"\bIMMA\b", ln))
+            counts[fn]["IDP4A"] += len(re.findall(r"\bIDP\.?4A\b", ln))
+    return counts
+
+
+def demangle(names: list[str]) -> list[str]:
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60, check=True).stdout.splitlines()
+        return out if len(out) == len(names) else names
+    except (OSError, subprocess.SubprocessError):
+        return names
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -249,6 +286,7 @@ def check_kernel(name, kernel, plain, paths, tol_fn, work_fn, f32_case):
             ms, plain_ms, t_bound = ms + t, plain_ms + tp, t_bound + b
             by_ops += b if kind == "operations" else 0.0
             emit({"phase": "kernel_call", "name": name, "path": path,
+                  "bound_share": b / t,
                   "call": i, "args": [[list(a.shape), list(a.stride())]
                                       for a in args if torch.is_tensor(a)],
                   "options": {k: list(v.shape) if torch.is_tensor(v) else
@@ -509,12 +547,30 @@ def main() -> int:
     log = _build.build_log()
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
-    tc_spills = ptxas_spills(log, "convblock_chw_tc_kernel")
+    tc_spills = ptxas_entries(log, "convblock_chw_tc_kernel")[0]["spill_bytes"]
+    sass = sass_counts(str(_build._target()))
+    int8 = ptxas_entries(log, "int8_taps_kernel")
+    for e, pretty in zip(int8, demangle([e["name"] for e in int8])):
+        m = re.search(r"int8_taps_kernel<[^>]*>", pretty)
+        src = "block_int8.cu" if "block_int8_cu" in e["name"] else "conv3x3_int8.cu"
+        e["kernel"] = f"{src}: {m.group(0) if m else e['name']}"
+        e.update(sass.get(e["name"], {"IMMA": 0, "IDP4A": 0}))
+        # K5's chunked 3x3 (four chunks at w64 dec_0), the others one chunk
+        e["smem_bytes_per_block"] = _build.library().pcss_int8_smem_bytes(
+            1 if "Li1ELb" in e["name"] else 9, 4 if "Lb1E" in e["name"] else 1)
+    dp4a = {f: c["IDP4A"] for f, c in sass.items() if c["IDP4A"]}
     emit({"phase": "build", "card": card, "seconds": build_s,
-          "ptxas": ptxas, "convblock_chw_tc_kernel_spill_bytes": tc_spills})
+          "ptxas": ptxas, "convblock_chw_tc_kernel_spill_bytes": tc_spills,
+          "int8_kernels": [{k: e[k] for k in ("kernel", "registers", "spill_bytes",
+                                              "smem_bytes_per_block", "IMMA", "IDP4A")}
+                           for e in int8]})
     if tc_spills != [0, 0]:
         raise AssertionError(f"K2's tensor-core kernel spills: {tc_spills} "
                              "bytes (stores, loads)")
+    bad = [e["kernel"] for e in int8 if e["spill_bytes"] != [0, 0] or not e["IMMA"]]
+    if bad or dp4a:
+        raise AssertionError(f"int8 kernels spilling or without IMMA: {bad}; "
+                             f"functions with IDP4A: {dp4a}")
 
     # ------------------------------------------------- engines and inputs
     meta, xv, yv = golden_frames()
@@ -575,18 +631,19 @@ def main() -> int:
                      kcb.conv_block_chw_plain,
                      on("convblock", "w16_chw", "w64_chw"), conv_tol,
                      conv_work, f32(first("convblock", "w16_chw", -2))),
-        # same quantized integers and the same float32 steps on both sides:
-        # at most one bf16 rounding apart
+        # int8 x int8 -> int32 sums are exact in any order, and the kernel
+        # takes every float32 step (dequantize, bias, leaky, rounding of h,
+        # the band max) as the plain version does: equal, bit for bit
         check_kernel("fused_block_int8_nhwc", kb8.fused_block_int8_nhwc,
                      kb8.block_int8_nhwc_plain, on("int8", *all3),
-                     rel_tol(1e-2), int8_work, f32(first("int8", "w16_chw"))),
+                     lambda *_: 0.0, int8_work, f32(first("int8", "w16_chw"))),
         check_kernel("fused_mask_to_u8", kfu.fused_mask_to_u8,
                      kfu.mask_to_u8_plain, on("u8", *all3), lambda *_: 0.0,
                      u8_work, first("u8", "w16_chw")),
-        # K5: as K3, the chunk sums in the same order on both sides
+        # K5: exact as K3, the float32 chunk sums in the same order on both sides
         check_kernel("fused_block_int8_kchunked", kb8.fused_block_int8_kchunked,
                      kb8.block_int8_kchunked_plain,
-                     on("kchunked", "w64_nhwc", "w64_chw"), rel_tol(1e-2),
+                     on("kchunked", "w64_nhwc", "w64_chw"), lambda *_: 0.0,
                      int8_work, f32(first("kchunked", "w64_nhwc"))),
         check_kernel("fused_block128_nhwc", kc128.fused_block128_nhwc,
                      kc128.block128_nhwc_plain, on("block128", "w64_nhwc"),
@@ -601,10 +658,10 @@ def main() -> int:
                dict(k_rows=k_rows, co_tile=co_tile, negative_slope=0.2,
                     out_dtype=torch.bfloat16))
     entries += [
-        # same integers and float32 steps: one output rounding at most
+        # exact, as K3: the same integers and float32 steps
         check_kernel("conv3x3_int8_nhwc", kc7.conv3x3_int8_nhwc,
                      lambda *a, co_tile=None, **k: kc7.conv3x3_int8_plain(*a, **k),
-                     [("w64_dec_1a", [k7_call])], rel_tol(1e-2),
+                     [("w64_dec_1a", [k7_call])], lambda *_: 0.0,
                      conv3x3_int8_work,
                      (f32(k7_call)[0], dict(k7_call[1], out_dtype=torch.float32))),
         check_kernel("fused_conv_block_nhwc", kcb.fused_conv_block_nhwc,

@@ -15,89 +15,38 @@
 // before a2, K5 does not, as in the reference.
 //
 // Both scales reduce over a whole band, and blocks run in no order, so the
-// block is three launches on one stream:
+// block is three launches on one stream (all in int8_conv.cuh):
 //   1. rowmax_kernel: max|x| of every (row, chunk), and zero the per-band max |h|;
-//   2. conv3x3_int8_kernel (int8_conv.cuh): the 3x3, chunks in order so the
-//      float32 sum order is fixed, h into a scratch tensor, per-band max |h|;
-//   3. pointwise_kernel: quantize h by a2, int8 1x1, dequantize, bias, leaky,
-//      store.
+//   2. int8_taps_kernel, 9 taps: the 3x3 on the int8 tensor cores, chunks
+//      folded in order so the float32 sum order is fixed, h into a scratch
+//      tensor, per-band max |h|;
+//   3. int8_taps_kernel, 1 tap: quantize h by a2, the 1x1 on the same
+//      tensor-core tile, dequantize, bias, leaky, store.
 //
 // What bounds them on the H100: at w16 dec_0 (K3, x [1,128,256,256], Cmid
 // 256, Cout 128) 20.4 G int8 multiply-adds, at w64 dec_0 (K5, x
 // [1,136,240,1024], Cmid 1024, Cout 512) 325 G: operations (0.02 / 0.33 ms
 // at the 1979 TOP/s int8 tensor-core rate) far above the bytes (~25 / ~135 MB).
-// These first kernels run them as __dp4a on the CUDA cores, well below the
-// tensor-core rate; the h scratch round trip adds 2 x 16 MB (K3) and
-// 2 x 134 MB (K5, float32 h).
+// The tensor-core tile (taps.cuh, int8_conv.cuh) keeps every integer sum
+// exact and every float32 step in the plain version's order, so the results
+// equal the plain versions bit for bit.  The h scratch round trip adds 2 x 16
+// MB (K3) and 2 x 134 MB (K5, float32 h).
 #include "int8_conv.cuh"
 
 namespace {
-
-template <typename T, typename HT>
-__global__ void pointwise_kernel(const HT* __restrict__ hbuf, const int4* __restrict__ w2p,
-                                 const float* __restrict__ s2, const float* __restrict__ b2,
-                                 const unsigned int* __restrict__ bandmax, T* __restrict__ out,
-                                 int h, int w, int cmid, int cout, int k_rows, float slope) {
-  extern __shared__ int4 smem4[];
-  int8_t* hq = reinterpret_cast<int8_t*>(smem4);  // [PX][cmid]
-  const int col0 = blockIdx.x * PX, row = blockIdx.y, n = blockIdx.z;
-  const int band = row / k_rows;
-  const float a2 =
-      __fadd_rn(__fdiv_rn(__uint_as_float(bandmax[n * (h / k_rows) + band]), 127.f), 1e-12f);
-
-  for (int i = threadIdx.x; i < PX * cmid; i += blockDim.x) {
-    const int p = i / cmid, m = i % cmid, col = col0 + p;
-    const float v = col < w ? to_float(hbuf[(((size_t)n * h + row) * w + col) * cmid + m]) : 0.f;
-    hq[i] = quant_i8(v, a2);
-  }
-  __syncthreads();
-
-  const int cw16 = cmid / 16;
-  for (int o = threadIdx.x; o < cout; o += blockDim.x) {
-    int acc[PX];
-#pragma unroll
-    for (int p = 0; p < PX; ++p) acc[p] = 0;
-    for (int k = 0; k < cw16; ++k) {
-      const int4 wv = __ldg(w2p + (size_t)k * cout + o);
-#pragma unroll
-      for (int p = 0; p < PX; ++p) {
-        const int4 hv = smem4[p * cw16 + k];
-        acc[p] = __dp4a(hv.x, wv.x, acc[p]);
-        acc[p] = __dp4a(hv.y, wv.y, acc[p]);
-        acc[p] = __dp4a(hv.z, wv.z, acc[p]);
-        acc[p] = __dp4a(hv.w, wv.w, acc[p]);
-      }
-    }
-    const float scale = __fmul_rn(a2, s2[o]);
-#pragma unroll
-    for (int p = 0; p < PX; ++p) {
-      const int col = col0 + p;
-      if (col < w) {
-        const float v = leaky(__fadd_rn(__fmul_rn(__int2float_rn(acc[p]), scale), b2[o]), slope);
-        out[(((size_t)n * h + row) * w + col) * cout + o] = from_float<T>(v);
-      }
-    }
-  }
-}
 
 template <typename T, typename HT>
 int launch(const void* x, const void* w1p, const void* s1, const void* b1, const void* w2p,
            const void* s2, const void* b2, void* out, void* rowmax, void* bandmax, void* hbuf,
            int n, int h, int w, int c, int c_chunk, int cmid, int cout, int k_rows, float slope,
            cudaStream_t stream) {
-  int e = launch_conv3x3_int8<T, HT>(x, w1p, s1, b1, rowmax, bandmax, hbuf, n, h, w, c, c_chunk,
-                                     cmid, cmid, k_rows, slope, 1, stream);
+  int e = launch_conv3x3_int8<T, HT, true>(x, w1p, s1, b1, rowmax, bandmax, hbuf, n, h, w, c,
+                                           c_chunk, cmid, cmid, k_rows, slope, 1, stream);
   if (e) return e;
-  const size_t smem_pw = (size_t)PX * cmid;
-  cudaError_t ce = cudaFuncSetAttribute(pointwise_kernel<T, HT>,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_pw);
-  if (ce != cudaSuccess) return (int)ce;
-  const dim3 grid((w + PX - 1) / PX, h, n);
-  pointwise_kernel<T, HT><<<grid, threads_for(cout), smem_pw, stream>>>(
-      (const HT*)hbuf, (const int4*)w2p, (const float*)s2, (const float*)b2,
-      (const unsigned int*)bandmax, (T*)out, h, w, cmid, cout, k_rows, slope);
-  PCSS_CHECK_LAUNCH();
-  return 0;
+  const I8Args A{hbuf, (const int4*)w2p, (const float*)s2, (const float*)b2, nullptr,
+                 (const unsigned*)bandmax, nullptr, out, h, w, cmid, cmid, cout, cout, k_rows,
+                 1, slope};
+  return launch_taps<HT, T, 1, false>(A, n, stream);
 }
 
 }  // namespace
@@ -108,13 +57,14 @@ extern "C" {
 // [cmid/16][cout][16]; s1/b1 [cmid], s2/b2 [cout] float32.  K3: c_chunk = c,
 // hbuf bf16; K5: c_chunk < c, hbuf float32 (hidden_f32).  Scratch: rowmax
 // float32 [n*h*(c/c_chunk)], bandmax uint32 [n*h/k_rows], hbuf [n,h,w,cmid].
+// x and hbuf 16-byte aligned.
 int pcss_block_int8_nhwc(const void* x, const void* w1p, const void* s1, const void* b1,
                          const void* w2p, const void* s2, const void* b2, void* out,
                          void* rowmax, void* bandmax, void* hbuf, int n, int h, int w, int c,
                          int c_chunk, int cmid, int cout, int k_rows, float slope, int is_bf16,
                          int hidden_f32, void* stream) {
   if (c % 16 || cmid % 16 || c_chunk < 16 || c_chunk % 16 || c % c_chunk || k_rows < 1 ||
-      h % k_rows)
+      h % k_rows || cout < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16 && hidden_f32)
@@ -129,6 +79,13 @@ int pcss_block_int8_nhwc(const void* x, const void* w1p, const void* s1, const v
                                 w, c, c_chunk, cmid, cout, k_rows, slope, s);
   return launch<float, __nv_bfloat16>(x, w1p, s1, b1, w2p, s2, b2, out, rowmax, bandmax, hbuf,
                                       n, h, w, c, c_chunk, cmid, cout, k_rows, slope, s);
+}
+
+// Dynamic shared memory of one int8_taps_kernel block (taps 9 or 1) with
+// `nchunks` contraction chunks, for reports.
+size_t pcss_int8_smem_bytes(int taps, int nchunks) {
+  if (taps != 9) return taps_smem_bytes<1, false>(nchunks);
+  return nchunks > 1 ? taps_smem_bytes<9, true>(nchunks) : taps_smem_bytes<9, false>(nchunks);
 }
 
 }  // extern "C"

@@ -195,20 +195,6 @@ convblock_chw_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
   }
 }
 
-// Raise a kernel's dynamic shared-memory limit to `bytes` once per device
-// (bit d of `done`) instead of on every launch.
-int allow_smem(const void* kernel, size_t bytes, unsigned& done) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  const unsigned bit = dev < 32 ? 1u << dev : 0u;
-  if (done & bit) return 0;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  done |= bit;
-  return 0;
-}
-
 size_t f32_smem(int cmid) { return sizeof(float) * ((size_t)CC * 3 * XW + (size_t)cmid * TW); }
 
 int launch_f32(const void* x, const void* w1t, const void* b1, const void* w2t, const void* b2,

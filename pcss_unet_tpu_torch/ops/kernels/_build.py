@@ -120,6 +120,8 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            lib.pcss_int8_smem_bytes.argtypes = (ctypes.c_int, ctypes.c_int)
+            lib.pcss_int8_smem_bytes.restype = ctypes.c_size_t
             lib.pcss_error_string.argtypes = (ctypes.c_int,)
             lib.pcss_error_string.restype = ctypes.c_char_p
             _lib = lib

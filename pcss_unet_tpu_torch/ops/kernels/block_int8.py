@@ -174,9 +174,17 @@ def block_int8_kchunked_plain(x, w1q, s1, b1, w2q, s2, b2, *, k_rows: int,
 
 def pack_taps_i8(wq: torch.Tensor) -> torch.Tensor:
     """[9, C, Co] int8 → the kernels' [9, C/16, Co, 16]: 16 input channels
-    per 16-byte word, output channel minor."""
-    _, c, co = wq.shape
-    return wq.reshape(9, c // 16, 16, co).permute(0, 1, 3, 2).contiguous()
+    per 16-byte word, output channel minor.  For one (tap, word), eight
+    consecutive output channels are 128 contiguous bytes: the rows of one
+    ``ldmatrix`` B fragment of the tensor-core tile (``csrc/taps.cuh``)."""
+    taps, c, co = wq.shape
+    return wq.reshape(taps, c // 16, 16, co).permute(0, 1, 3, 2).contiguous()
+
+
+def pack_pointwise_i8(w2q: torch.Tensor) -> torch.Tensor:
+    """[Cmid, Cout] int8 → [Cmid/16, Cout, 16]: the 1×1 as one tap of
+    :func:`pack_taps_i8`'s layout."""
+    return pack_taps_i8(w2q[None])[0]
 
 
 def _check_block(x, w1q, s1, b1, w2q, s2, b2, k_rows, c_chunk) -> None:
@@ -205,9 +213,9 @@ def _launch_block(x, w1q, s1, b1, w2q, s2, b2, k_rows, c_chunk,
     _build.check_device(x, w1q, s1, b1, w2q, s2, b2)
     n, h, w, c = x.shape
     cmid, cout = w1q.shape[2], w2q.shape[1]
-    x = x.contiguous()
+    x = _build.aligned(x)
     w1p = pack_taps_i8(w1q)
-    w2p = w2q.reshape(cmid // 16, 16, cout).permute(0, 2, 1).contiguous()
+    w2p = pack_pointwise_i8(w2q)
     f32 = [t.float().reshape(-1).contiguous() for t in (s1, b1, s2, b2)]
     rowmax = torch.empty(n * h * (c // c_chunk), dtype=torch.float32,
                          device=x.device)

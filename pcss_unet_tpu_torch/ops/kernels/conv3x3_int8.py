@@ -83,7 +83,7 @@ def conv3x3_int8_nhwc(x: torch.Tensor, wq: torch.Tensor,
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"kernel takes bfloat16 or float32, got {x.dtype}")
     _build.check_device(x, wq, w_scales, bias)
-    x = x.contiguous()
+    x = _build.aligned(x)
     wp = pack_taps_i8(wq)
     ws = w_scales.float().reshape(-1).contiguous()
     b = bias.float().reshape(-1).contiguous()

@@ -7,7 +7,9 @@ The file imports nothing of JAX, so it also runs on a machine without it:
 
 Tolerances: float32 with TF32 off, sum-order noise (1e-4 relative); bf16
 outputs, one bf16 rounding plus flips of the hidden tile's bf16 rounding
-(2e-2 relative); int8 and uint8 results exact or one rounding apart.
+(2e-2 relative).  The int8 kernels (K3, K5, K7) and the uint8 mask are held
+exactly: int8 sums are exact in any order and the kernels take every float32
+step as their plain versions do.
 """
 
 import numpy as np
@@ -150,8 +152,13 @@ def test_launch_error_raises(dev):
 @pytest.mark.parametrize("c,co,n,h,w", [
     (128, 64, 1, 16, 16),
     (256, 128, 2, 8, 32),
-    (128, 64, 1, 12, 20),      # W not a multiple of the 32-pixel tile
+    (128, 64, 1, 12, 20),      # W not a multiple of the pixel tile
     (512, 128, 1, 4, 40),
+    # tile edges of the tensor-core kernel (128 pixels x 128 channels):
+    (128, 64, 1, 2, 240),      # W = 240: two pixel tiles, the second ragged
+    (256, 64, 2, 3, 130),      # N = 2, W two columns over one tile, k_rows = H
+    (128, 192, 1, 4, 96),      # Cout 192: a full and a half channel tile
+    (384, 64, 1, 5, 12),       # six 64-channel slices, one band of 5 rows
 ])
 def test_block_int8_kernel(dev, gen, dtype, c, co, n, h, w):
     params = {
@@ -162,14 +169,15 @@ def test_block_int8_kernel(dev, gen, dtype, c, co, n, h, w):
     }
     ops = kb8.pack_block_int8_params(params, device=dev)
     x = torch.from_numpy(gen.standard_normal((n, h, w, c)).astype(np.float32)).to(dev, dtype)
-    for k in (2, 4):
+    for k in sorted({2, 4, h}):  # k_rows = H: one band touches both frame edges
         if h % k:
             continue
+        before = kb8.fused_block_int8_nhwc.launches
         got = kb8.fused_block_int8_nhwc(x, *ops, k_rows=k)
+        assert kb8.fused_block_int8_nhwc.launches == before + 1
         want = kb8.block_int8_nhwc_plain(x, *ops, k_rows=k)
         torch.cuda.synchronize()
-        # same integers, same float32 steps: one output rounding at most
-        _close(got, want, 1e-2 if dtype == torch.bfloat16 else 1e-6)
+        assert torch.equal(got, want), (k, (got.float() - want.float()).abs().max().item())
 
 
 def _int8_block_operands(gen, dev, dtype, n, h, w, c, co):
@@ -189,6 +197,8 @@ def _int8_block_operands(gen, dev, dtype, n, h, w, c, co):
     (256, 64, 1, 8, 32, 2, 128),     # four bands: two at the frame edges
     (1024, 512, 1, 8, 40, 4, 256),   # w64 dec_0 channels, W not a multiple of 32
     (512, 128, 2, 4, 16, 2, 256),    # batched
+    (768, 64, 1, 4, 240, 4, 256),    # three chunks, W = 240, k_rows = H
+    (1024, 64, 2, 2, 20, 2, 256),    # four chunks, N = 2, k_rows = H
 ])
 def test_block_int8_kchunked_kernel(dev, gen, dtype, c, co, n, h, w, k, cc):
     x, ops = _int8_block_operands(gen, dev, dtype, n, h, w, c, co)
@@ -197,9 +207,8 @@ def test_block_int8_kchunked_kernel(dev, gen, dtype, c, co, n, h, w, k, cc):
     assert kb8.fused_block_int8_kchunked.launches == before + 1
     want = kb8.block_int8_kchunked_plain(x, *ops, k_rows=k, c_chunk=cc)
     torch.cuda.synchronize()
-    # same integers, same float32 steps in the same order: one output
-    # rounding at most
-    _close(got, want, 1e-2 if dtype == torch.bfloat16 else 1e-6)
+    # same integers, same float32 steps in the same order
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
 
 
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
@@ -252,6 +261,8 @@ def test_convblock_nhwc_kernel(dev, gen, dtype, rel):
 @pytest.mark.parametrize("n,h,w,c,co,k,cot,slope", [
     (1, 8, 16, 128, 256, 8, 256, 0.2),
     (2, 12, 40, 256, 256, 4, 128, None),   # two Co tiles, no activation
+    (1, 6, 240, 128, 64, 6, 64, 0.2),      # Co 64 below the channel tile, k_rows = H
+    (2, 4, 130, 256, 384, 2, 192, None),   # two co_tiles of 192: 128 + 64 channels each
 ])
 def test_conv3x3_int8_kernel(dev, gen, dtype, out_dtype, n, h, w, c, co, k,
                              cot, slope):
@@ -265,4 +276,33 @@ def test_conv3x3_int8_kernel(dev, gen, dtype, out_dtype, n, h, w, c, co, k,
     assert kc7.conv3x3_int8_nhwc.launches == before + 1
     want = kc7.conv3x3_int8_plain(x, wq, ws, bias, **kw)
     torch.cuda.synchronize()
-    _close(got, want, 1e-2 if out_dtype == torch.bfloat16 else 1e-6)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("c_chunk", [128, 256])
+def test_int8_quantization_at_rounding_ties(dev, gen, c_chunk):
+    """Every activation within three float32 ulp of (k + 1/2) · a, the tie
+    of the int8 rounding at the band's scale a (each row holds the band's
+    max |x| = 3, so a is known): the kernels' division-free quantization
+    must round each as the plain version's IEEE division does."""
+    n, h, w, c = 1, 4, 40, 256
+    a = (torch.tensor(3.0) / 127.0 + 1e-12).float()
+    k = torch.from_numpy(gen.integers(-126, 126, (n, h, w, c)).astype(np.float32))
+    v = ((k + 0.5) * a).float()
+    for step in range(1, 4):   # a few values on either side of the tie
+        sel = torch.from_numpy(gen.integers(-step, step + 1, v.shape)).sign()
+        v = torch.where(sel > 0, torch.nextafter(v, torch.tensor(np.inf)), v)
+        v = torch.where(sel < 0, torch.nextafter(v, torch.tensor(-np.inf)), v)
+    v[:, :, 0, :] = 3.0
+    x = v.to(dev)
+    wq = torch.from_numpy(gen.integers(-127, 127, (9, c, 128)).astype(np.int8)).to(dev)
+    ones, zeros = torch.full((128,), 1e-3, device=dev), torch.zeros(128, device=dev)
+    got = kc7.conv3x3_int8_nhwc(x, wq, ones, zeros, k_rows=2, co_tile=128,
+                                out_dtype=torch.float32)
+    want = kc7.conv3x3_int8_plain(x, wq, ones, zeros, k_rows=2, out_dtype=torch.float32)
+    ops = (wq, ones, zeros, wq[4, :128, :64].contiguous(), ones[:64], zeros[:64])
+    got5 = kb8.fused_block_int8_kchunked(x, *ops, k_rows=2, c_chunk=c_chunk)
+    want5 = kb8.block_int8_kchunked_plain(x, *ops, k_rows=2, c_chunk=c_chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got5, want5)

@@ -244,6 +244,68 @@ def test_block_int8_pack_matches(rng):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("taps,c,co", [(9, 128, 64), (9, 256, 200), (1, 512, 128),
+                                       (1, 16, 8)])
+def test_pack_taps_i8_round_trip(rng, taps, c, co):
+    """The tensor-core kernels' weight layout [taps, C/16, Co, 16] holds
+    input channel 16k + i of output channel o at [t, k, o, i], and unpacks
+    to [taps, C, Co] bit for bit; the 1×1's is the one-tap case."""
+    wq = _t(rng.integers(-127, 128, (taps, c, co)).astype(np.int8))
+    packed = tb8.pack_taps_i8(wq)
+    assert tuple(packed.shape) == (taps, c // 16, co, 16) and packed.is_contiguous()
+    t, k, o, i = (int(v) for v in rng.integers(0, (taps, c // 16, co, 16)))
+    assert packed[t, k, o, i] == wq[t, 16 * k + i, o]
+    back = packed.permute(0, 1, 3, 2).reshape(taps, c, co)
+    assert torch.equal(back, wq)
+    if taps == 1:
+        assert torch.equal(tb8.pack_pointwise_i8(wq[0]), packed[0])
+
+
+@pytest.mark.parametrize("k_rows,w,c,co", [(2, 12, 32, 24), (4, 7, 64, 16), (1, 5, 16, 8)])
+def test_packed_taps_einsum_equals_plain_sums(rng, k_rows, w, c, co):
+    """The contraction as the tensor-core tile runs it, word by word over the
+    packed layout (einsum over [words, Co, 16]), gives the plain version's
+    integer 3×3 sums exactly: int8 sums do not depend on their order."""
+    ext = _t(rng.integers(-127, 128, (3, k_rows + 2, w, c)).astype(np.int8))
+    wq = _t(rng.integers(-127, 128, (9, c, co)).astype(np.int8))
+    want = t_taps(ext.double(), wq.double(), k_rows)
+    packed = tb8.pack_taps_i8(wq).long()
+    xp = torch.nn.functional.pad(ext.long(), (0, 0, 1, 1))        # zero columns
+    got = 0
+    for t in range(9):
+        dy, dx = divmod(t, 3)                                       # dx + 1
+        tap = xp[:, dy:dy + k_rows, dx:dx + w].reshape(3, k_rows * w, c // 16, 16)
+        got = got + torch.einsum("bpki,koi->bpo", tap, packed[t])
+    assert torch.equal(got.double(), want)
+
+
+def test_int8_tile_fits_shared_memory():
+    """The tensor-core tile's shared-memory plan, from the constants in
+    ``csrc/taps.cuh`` and the layout of ``csrc/int8_conv.cuh`` (two
+    activation and two weight slices, the chunked kernel's float32 chunk sums,
+    scales and biases), fits one H100 block (232,448 bytes, less the static
+    mbarriers and per-warp maxima) at the largest chunk count the launcher
+    admits (64), for the 3×3, the chunked 3×3 and the 1×1."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tb8.__file__).resolve().parents[2] / "csrc" / "taps.cuh").read_text()
+    const = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    kw9, kw1 = (int(v) for v in re.search(r"KW = TAPS == 9 \? (\d+) : (\d+);", src).groups())
+    tm, tn, nt, np_ = const["TM"], const["TN"], const["NT"], const["NP"]
+    for taps, rows, kw, chunked in ((9, 3, kw9, False), (9, 3, kw9, True),
+                                    (1, 1, kw1, False)):
+        xs = rows * kw * (tm + 2) * 16
+        ws = taps * kw * tn * 16
+        f = 64 * nt if chunked else 0
+        total = 2 * xs + 2 * ws + 4 * (f + 2 * tn + 64)
+        assert total + 4 * 8 + 4 * nt // 32 <= 232_448, (taps, chunked, total)
+    # 8 consumer warps of 32 x 64 cover the 128 x 128 tile; producers are
+    # whole warpgroups; every thread keeps 128 registers (65536 / 512)
+    assert (tm // 32) * (tn // 64) * 32 == nt and np_ % 128 == 0
+    assert 65536 // (nt + np_) >= 128 and kw9 % 2 == 0 and kw1 % 2 == 0
+
+
 _PICKER_SHAPES = [
     (128, 256, 256, 128),     # w16 2048x1024 dec_0
     (64, 128, 128, 256),      # w16 2048x1024 enc_3
