@@ -7,12 +7,14 @@ Builds the port's CUDA kernels from ``pcss_unet_tpu_torch/csrc`` (into
 ``build/kernels``), then runs these phases, each printing one JSON line:
 
 1. ``build``: the card (name, power limit), the kernels' build time and the
-   ``ptxas`` register/spill report; K2's bf16 tensor-core kernel and the int8
-   tensor-core kernels (K3, K5, K7) must not spill.  For each int8 kernel
-   (the 3×3 and 1×1 ``int8_taps_kernel`` instantiations) it prints the
-   registers, the shared memory per block and the count of ``IMMA`` and
-   ``IDP4A`` instructions in the library's SASS (``cuobjdump``); it fails if
-   an int8 kernel has no ``IMMA`` or any function has an ``IDP4A``.
+   ``ptxas`` register/spill report.  For the bf16 tensor-core kernels (K2's
+   ``convblock_chw_tc_kernel``, K6's ``block128_tc_kernel``) and each int8
+   kernel (the 3×3 and 1×1 ``int8_taps_kernel`` instantiations) it prints
+   the registers, spill bytes, shared memory per block (K6 at the recorded
+   w64 ``dec_2`` shape) and the count of ``HMMA``, ``IMMA`` and ``IDP4A``
+   instructions in the library's SASS (``cuobjdump``); it fails if any of
+   them spills, if a bf16 kernel has no ``HMMA`` or an int8 kernel no
+   ``IMMA``, or if any function has an ``IDP4A``.
 2. ``kernel``: each kernel against its plain PyTorch version on the card, on
    the inputs each main path really gives it (recorded from one forward of
    each of the three paths below), in bfloat16, plus one float32 case per
@@ -25,7 +27,10 @@ Builds the port's CUDA kernels from ``pcss_unet_tpu_torch/csrc`` (into
    the w16 2048×1024 chw+int8 forward, that of K5 (w64 ``dec_0``), K6 (w64
    ``dec_2``) and K2′ (w64 ``enc_0``, ``enc_1``, ``dec_final``) the w64
    1920×1088 NHWC forward; K7, on no model path, runs at the w64 ``dec_1``
-   conv shape [1,272,480,512] → 512.  ``weight_prep``: the per-frame int8
+   conv shape [1,272,480,512] → 512.  ``block128_storage``: K6's recorded
+   main-path input (an NHWC view of channels-major storage) reaches the
+   kernel in place, with no copy, and the output comes back channels-major
+   too.  ``weight_prep``: the per-frame int8
    quantization of the w64 int8 blocks' weights.  ``w64_vs_plain``: the w64
    forward through the kernels against the same forward with every kernel
    swapped for its plain version, within twice the plain forward's change
@@ -113,7 +118,8 @@ def ptxas_entries(log: str, kernel: str) -> list[dict]:
 
 
 def sass_counts(lib_path: str) -> dict:
-    """{function: {"IMMA": n, "IDP4A": n}} over the library's SASS."""
+    """{function: {"HMMA": n, "IMMA": n, "IDP4A": n}} over the library's
+    SASS."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -124,8 +130,9 @@ def sass_counts(lib_path: str) -> dict:
         m = re.search(r"Function : (\S+)", ln)
         if m:
             fn = m.group(1)
-            counts[fn] = {"IMMA": 0, "IDP4A": 0}
+            counts[fn] = {"HMMA": 0, "IMMA": 0, "IDP4A": 0}
         elif fn is not None:
+            counts[fn]["HMMA"] += len(re.findall(r"\bHMMA\b", ln))
             counts[fn]["IMMA"] += len(re.findall(r"\bIMMA\b", ln))
             counts[fn]["IDP4A"] += len(re.findall(r"\bIDP\.?4A\b", ln))
     return counts
@@ -406,6 +413,33 @@ def u8_work(args, kw):
     return bound_ms(nbytes(args[0]) * 5 // 4, 0, 1)
 
 
+def block128_storage(kc128, build, call) -> None:
+    """K6 once on its recorded main-path call with the C entry watched: the
+    main path hands over an NHWC view of channels-major storage, which must
+    reach the kernel in place (the same pointer, 16-byte mode) and come back
+    in the same storage order."""
+    args, kw = call
+    seen, real = [], build.call
+
+    def watch(name, *a):
+        seen.append(a)
+        return real(name, *a)
+
+    with swapped([(build, "call", watch)]):
+        out = kc128.fused_block128_nhwc(*args, **kw)
+    x = args[0]
+    line = {"phase": "block128_storage", "x_shape": list(x.shape),
+            "x_strides": list(x.stride()),
+            "x_channels_major": x.permute(0, 3, 1, 2).is_contiguous(),
+            "x_in_place": seen[0][0] == x.data_ptr(), "mode": seen[0][13],
+            "out_strides": list(out.stride()),
+            "out_channels_major": out.permute(0, 3, 1, 2).is_contiguous()}
+    emit(line)
+    if not (line["x_channels_major"] and line["x_in_place"]
+            and line["mode"] == kc128.CMAJOR_VEC and line["out_channels_major"]):
+        raise AssertionError(f"K6 main-path storage: {line}")
+
+
 def vs_plain_phase(engine, frames, plain, kernels) -> None:
     """One forward (TF32 off) through the kernels against the same forward
     with every kernel wrapper swapped for its plain version (``plain``:
@@ -547,30 +581,37 @@ def main() -> int:
     log = _build.build_log()
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
-    tc_spills = ptxas_entries(log, "convblock_chw_tc_kernel")[0]["spill_bytes"]
     sass = sass_counts(str(_build._target()))
+    no_ops = {"HMMA": 0, "IMMA": 0, "IDP4A": 0}
+    bf16_tc = []
+    for kernel, src, smem in (
+            ("convblock_chw_tc_kernel", "convblock.cu", None),
+            ("block128_tc_kernel", "convblock128.cu",
+             _build.library().pcss_block128_smem_bytes(128, 64))):
+        e = ptxas_entries(log, kernel)[0]
+        bf16_tc.append({"kernel": f"{src}: {kernel}", "registers": e["registers"],
+                        "spill_bytes": e["spill_bytes"], "smem_bytes_per_block": smem,
+                        **sass.get(e["name"], no_ops)})
     int8 = ptxas_entries(log, "int8_taps_kernel")
     for e, pretty in zip(int8, demangle([e["name"] for e in int8])):
         m = re.search(r"int8_taps_kernel<[^>]*>", pretty)
         src = "block_int8.cu" if "block_int8_cu" in e["name"] else "conv3x3_int8.cu"
         e["kernel"] = f"{src}: {m.group(0) if m else e['name']}"
-        e.update(sass.get(e["name"], {"IMMA": 0, "IDP4A": 0}))
+        e.update(sass.get(e["name"], no_ops))
         # K5's chunked 3x3 (four chunks at w64 dec_0), the others one chunk
         e["smem_bytes_per_block"] = _build.library().pcss_int8_smem_bytes(
             1 if "Li1ELb" in e["name"] else 9, 4 if "Lb1E" in e["name"] else 1)
     dp4a = {f: c["IDP4A"] for f, c in sass.items() if c["IDP4A"]}
     emit({"phase": "build", "card": card, "seconds": build_s,
-          "ptxas": ptxas, "convblock_chw_tc_kernel_spill_bytes": tc_spills,
+          "ptxas": ptxas, "bf16_tc_kernels": bf16_tc,
           "int8_kernels": [{k: e[k] for k in ("kernel", "registers", "spill_bytes",
                                               "smem_bytes_per_block", "IMMA", "IDP4A")}
                            for e in int8]})
-    if tc_spills != [0, 0]:
-        raise AssertionError(f"K2's tensor-core kernel spills: {tc_spills} "
-                             "bytes (stores, loads)")
-    bad = [e["kernel"] for e in int8 if e["spill_bytes"] != [0, 0] or not e["IMMA"]]
+    bad = ([e["kernel"] for e in bf16_tc if e["spill_bytes"] != [0, 0] or not e["HMMA"]]
+           + [e["kernel"] for e in int8 if e["spill_bytes"] != [0, 0] or not e["IMMA"]])
     if bad or dp4a:
-        raise AssertionError(f"int8 kernels spilling or without IMMA: {bad}; "
-                             f"functions with IDP4A: {dp4a}")
+        raise AssertionError(f"tensor-core kernels spilling or without HMMA / IMMA: "
+                             f"{bad}; functions with IDP4A: {dp4a}")
 
     # ------------------------------------------------- engines and inputs
     meta, xv, yv = golden_frames()
@@ -668,6 +709,7 @@ def main() -> int:
                      kcb.conv_block_nhwc_plain, on("nhwc", "w64_nhwc"), conv_tol,
                      conv_nhwc_work, f32(first("nhwc", "w64_nhwc", 1))),
     ]
+    block128_storage(kc128, _build, first("block128", "w64_nhwc"))
     del calls
     # a yardstick for K7, not the same function: cuDNN's bf16 conv at its shape
     wbf = wk7.to(torch.bfloat16).permute(2, 1, 0).reshape(512, 512, 3, 3).contiguous()

@@ -13,7 +13,8 @@
 // dispatches on the dtype; neither path falls back to the other.
 //
 // bf16: convblock_chw_tc_kernel, an implicit GEMM on the tensor cores
-// (mma.sync m16n8k16 bf16 -> float32, fragments by ldmatrix).  What bounds it
+// (mma.sync m16n8k16 bf16 -> float32, fragments by ldmatrix; the helpers and
+// the transposing stage live in bf16_mma.cuh, shared with K6).  What bounds it
 // on the H100: the w64 chw stages do ~116 G multiply-adds against ~0.4 GB
 // moved, so the work is bound by operations (bf16 tensor-core peak 989
 // TFLOP/s, bound ~0.26 ms); the w16 stages (~28 G, 16-32 channels) are
@@ -54,6 +55,7 @@
 // broadcast.  The hidden tile [Cmid][128] stays in shared memory and
 // feeds the 1x1 the same way.  It takes transposed float32 weights (w1t
 // [9][Cin][Cmid], w2t [Cmid][Cout]).
+#include "bf16_mma.cuh"
 #include "common.cuh"
 
 namespace {
@@ -214,42 +216,9 @@ int launch_f32(const void* x, const void* w1t, const void* b1, const void* w2t, 
 
 // ---------------------------------------------------------------- bf16 path
 
-using bf16 = __nv_bfloat16;
+using namespace tc;  // the bf16 mma helpers (bf16_mma.cuh)
+static_assert(NT == kThreads && TW == kTile && XW == kStageW, "bf16_mma.cuh tile");
 constexpr int OS = TW + 4;  // row stride of the float32 output tile (528-byte rows)
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col), float32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // Shared-memory plan of the bf16 kernel (bytes), shared by host and device.
 // Channel counts are padded to 16 (kp, mp, op); cs and hs are the row strides
@@ -273,100 +242,6 @@ __host__ __device__ __forceinline__ TcPlan tc_plan(int cin, int cmid, int cout) 
   p.region0 = stage > tiles ? stage : tiles;
   p.bytes = p.region0 + (size_t)2 * p.mp * p.cs * 2 + (size_t)p.op * p.hs * 2;
   return p;
-}
-
-// rows x cols bf16 (global, row-major) into shared memory with row stride ld:
-// 16-byte cp.async when cols % 8 == 0 (16-byte aligned rows), else element
-// copies (visible after the next __syncthreads)
-__device__ __forceinline__ void load_matrix(bf16* dst, int ld, const bf16* src, int rows,
-                                            int cols) {
-  if ((cols & 7) == 0) {
-    const int per_row = cols >> 3;
-    for (int i = threadIdx.x; i < rows * per_row; i += NT) {
-      const int r = i / per_row, c = (i - r * per_row) << 3;
-      cp_async16(dst + r * ld + c, src + (size_t)r * cols + c);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * cols; i += NT) {
-      const int r = i / cols, c = i - r * cols;
-      dst[r * ld + c] = src[(size_t)r * cols + c];
-    }
-  }
-}
-
-// acc[mi][nj] += A (pixels pm + 16 mi .., K from a) x B (channels nb0 + 8 nj ..,
-// rows of b) for k in [0, k_len); a and b already carry the lane's ldmatrix
-// offset.  two: the warp owns 32 pixels (two m tiles), else 16.
-__device__ __forceinline__ void mma_tile(float (&acc)[2][8][4], const bf16* a, int a_ld,
-                                         const bf16* b, int b_ld, int k_len, int nb0, int npad,
-                                         bool two) {
-  for (int k0 = 0; k0 < k_len; k0 += 16) {
-    uint32_t af[2][4];
-    ldsm_x4(af[0], a + k0);
-    if (two) ldsm_x4(af[1], a + 16 * a_ld + k0);
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int nb = nb0 + jj * 16;
-      if (nb < npad) {
-        uint32_t bf[4];
-        ldsm_x4(bf, b + nb * b_ld + k0);
-        mma_bf16(acc[0][2 * jj], af[0], bf[0], bf[1]);
-        mma_bf16(acc[0][2 * jj + 1], af[0], bf[2], bf[3]);
-        if (two) {
-          mma_bf16(acc[1][2 * jj], af[1], bf[0], bf[1]);
-          mma_bf16(acc[1][2 * jj + 1], af[1], bf[2], bf[3]);
-        }
-      }
-    }
-  }
-}
-
-// Stage the rows row-1..row+1, columns col0-1..col0+TW of one image x
-// [Cin][H][Wp] into xs [3][XW][cs], pixel-major; channels cin..kp and rows
-// and columns outside the image are zero.  A unit is 8 channels x 8 pixels,
-// read as one 16-byte vector along W per channel and transposed in registers
-// (prmt) into one 16-byte store per pixel.
-__device__ __forceinline__ void stage_rows(bf16* xs, const TcPlan& P, const bf16* xn, int cin,
-                                           int h, int wp, int row, int col0) {
-  const size_t plane = (size_t)h * wp;
-  const int ncg = P.kp >> 3;
-  for (int u = threadIdx.x; u < 3 * 16 * ncg; u += NT) {
-    const int cg = u % ncg, pg = (u / ncg) & 15, r = u / (ncg * 16);
-    const int gr = row + r - 1;
-    uint32_t v[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = cg * 8 + j;
-      uint4 q = make_uint4(0, 0, 0, 0);
-      if (gr >= 0 && gr < h && c < cin)
-        q = *reinterpret_cast<const uint4*>(xn + (size_t)c * plane + (size_t)gr * wp + col0 +
-                                            pg * 8);
-      v[j][0] = q.x;
-      v[j][1] = q.y;
-      v[j][2] = q.z;
-      v[j][3] = q.w;
-    }
-    bf16* dst = xs + (size_t)(r * XW + 1 + pg * 8) * P.cs + cg * 8;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {  // pixel i: channel pairs from words i / 2
-      const uint32_t sel = (i & 1) ? 0x7632u : 0x5410u;
-      uint4 o;
-      o.x = __byte_perm(v[0][i >> 1], v[1][i >> 1], sel);
-      o.y = __byte_perm(v[2][i >> 1], v[3][i >> 1], sel);
-      o.z = __byte_perm(v[4][i >> 1], v[5][i >> 1], sel);
-      o.w = __byte_perm(v[6][i >> 1], v[7][i >> 1], sel);
-      *reinterpret_cast<uint4*>(dst + (size_t)i * P.cs) = o;
-    }
-  }
-  // the halo columns col0 - 1 and col0 + TW (zero outside [0, Wp))
-  for (int u = threadIdx.x; u < 3 * 2 * P.kp; u += NT) {
-    const int c = u % P.kp, s = (u / P.kp) & 1, r = u / (2 * P.kp);
-    const int gr = row + r - 1, gc = s ? col0 + TW : col0 - 1;
-    bf16 val = __ushort_as_bfloat16((unsigned short)0);
-    if (gr >= 0 && gr < h && gc >= 0 && gc < wp && c < cin)
-      val = xn[(size_t)c * plane + (size_t)gr * wp + gc];
-    xs[(size_t)(r * XW + (s ? XW - 1 : 0)) * P.cs + c] = val;
-  }
 }
 
 __global__ void __launch_bounds__(NT, 1)
@@ -395,7 +270,7 @@ convblock_chw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   load_matrix(w1s, P.cs, w1, cmid, cin);  // tap 0
   cp_async_commit();
 
-  stage_rows(xs, P, x + (size_t)n * cin * h * wp, cin, h, wp, row, col0);
+  stage_rows(xs, P.cs, P.kp, x + (size_t)n * cin * h * wp, cin, h, wp, row, col0);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;

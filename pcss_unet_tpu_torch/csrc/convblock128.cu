@@ -3,38 +3,77 @@
 //
 //   out = leaky(cast(leaky(conv3x3_SAME(x, W1) + b1)) · W2 + b2), cast to x's dtype
 //
-// x [N, H, W, C] bf16 or float32 with C % 128 == 0, Cin == Cmid, Cout <= Cmid.
-// Rows and columns outside the frame read as zero (SAME padding).  Products
-// of the storage dtype's values sum in float32; the hidden value is rounded
-// to the storage dtype before the 1x1, as the reference does on the TPU.
+// x [N, H, W, C] with C % 128 == 0, Cin == Cmid, Cout <= Cmid, Cout % 4 == 0,
+// C <= 384 (the entry refuses anything else).  Rows and columns outside the
+// frame read as zero (SAME padding).  Products of the storage dtype's values
+// sum in float32; the hidden value is rounded to the storage dtype before the
+// 1x1, as the reference does on the TPU.  The entry dispatches on the dtype;
+// neither path falls back to the other.
 //
-// What bounds it on the H100: at w64 dec_2 (x [1,272,480,128], Cout 64) the
-// block does 20.3 G multiply-adds, 0.041 ms at the 989 TFLOP/s bf16
-// tensor-core rate, and moves ~50 MB (~0.015 ms): operations.  This first
-// kernel runs them on the float32 CUDA cores (67 TFLOP/s), not the tensor
-// cores.  Design (the channels-major K2 kernel's, on NHWC): one block per
-// (n, row, 128-column tile); the input rows r-1..r+1 are staged in shared
-// memory 16 channels at a time; each warp owns 4-wide groups of 128 hidden
-// channels for 64 of the 128 pixels (2 per lane), keeps their float32 sums in
+// bf16: block128_tc_kernel, an implicit GEMM on the tensor cores (mma.sync
+// m16n8k16 bf16 -> float32, ldmatrix fragments; the helpers are K2's, in
+// bf16_mma.cuh).  What bounds it on the H100: at w64 dec_2 (x [1,544,960,128],
+// Cout 64) the block does 81.3 G multiply-adds, 0.1644 ms at the 989 TFLOP/s
+// bf16 tensor-core rate, and moves ~0.2 GB (~0.06 ms): operations.  Design:
+// - one block (8 warps) per (n, row, 128-column tile): GEMM M = 128 pixels,
+//   N = the hidden channels 128 at a time, K = 9 taps x C in slices of 16;
+//   columns >= W read as zero and are never written (960 = 7.5 tiles);
+// - x is read in the storage the caller has.  The main path hands over an
+//   NHWC view of channels-major storage: the rows r-1..r+1 are staged from it
+//   in place, 16-byte reads along W transposed in registers into a
+//   pixel-major stage [3][130][kc + 8] (mode 1; bf16_mma.cuh::stage_rows),
+//   or element by element where W % 8 != 0 or x is not 16-byte aligned
+//   (mode 2).  Channels-last storage is staged by 16-byte cp.async along C
+//   (mode 0).  The output keeps the input's storage order;
+// - the input channels come in chunks of kc (128 when the whole plan fits,
+//   else 64); the weights are packed once per call into contiguous B slices
+//   [128][kc] (K-contiguous, mma .col), consumed in one sequence: w1 (hidden
+//   block, input chunk, tap), then w2 (output block, hidden chunk).  Slice
+//   s + 1 is copied by cp.async into one of two buffers while the tensor
+//   cores work on slice s, so w2 arrives during the last tap;
+// - warp tile 32 pixels x 64 channels for the 3x3; epilogue 1 in registers
+//   (+b1, leaky, round to bf16) into a pixel-major hidden tile [128][C + 8];
+//   the 1x1 is a second mma.sync loop from it (warp tile 16 x N when the
+//   output block has at most 64 channels);
+// - epilogue 2: +b2, leaky into a float32 tile [128][132] over the x stage,
+//   then 16-byte stores of 8 pixels along W (channels-major) or 8-byte stores
+//   of 4 channels (channels-last).
+// Every row stride is a multiple of 16 plus 8 bf16, so each ldmatrix is free
+// of bank conflicts.  Shared memory is 210,528 bytes at C = 128: one block per
+// SM.  Left for later work: wgmma fed by TMA, a persistent grid, and staging
+// that overlaps the first taps.
+//
+// float32: block128_f32_kernel on the CUDA cores (tensor cores would mean
+// TF32, which the float32 tolerance of 1e-4 does not allow), channels-last
+// only.  One block per (n, row, 128-column tile); the input rows are staged
+// 16 channels at a time; each warp owns 4-wide groups of 128 hidden channels
+// for 64 of the 128 pixels (2 per lane), keeps their float32 sums in
 // registers and reads each weight float4 once per (tap, input channel) as a
-// warp-uniform broadcast.  Hidden channels go 128 at a time into a rounded
-// [Cmid][128] tile in shared memory that feeds the 1x1 the same way.
+// warp-uniform broadcast.  Hidden channels go 128 at a time into a [C][128]
+// tile in shared memory that feeds the 1x1 the same way.
+#include "bf16_mma.cuh"
 #include "common.cuh"
 
 namespace {
 
-constexpr int TW = 128;   // output columns per block
+constexpr int TW = 128;  // output columns per block
 constexpr int XW = TW + 2;
+constexpr int NT = 256;  // threads per block: 8 warps
+constexpr int MAX_SMEM = 232448;  // shared memory one block can use on the H100
+constexpr int MAX_C = 384;        // widest C either kernel's plan fits
+
+// ------------------------------------------------------------- float32 path
+
 constexpr int CC = 16;    // input channels staged per step
-constexpr int NT = 256;   // threads per block: 8 warps
 constexpr int SLOTS = 8;  // 4-channel groups per warp: 8 slots * 4 warps-per-half * 4 = 128
 
-template <typename T>
+size_t f32_smem(int c) { return sizeof(float) * ((size_t)CC * 3 * XW + (size_t)c * TW); }
+
 __global__ void __launch_bounds__(NT)
-block128_kernel(const T* __restrict__ x, const float* __restrict__ w1t,
-                const float* __restrict__ b1, const float* __restrict__ w2t,
-                const float* __restrict__ b2, T* __restrict__ out, int c, int cout, int h, int w,
-                float slope) {
+block128_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
+                    const float* __restrict__ b1, const float* __restrict__ w2t,
+                    const float* __restrict__ b2, float* __restrict__ out, int c, int cout, int h,
+                    int w, float slope) {
   extern __shared__ float smem[];
   float* xs = smem;                // [CC][3][XW]
   float* hs = smem + CC * 3 * XW;  // [c][TW]
@@ -59,7 +98,7 @@ block128_kernel(const T* __restrict__ x, const float* __restrict__ w1t,
         const int gr = row + r - 1, gc = col0 + col - 1;
         float v = 0.f;
         if (gr >= 0 && gr < h && gc >= 0 && gc < w)
-          v = to_float(x[(((size_t)n * h + gr) * w + gc) * c + c0 + ci]);
+          v = x[(((size_t)n * h + gr) * w + gc) * c + c0 + ci];
         xs[(ci * 3 + r) * XW + col] = v;
       }
       __syncthreads();
@@ -85,17 +124,15 @@ block128_kernel(const T* __restrict__ x, const float* __restrict__ w1t,
         }
       }
     }
-    // bias, leaky, round to the storage dtype
+    // bias, leaky
 #pragma unroll
     for (int s = 0; s < SLOTS; ++s)
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int m = mb + 4 * (gbase + 4 * s) + k;
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float v = leaky(__fadd_rn(acc[s][k][j], b1[m]), slope);
-          hs[m * TW + p0 + 32 * j] = to_float(from_float<T>(v));
-        }
+        for (int j = 0; j < 2; ++j)
+          hs[m * TW + p0 + 32 * j] = leaky(__fadd_rn(acc[s][k][j], b1[m]), slope);
       }
   }
   __syncthreads();
@@ -134,10 +171,10 @@ block128_kernel(const T* __restrict__ x, const float* __restrict__ w1t,
         for (int j = 0; j < 2; ++j) {
           const int col = col0 + p0 + 32 * j;
           if (col < w) {
-            T* dst = out + (((size_t)n * h + row) * w + col) * cout + o0;
+            float* dst = out + (((size_t)n * h + row) * w + col) * cout + o0;
 #pragma unroll
             for (int k = 0; k < 4; ++k)
-              dst[k] = from_float<T>(leaky(__fadd_rn(acc[s][k][j], b2[o0 + k]), slope));
+              dst[k] = leaky(__fadd_rn(acc[s][k][j], b2[o0 + k]), slope);
           }
         }
       }
@@ -145,17 +182,260 @@ block128_kernel(const T* __restrict__ x, const float* __restrict__ w1t,
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* w1t, const void* b1, const void* w2t, const void* b2,
-           void* out, int n, int c, int cout, int h, int w, float slope, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)CC * 3 * XW + (size_t)c * TW);
-  cudaError_t e = cudaFuncSetAttribute(block128_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+int launch_f32(const void* x, const void* w1t, const void* b1, const void* w2t, const void* b2,
+               void* out, int n, int c, int cout, int h, int w, float slope,
+               cudaStream_t stream) {
+  static unsigned done = 0;
+  const int e = allow_smem((const void*)block128_f32_kernel, f32_smem(MAX_C), done);
+  if (e) return e;
   const dim3 grid((w + TW - 1) / TW, h, n);
-  block128_kernel<T><<<grid, NT, smem, stream>>>((const T*)x, (const float*)w1t,
-                                                 (const float*)b1, (const float*)w2t,
-                                                 (const float*)b2, (T*)out, c, cout, h, w, slope);
+  block128_f32_kernel<<<grid, NT, f32_smem(c), stream>>>(
+      (const float*)x, (const float*)w1t, (const float*)b1, (const float*)w2t, (const float*)b2,
+      (float*)out, c, cout, h, w, slope);
+  PCSS_CHECK_LAUNCH();
+  return 0;
+}
+
+// ---------------------------------------------------------------- bf16 path
+
+using namespace tc;  // the bf16 mma helpers (bf16_mma.cuh)
+static_assert(NT == kThreads && TW == kTile && XW == kStageW, "bf16_mma.cuh tile");
+constexpr int MB = 128;     // hidden / output channels per GEMM N block
+constexpr int OS = TW + 4;  // row stride of the float32 output tile (528-byte rows)
+
+// Storage of x and out: channels-last; channels-major with 16-byte accesses
+// along W (W % 8 == 0, 16-byte aligned); channels-major element by element.
+enum Mode { kNhwc = 0, kCmajorVec = 1, kCmajorScalar = 2 };
+
+// Shared-memory plan (bytes), shared by host and device.  kc is the input
+// chunk (128 when the plan fits, else 64), cs = kc + 8 and hs = C + 8 the row
+// strides (bf16) of the x stage / weight slices and of the hidden tile; op is
+// Cout padded to 16.  Region 0 holds the x stage [3][XW][cs], after the 3x3
+// the float32 output tile [min(op, 128)][OS]; then two weight slices
+// [128][cs] and the hidden tile [TW][hs].
+struct Plan {
+  int kc, cs, hs, op;
+  size_t region0, bytes;
+};
+
+__host__ __device__ __forceinline__ Plan plan128(int c, int cout) {
+  Plan p;
+  p.op = (cout + 15) & ~15;
+  p.hs = c + 8;
+  const size_t out_tile = (size_t)(p.op < MB ? p.op : MB) * OS * 4;
+  const size_t hid = (size_t)TW * p.hs * 2;
+  for (p.kc = 128; p.kc >= 64; p.kc -= 64) {
+    p.cs = p.kc + 8;
+    const size_t xs = (size_t)3 * XW * p.cs * 2;
+    p.region0 = xs > out_tile ? xs : out_tile;
+    p.bytes = p.region0 + (size_t)2 * MB * p.cs * 2 + hid;
+    if (p.bytes <= MAX_SMEM) break;
+  }
+  if (p.kc < 64) p.kc = 64;  // C > MAX_C: the entry refuses it
+  return p;
+}
+
+// Stage input channels [c0, c0 + kc) of rows row-1..row+1, columns
+// col0-1..col0+TW into xs [3][XW][cs], pixel-major, zero outside the frame.
+// Mode kNhwc issues cp.async copies (committed here, waited with the next
+// weight slice); the channels-major modes store before returning.
+__device__ __forceinline__ void stage_x(bf16* xs, const Plan& P, const bf16* x, int mode, int n,
+                                        int c, int h, int w, int row, int col0, int c0) {
+  if (mode == kCmajorVec) {
+    stage_rows(xs, P.cs, P.kc, x + ((size_t)n * c + c0) * h * w, P.kc, h, w, row, col0);
+  } else if (mode == kCmajorScalar) {
+    for (int u = threadIdx.x; u < 3 * XW * P.kc; u += NT) {
+      const int col = u % XW, r = (u / XW) % 3, ci = u / (3 * XW);
+      const int gr = row + r - 1, gc = col0 + col - 1;
+      bf16 v = __ushort_as_bfloat16((unsigned short)0);
+      if (gr >= 0 && gr < h && gc >= 0 && gc < w)
+        v = x[(((size_t)n * c + c0 + ci) * h + gr) * w + gc];
+      xs[(size_t)(r * XW + col) * P.cs + ci] = v;
+    }
+  } else {
+    const int ncg = P.kc >> 3;
+    for (int u = threadIdx.x; u < 3 * XW * ncg; u += NT) {
+      const int cg = u % ncg, col = (u / ncg) % XW, r = u / (ncg * XW);
+      const int gr = row + r - 1, gc = col0 + col - 1;
+      bf16* dst = xs + (size_t)(r * XW + col) * P.cs + cg * 8;
+      if (gr >= 0 && gr < h && gc >= 0 && gc < w)
+        cp_async16(dst, x + (((size_t)n * h + gr) * w + gc) * c + c0 + cg * 8);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    }
+    cp_async_commit();
+  }
+}
+
+// w1p [C/128][C/kc][9][128][kc]: B slices of the 3x3 in the order the kernel
+// takes them (hidden block, input chunk, tap), each [hidden][input];
+// w2p [C/kc][op][kc]: the 1x1's [output][hidden] per hidden chunk, rows
+// Cout..op zero.
+__global__ void __launch_bounds__(NT, 1)
+block128_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1p,
+                   const float* __restrict__ b1, const bf16* __restrict__ w2p,
+                   const float* __restrict__ b2, bf16* __restrict__ out, int c, int cout, int h,
+                   int w, int mode, float slope) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Plan P = plan128(c, cout);
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);                // [3][XW][cs]
+  float* os = reinterpret_cast<float*>(smem_raw);              // [min(op, MB)][OS]
+  bf16* wb = reinterpret_cast<bf16*>(smem_raw + P.region0);    // 2 x [MB][cs]
+  bf16* hid = wb + 2 * MB * P.cs;                              // [TW][hs]
+
+  const int col0 = blockIdx.x * TW, row = blockIdx.y, n = blockIdx.z;
+  const int nkc = c / P.kc, nmb = c / MB, nob = (cout + MB - 1) / MB;
+  const int n1 = nmb * nkc * 9, nslices = n1 + nob * nkc;
+
+  // weight slice s into buffer s & 1: w1 for s < n1, then w2 (output block,
+  // hidden chunk)
+  auto load_slice = [&](int s) {
+    bf16* dst = wb + (s & 1) * MB * P.cs;
+    if (s < n1) {
+      load_matrix(dst, P.cs, w1p + (size_t)s * MB * P.kc, MB, P.kc);
+    } else {
+      const int ob = (s - n1) / nkc, kb = (s - n1) % nkc;
+      load_matrix(dst, P.cs, w2p + ((size_t)kb * P.op + ob * MB) * P.kc,
+                  min(MB, P.op - ob * MB), P.kc);
+    }
+    cp_async_commit();
+  };
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int a_row = lane & 15, a_k = (lane >> 4) << 3;  // A ldmatrix rows
+  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_k = ((lane >> 3) & 1) << 3;
+  float acc[2][8][4];
+  int s = 0;
+  load_slice(0);
+
+  // ---- 3x3, 128 hidden channels at a time: warp tile 32 pixels x 64 ----
+  {
+    const int pm = (warp & 3) * 32, nb0 = (warp >> 2) * 64;
+    for (int mb = 0; mb < nmb; ++mb) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc[mi][nj][k] = 0.f;
+      for (int kb = 0; kb < nkc; ++kb) {
+        __syncthreads();  // every warp is past the taps of the previous chunk
+        stage_x(xs, P, x, mode, n, c, h, w, row, col0, kb * P.kc);
+        for (int t = 0; t < 9; ++t, ++s) {
+          cp_async_wait_all();
+          __syncthreads();
+          if (s + 1 < nslices) load_slice(s + 1);
+          const bf16* a = xs + (size_t)((t / 3) * XW + (t % 3) + pm + a_row) * P.cs + a_k;
+          const bf16* b = wb + (s & 1) * MB * P.cs + b_row * P.cs + b_k;
+          mma_tile(acc, a, P.cs, b, P.cs, P.kc, nb0, MB, true);
+        }
+      }
+      // epilogue 1: + b1, leaky, round to bf16 -> hidden tile [px][ch]
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 8; ++nj) {
+          const int m = mb * MB + nb0 + nj * 8 + 2 * q;
+          const float c0 = b1[m], c1 = b1[m + 1];
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int p = pm + mi * 16 + g + hf * 8;
+            *reinterpret_cast<uint32_t*>(hid + p * P.hs + m) =
+                pack_bf16x2(leaky(__fadd_rn(acc[mi][nj][2 * hf], c0), slope),
+                            leaky(__fadd_rn(acc[mi][nj][2 * hf + 1], c1), slope));
+          }
+        }
+    }
+  }
+
+  // ---- 1x1 from the hidden tile, 128 output channels at a time ----
+  for (int ob = 0; ob < nob; ++ob) {
+    const int rows = min(MB, P.op - ob * MB);  // a multiple of 16
+    const bool two = rows > 64;
+    const int pm = two ? (warp & 3) * 32 : warp * 16, nb0 = two ? (warp >> 2) * 64 : 0;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[mi][nj][k] = 0.f;
+    for (int kb = 0; kb < nkc; ++kb, ++s) {
+      cp_async_wait_all();
+      __syncthreads();  // hidden tile complete; the previous block's stores done
+      if (s + 1 < nslices) load_slice(s + 1);
+      mma_tile(acc, hid + (pm + a_row) * P.hs + kb * P.kc + a_k, P.hs,
+               wb + (s & 1) * MB * P.cs + b_row * P.cs + b_k, P.cs, P.kc, nb0, rows, two);
+    }
+
+    // epilogue 2: + b2, leaky -> float32 tile [ch][px] over the x stage
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      if (mi == 1 && !two) break;
+#pragma unroll
+      for (int nj = 0; nj < 8; ++nj) {
+        const int ol = nb0 + nj * 8 + 2 * q, o = ob * MB + ol;  // cout % 4 == 0
+        if (nb0 + nj * 8 < rows && o < cout) {
+          const float c0 = b2[o], c1 = b2[o + 1];
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int p = pm + mi * 16 + g + hf * 8;
+            os[ol * OS + p] = leaky(__fadd_rn(acc[mi][nj][2 * hf], c0), slope);
+            os[(ol + 1) * OS + p] = leaky(__fadd_rn(acc[mi][nj][2 * hf + 1], c1), slope);
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- store the columns < W, in x's storage order ----
+    const int nreal = min(MB, cout - ob * MB);
+    if (mode == kNhwc) {  // 4 channels of one pixel a unit
+      for (int u = threadIdx.x; u < (nreal >> 2) * TW; u += NT) {
+        const int p = u % TW, og = u / TW, col = col0 + p;
+        if (col < w) {
+          const float* src = os + 4 * og * OS + p;
+          *reinterpret_cast<uint2*>(out + (((size_t)n * h + row) * w + col) * cout + ob * MB +
+                                    4 * og) =
+              make_uint2(pack_bf16x2(src[0], src[OS]), pack_bf16x2(src[2 * OS], src[3 * OS]));
+        }
+      }
+    } else {  // 8 pixels of one channel a unit
+      for (int u = threadIdx.x; u < nreal * 16; u += NT) {
+        const int ol = u >> 4, col = col0 + (u & 15) * 8;
+        if (col < w) {
+          const float* src = os + ol * OS + (u & 15) * 8;
+          bf16* dst = out + (((size_t)n * cout + ob * MB + ol) * h + row) * w + col;
+          if (mode == kCmajorVec) {
+            const float4 lo = *reinterpret_cast<const float4*>(src);
+            const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+            *reinterpret_cast<uint4*>(dst) =
+                make_uint4(pack_bf16x2(lo.x, lo.y), pack_bf16x2(lo.z, lo.w),
+                           pack_bf16x2(hi.x, hi.y), pack_bf16x2(hi.z, hi.w));
+          } else {
+            for (int i = 0; i < 8 && col + i < w; ++i) dst[i] = __float2bfloat16_rn(src[i]);
+          }
+        }
+      }
+    }
+  }
+}
+
+int launch_tc(const void* x, const void* w1p, const void* b1, const void* w2p, const void* b2,
+              void* out, int n, int c, int cout, int h, int w, int mode, float slope,
+              cudaStream_t stream) {
+  static unsigned done = 0;
+  size_t most = 0;  // the largest plan the entry admits (C = 128 takes the wider chunk)
+  for (int ci = 128; ci <= MAX_C; ci += 128) {
+    const size_t b = plan128(ci, ci).bytes;
+    most = b > most ? b : most;
+  }
+  const int e = allow_smem((const void*)block128_tc_kernel, most, done);
+  if (e) return e;
+  const dim3 grid((w + TW - 1) / TW, h, n);
+  block128_tc_kernel<<<grid, NT, plan128(c, cout).bytes, stream>>>(
+      (const bf16*)x, (const bf16*)w1p, (const float*)b1, (const bf16*)w2p, (const float*)b2,
+      (bf16*)out, c, cout, h, w, mode, slope);
   PCSS_CHECK_LAUNCH();
   return 0;
 }
@@ -164,16 +444,25 @@ int launch(const void* x, const void* w1t, const void* b1, const void* w2t, cons
 
 extern "C" {
 
-// w1t [9][C][C] float32 (tap dy*3+dx, input channel, hidden channel),
-// w2t [C][Cout] float32, b1 [C] / b2 [Cout] float32.
-int pcss_block128_nhwc(const void* x, const void* w1t, const void* b1, const void* w2t,
+// Dispatch by dtype; b1 [C] / b2 [Cout] float32; device pointers 16-byte
+// aligned except x in mode 2.
+//   bf16 (is_bf16 = 1): tensor-core kernel; x and out in the storage `mode`
+//     names (0 channels-last, 1 channels-major with W % 8 == 0, 2
+//     channels-major); w1p and w2p bf16 as packed (see block128_tc_kernel);
+//   float32: CUDA-core kernel, mode 0 only; w1t [9][C][C] float32 (tap
+//     dy*3+dx, input channel, hidden channel), w2t [C][Cout] float32.
+int pcss_block128_nhwc(const void* x, const void* w1, const void* b1, const void* w2,
                        const void* b2, void* out, int n, int c, int cout, int h, int w,
-                       float slope, int is_bf16, void* stream) {
-  if (c % 128 || cout % 4 || cout > c) return (int)cudaErrorInvalidValue;
+                       float slope, int is_bf16, int mode, void* stream) {
+  if (c % 128 || c > MAX_C || cout % 4 || cout <= 0 || cout > c || mode < 0 || mode > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return launch<__nv_bfloat16>(x, w1t, b1, w2t, b2, out, n, c, cout, h, w, slope, s);
-  return launch<float>(x, w1t, b1, w2t, b2, out, n, c, cout, h, w, slope, s);
+  if (is_bf16) return launch_tc(x, w1, b1, w2, b2, out, n, c, cout, h, w, mode, slope, s);
+  if (mode != kNhwc) return (int)cudaErrorInvalidValue;
+  return launch_f32(x, w1, b1, w2, b2, out, n, c, cout, h, w, slope, s);
 }
+
+// bytes of shared memory one block of the bf16 kernel takes at (C, Cout)
+size_t pcss_block128_smem_bytes(int c, int cout) { return plan128(c, cout).bytes; }
 
 }  // extern "C"

@@ -40,7 +40,7 @@ _SIGNATURES = {
     "pcss_block_int8_nhwc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                              _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     "pcss_block128_nhwc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                           _P),
+                           _I, _P),
     "pcss_conv3x3_int8_nhwc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _F, _I, _I, _I, _P),
 }
@@ -122,6 +122,8 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.pcss_int8_smem_bytes.argtypes = (ctypes.c_int, ctypes.c_int)
             lib.pcss_int8_smem_bytes.restype = ctypes.c_size_t
+            lib.pcss_block128_smem_bytes.argtypes = (ctypes.c_int, ctypes.c_int)
+            lib.pcss_block128_smem_bytes.restype = ctypes.c_size_t
             lib.pcss_error_string.argtypes = (ctypes.c_int,)
             lib.pcss_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -81,7 +81,10 @@ def fused_conv_block_chw(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
     On the card the dtype picks the kernel: bfloat16 runs the tensor-core
     kernel on the bf16 weights as given, float32 the CUDA-core kernel on
-    float32 copies transposed for it (tensor cores would mean TF32)."""
+    float32 copies transposed for it (tensor cores would mean TF32).  Both
+    card kernels take Cin, Cmid, Cout ≤ 128 and Cmid, Cout % 4 == 0 and
+    raise ``ValueError`` otherwise; the CPU's plain version takes any
+    channel counts, as the reference does."""
     if taps not in TAP_STRATEGIES:
         raise ValueError(f"unknown tap strategy {taps!r}; expected one of "
                          f"{TAP_STRATEGIES}")

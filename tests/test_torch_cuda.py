@@ -211,14 +211,39 @@ def test_block_int8_kchunked_kernel(dev, gen, dtype, c, co, n, h, w, k, cc):
     assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
 
 
+def _in_storage(x: torch.Tensor, storage: str) -> torch.Tensor:
+    """x [N,H,W,C] with the same values in the given storage: contiguous
+    NHWC, an NHWC view of contiguous NCHW (the main path's), or that view
+    starting 2 bytes past a 16-byte boundary."""
+    if storage == "nhwc":
+        return x.contiguous()
+    nchw = x.permute(0, 3, 1, 2)
+    if storage == "cmajor":
+        return nchw.contiguous().permute(0, 2, 3, 1)
+    buf = torch.empty(nchw.numel() + 8, dtype=x.dtype, device=x.device)
+    view = buf[1:1 + nchw.numel()].view(nchw.shape)
+    view.copy_(nchw)
+    return view.permute(0, 2, 3, 1)
+
+
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("storage", ["cmajor", "nhwc"])
 @pytest.mark.parametrize("c,cout,n,h,w", [
     (128, 64, 1, 16, 24),
     (128, 128, 2, 8, 200),    # W over one 128-column tile
-    (256, 64, 1, 4, 20),      # two hidden-channel blocks
+    (256, 64, 1, 4, 20),      # two hidden-channel blocks; W % 8 != 0
+    (128, 64, 1, 4, 960),     # the w64 dec_2 width at a reduced H: 7.5 tiles
+    (128, 64, 1, 3, 130),     # two columns past one tile
+    (128, 64, 1, 1, 20),      # H = 1: both halo rows outside the frame
+    (128, 128, 2, 2, 36),     # H = 2, N = 2
+    (256, 128, 1, 3, 40),
+    (256, 256, 1, 3, 24),     # Cout = C: two output blocks
+    (384, 64, 1, 2, 136),     # three 64-channel chunks per hidden block
+    (384, 128, 1, 2, 20),
+    (384, 384, 1, 2, 24),     # Cout = C = 384: three output blocks
 ])
-def test_block128_kernel(dev, gen, dtype, rel, c, cout, n, h, w):
+def test_block128_kernel(dev, gen, dtype, rel, storage, c, cout, n, h, w):
     params = {
         "conv_a": {"kernel": gen.standard_normal((3, 3, c, c)) * 0.05,
                    "bias": gen.standard_normal(c) * 0.1},
@@ -227,12 +252,41 @@ def test_block128_kernel(dev, gen, dtype, rel, c, cout, n, h, w):
     }
     ops = kc128.pack_block128_params(params, dtype=dtype, device=dev)
     x = torch.from_numpy(gen.standard_normal((n, h, w, c)).astype(np.float32)).to(dev, dtype)
+    x = _in_storage(x, storage)
     before = kc128.fused_block128_nhwc.launches
     got = kc128.fused_block128_nhwc(x, *ops)
     assert kc128.fused_block128_nhwc.launches == before + 1
     want = kc128.block128_nhwc_plain(x, *ops)
     torch.cuda.synchronize()
+    assert tuple(got.shape) == (n, h, w, cout) and got.dtype == dtype
     _close(got, want, rel)
+
+
+@pytest.mark.parametrize("storage,channels_major", [
+    ("cmajor", True), ("cmajor_unaligned", True), ("nhwc", False)])
+@pytest.mark.parametrize("w", [24, 20])
+def test_block128_keeps_storage_order(dev, gen, storage, channels_major, w):
+    """bf16: the output comes back in x's storage order, the 16-byte,
+    element-by-element and channels-last staging paths agree with plain."""
+    c, cout = 128, 64
+    params = {
+        "conv_a": {"kernel": gen.standard_normal((3, 3, c, c)) * 0.05,
+                   "bias": gen.standard_normal(c) * 0.1},
+        "conv_b": {"kernel": gen.standard_normal((1, 1, c, cout)) * 0.1,
+                   "bias": gen.standard_normal(cout) * 0.1},
+    }
+    ops = kc128.pack_block128_params(params, dtype=torch.bfloat16, device=dev)
+    x = torch.from_numpy(gen.standard_normal((2, 5, w, c)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    x = _in_storage(x, storage)
+    before = kc128.fused_block128_nhwc.launches
+    got = kc128.fused_block128_nhwc(x, *ops)
+    assert kc128.fused_block128_nhwc.launches == before + 1
+    want = kc128.block128_nhwc_plain(x, *ops)
+    torch.cuda.synchronize()
+    assert got.permute(0, 3, 1, 2).is_contiguous() == channels_major
+    assert got.is_contiguous() == (not channels_major)
+    _close(got, want, 2e-2)
 
 
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),

@@ -453,6 +453,154 @@ def test_block128_wrapper_validates():
                                   torch.zeros(128, 256), torch.zeros(256))
 
 
+
+def test_block128_cpu_takes_any_c(rng):
+    """The CPU's plain version keeps the reference's contract (any
+    ``C % 128 == 0``); only the card kernels stop at ``MAX_C``."""
+    c = tc128.MAX_C + 128
+    x = _t(rng.standard_normal((1, 2, 4, c)).astype(np.float32))
+    out = tc128.fused_block128_nhwc(x, torch.zeros(9, c, c), torch.zeros(c),
+                                    torch.zeros(c, 64), torch.zeros(64))
+    assert tuple(out.shape) == (1, 2, 4, 64)
+
+
+def _in_storage(x: torch.Tensor, storage: str) -> torch.Tensor:
+    if storage == "nhwc":
+        return x.contiguous()
+    if storage == "strided":                  # neither layout: a W slice
+        wide = torch.cat([x, x], dim=2).contiguous()
+        return wide[:, :, :x.shape[2]]
+    nchw = x.permute(0, 3, 1, 2)
+    if storage == "cmajor":                   # the main path's NHWC view
+        return nchw.contiguous().permute(0, 2, 3, 1)
+    buf = torch.empty(nchw.numel() + 8, dtype=x.dtype)   # 2 bytes off 16
+    view = buf[1:1 + nchw.numel()].view(nchw.shape)
+    view.copy_(nchw)
+    return view.permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("dtype,storage,w,mode,in_place", [
+    (torch.bfloat16, "cmajor", 24, tc128.CMAJOR_VEC, True),
+    (torch.bfloat16, "cmajor", 20, tc128.CMAJOR_SCALAR, True),   # W % 8 != 0
+    (torch.bfloat16, "cmajor_unaligned", 24, tc128.CMAJOR_SCALAR, True),
+    (torch.bfloat16, "nhwc", 20, tc128.NHWC, True),
+    (torch.bfloat16, "strided", 24, tc128.NHWC, False),          # one copy
+    (torch.float32, "cmajor", 24, tc128.NHWC, False),            # CUDA cores
+    (torch.float32, "nhwc", 24, tc128.NHWC, True),
+])
+def test_block128_storage_decision(rng, monkeypatch, dtype, storage, w, mode,
+                                   in_place):
+    """Which storage reaches the card kernel and in which order its output
+    comes back, with a stub in place of the C entry: bf16 reads an NHWC view
+    of channels-major storage in place and answers channels-major; anything
+    else goes channels-last."""
+    seen = []
+    monkeypatch.setattr(tc128._build, "call", lambda name, *a: seen.append((name, a)))
+    n, h, c, cout = 2, 3, 128, 64
+    x = _in_storage(_t(rng.standard_normal((n, h, w, c)).astype(np.float32)).to(dtype),
+                    storage)
+    out = tc128._launch(x, torch.zeros(9, c, c, dtype=dtype), torch.zeros(c),
+                        torch.zeros(c, cout, dtype=dtype), torch.zeros(cout), 0.2,
+                        None)
+    (name, a), = seen
+    assert name == "pcss_block128_nhwc"
+    assert a[12] == int(dtype == torch.bfloat16) and a[13] == mode
+    assert (a[0] == x.data_ptr()) == in_place
+    assert a[6:11] == (n, c, cout, h, w) and a[5] == out.data_ptr()
+    assert tuple(out.shape) == (n, h, w, cout) and out.dtype == dtype
+    assert out.permute(0, 3, 1, 2).is_contiguous() == (mode != tc128.NHWC)
+    assert out.is_contiguous() == (mode == tc128.NHWC)
+
+
+@pytest.mark.parametrize("c,cout,match", [
+    (512, 64, "C ≤ 384"),       # the hidden tile would not fit
+    (640, 640, "C ≤ 384"),
+    (128, 66, "Cout % 4"),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_block128_card_limits(monkeypatch, c, cout, match, dtype):
+    monkeypatch.setattr(tc128._build, "call", lambda *a: pytest.fail("launched"))
+    with pytest.raises(ValueError, match=match):
+        tc128._launch(torch.zeros(1, 2, 8, c, dtype=dtype),
+                      torch.zeros(9, c, c, dtype=dtype), torch.zeros(c),
+                      torch.zeros(c, cout, dtype=dtype), torch.zeros(cout), 0.2, None)
+
+
+@pytest.mark.parametrize("c,kc", [(128, 128), (256, 64), (384, 64)])
+@pytest.mark.parametrize("cout", [64, 128, "c"])
+def test_block128_smem_plan_fits(c, kc, cout):
+    """The bf16 kernel's shared-memory plan fits one H100 block (232,448
+    bytes) at every C the card takes, with the input chunk the source
+    documents; one more 128 channels would not fit at Cout = C."""
+    cout = c if cout == "c" else cout
+    assert tc128.smem_plan(c, cout)[0] == kc
+    assert tc128.smem_plan(c, cout)[1] <= 232_448
+    wider = tc128.MAX_C + 128
+    assert tc128.smem_plan(wider, wider)[1] > 232_448
+
+
+def test_block128_smem_plan_mirrors_source():
+    """``smem_plan`` mirrors ``csrc/convblock128.cu``: the same limits and
+    tile constants, and the w64 dec_2 plan the source header states."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tc128.__file__).resolve().parents[2] / "csrc"
+           / "convblock128.cu").read_text()
+    const = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert const["MAX_SMEM"] == tc128._MAX_SMEM and const["MAX_C"] == tc128.MAX_C
+    assert (const["TW"], const["MB"]) == (128, 128)
+    assert "OS = TW + 4" in src and "p.hs = c + 8" in src and "p.cs = p.kc + 8" in src
+    assert (const.get("NHWC", 0), src.count("kCmajorVec = 1"),
+            src.count("kCmajorScalar = 2")) == (tc128.NHWC, 1, 1)
+    assert tc128.smem_plan(128, 64) == (128, 210_528)
+    assert "210,528 bytes at C = 128" in src
+
+
+@pytest.mark.parametrize("c,cout", [(128, 64), (256, 200), (384, 384)])
+def test_block128_packed_slices(rng, c, cout):
+    """The bf16 kernel's weight slices, taken in its order (w1: hidden
+    block, input chunk, tap; then w2: output block, hidden chunk) as
+    row-major [rows][kc] B operands, rebuild the block: the GEMM sequence of
+    the kernel on the packed operands ≡ the plain version (float32 sums of
+    bf16 values; 1e-5 relative, sum order)."""
+    kc = tc128.smem_plan(c, cout)[0]
+    n, h, w = 1, 3, 10
+    x = _t(rng.standard_normal((n, h, w, c)).astype(np.float32)).bfloat16()
+    w1 = _t(rng.standard_normal((9, c, c)).astype(np.float32) * 0.05).bfloat16()
+    w2 = _t(rng.standard_normal((c, cout)).astype(np.float32) * 0.1).bfloat16()
+    b1 = _t(rng.standard_normal(c).astype(np.float32) * 0.1)
+    b2 = _t(rng.standard_normal(cout).astype(np.float32) * 0.1)
+    w1p, w2p = tc128.pack_tc_weights(w1, w2, kc)
+    op = -(-cout // 16) * 16
+    assert tuple(w1p.shape) == (c // 128, c // kc, 9, 128, kc)
+    assert tuple(w2p.shape) == (c // kc, op, kc) and not w2p[:, cout:].any()
+    flat1, flat2 = w1p.float().reshape(-1), w2p.float().reshape(-1)
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 1, 1))   # SAME
+    hid = torch.zeros(n, h, w, c)
+    for s in range((c // 128) * (c // kc) * 9):
+        mb, kb, t = s // ((c // kc) * 9), (s // 9) % (c // kc), s % 9
+        sl = flat1[s * 128 * kc:(s + 1) * 128 * kc].reshape(128, kc)
+        a = xp[:, t // 3:t // 3 + h, t % 3:t % 3 + w, kb * kc:(kb + 1) * kc]
+        hid[..., mb * 128:(mb + 1) * 128] += a @ sl.T
+    hid = hid + b1
+    hid = torch.where(hid >= 0, hid, hid * 0.2).bfloat16().float()
+    out = torch.zeros(n, h, w, op)
+    for ob in range(-(-cout // 128)):
+        rows = min(128, op - ob * 128)
+        for kb in range(c // kc):
+            base = (kb * op + ob * 128) * kc
+            sl = flat2[base:base + rows * kc].reshape(rows, kc)
+            out[..., ob * 128:ob * 128 + rows] += hid[..., kb * kc:(kb + 1) * kc] @ sl.T
+    out = out[..., :cout] + b2
+    got = torch.where(out >= 0, out, out * 0.2)
+    want = tc128.block128_nhwc_plain(x, w1, b1, w2, b2).float()
+    # the plain version rounds the output to bf16; hold the unrounded sum to
+    # it within one bf16 rounding plus sum-order flips of the hidden rounding
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= 2e-2 * scale
+
+
 # --------------------------------------------------------------------- K2′
 
 
