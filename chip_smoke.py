@@ -18,11 +18,16 @@ Builds the port's CUDA kernels from ``pcss_unet_tpu_torch/csrc`` (into
 2. ``kernel``: each kernel against its plain PyTorch version on the card, on
    the inputs each main path really gives it (recorded from one forward of
    each of the three paths below), in bfloat16, plus one float32 case per
-   kernel with TF32 off; max |d| against the stated tolerance (exact for the
-   int8 kernels and K4), kernel and plain times from CUDA events, per path.
-   Each kernel also prints one ``kernel_call`` line per recorded call (each
-   tensor argument's shape and strides, ms, bound, its share of the kernel's
-   time, plain ms, max and signed mean of the difference).
+   kernel with TF32 off; max |d| against the stated tolerance (exact for K1
+   in each of its layouts, the int8 kernels and K4), kernel and plain times
+   from CUDA events, per path.  Each kernel also prints one ``kernel_call``
+   line per recorded call (each tensor argument's shape and strides, ms,
+   bound, its share of the kernel's time, plain ms, max and signed mean of
+   the difference), with ``device_ms``: the device time of the library's
+   kernels in the call, from torch.profiler over 20 more calls, and its
+   ``device_bound_share`` (``device_total_ms`` adds the wrapper's own
+   device copies and casts).  K1 is checked as each path calls it (entry
+   ``chw`` or ``nhwc``, bf16) and in the reference's layout (entry None).
    The headline path of K1–K4 is
    the w16 2048×1024 chw+int8 forward, that of K5 (w64 ``dec_0``), K6 (w64
    ``dec_2``) and K2′ (w64 ``enc_0``, ``enc_1``, ``dec_final``) the w64
@@ -44,7 +49,11 @@ Builds the port's CUDA kernels from ``pcss_unet_tpu_torch/csrc`` (into
 4. ``main_path``: full-width 2048×1024 w16 frames through the chw+int8
    ``render_u8`` with the kernels' launch counters zeroed just before and
    read just after (per frame: K1 ×1, K2 ×6, K3 ×1, K4 ×1), the time per
-   frame, then one frame under ``torch.profiler``.
+   frame, then one frame under ``torch.profiler`` (device busy and idle
+   share, ``device_launches``: the device kernels, copies and memsets of the
+   frame, and the device events from K1 to the first block kernel in time
+   order).  ``scripts/profile_frames.py`` compares these counts between two
+   checkouts.
 5. ``golden_nhwc``: the golden net as in 3 through
    ``InferenceEngine(layout="nhwc", fold_bn=True, quantize="int8")``.
 6. ``main_path_w64_nhwc``: 1920×1080 frames padded to 1920×1088 through the
@@ -235,43 +244,107 @@ def record_calls(engine, frames, patched):
     return calls
 
 
-def profile_frame(phase, engine, frames, frame_ms: float) -> dict:
-    """One frame under torch.profiler: time of the device-side events
-    (kernels, copies) by name, and their sum against the measured frame
-    time (the device's busy share)."""
+def dev_ms(e) -> float:
+    """A profiler event's own device time in ms."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+
+
+def device_events(fn, expect=(), tries: int = 3):
+    """``fn()`` under torch.profiler: (the device-side events (kernels,
+    copies, memsets) summed by name, the same events one by one in time
+    order).  The trace starts one step before ``fn`` (a warm-up step with
+    one small kernel, not kept): started with the call, it can miss the
+    call's first kernel.  A profile that still caught no device event, or
+    none whose name holds one of ``expect``, is taken again, up to
+    ``tries`` times."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.render_u8(frames)
+    def on_device(e):   # the step's own span is an annotation, not work
+        return e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")
+
+    for _ in range(tries):
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            torch.zeros(1, device="cuda")
+            torch.cuda.synchronize()
+            prof.step()
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+        summed = [e for e in prof.key_averages() if on_device(e)]
+        if summed and (not expect or any(k in e.key for e in summed for k in expect)):
+            break
+    ordered = sorted(filter(on_device, prof.events()), key=lambda e: e.time_range.start)
+    return summed, ordered
 
-    def dev_ms(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3
 
-    busy = sum(dev_ms(e) for e in events)
-    top = sorted(events, key=dev_ms, reverse=True)[:15]
+def profile_frame(phase, engine, frames, frame_ms: float, own) -> dict:
+    """One frame under torch.profiler: time of the device-side events
+    (kernels, copies) by name, their sum against the measured frame time
+    (the device's busy share) and without the host-to-device copies (whose
+    time follows the host), their count (``device_launches``), and in time
+    order the events from K1 to the first block kernel (``own``: the
+    library's kernel names) with their device µs."""
+    summed, ordered = device_events(lambda: engine.render_u8(frames), ("scrub_",))
+    blocks = [k for k in own if not k.startswith(("scrub_", "mask_to_u8"))]
+    k1 = next((i for i, e in enumerate(ordered) if "scrub_" in e.name), 0)
+    first_block = next((i for i in range(k1, len(ordered))
+                        if any(k in ordered[i].name for k in blocks)), k1)
+    busy = sum(dev_ms(e) for e in summed)
+    top = sorted(summed, key=dev_ms, reverse=True)[:15]
     return {"phase": phase, "device_busy_ms": busy, "frame_ms": frame_ms,
             "idle_share": 1.0 - busy / frame_ms if busy else None,
+            "device_busy_ms_without_htod": sum(dev_ms(e) for e in summed
+                                               if "HtoD" not in e.key),
+            "device_launches": sum(e.count for e in summed),
+            "k1_to_first_block_us": [[e.name[:60], e.time_range.elapsed_us()]
+                                     for e in ordered[k1:first_block + 1]],
             "top_device_ms": [[e.key[:70], dev_ms(e), e.count] for e in top]}
 
 
-def check_kernel(name, kernel, plain, paths, tol_fn, work_fn, f32_case):
+def kernel_device_ms(fn, own, iters: int = 20):
+    """Device time per call of ``fn`` from torch.profiler over ``iters``
+    calls: (the library's own kernels, every device event of the call),
+    ms; the first is None where the profile shows none of them."""
+    summed, _ = device_events(lambda: [fn() for _ in range(iters)], own)
+    mine = sum(dev_ms(e) for e in summed if any(k in e.key for k in own))
+    return (mine / iters if mine else None), sum(dev_ms(e) for e in summed) / iters
+
+
+def kernel_names(log: str) -> set:
+    """The identifiers of the library's kernels (its entry functions, from
+    the ptxas report), as the profiler's demangled names hold them."""
+    mangled = sorted(set(re.findall(r"Compiling entry function '(\w+)'", log)))
+    names = set()
+    for pretty in demangle(mangled):
+        m = re.search(r"(\w+)[<(]", pretty)
+        if m:
+            names.add(m.group(1))
+    return names
+
+
+def check_kernel(name, kernel, plain, paths, tol_fn, work_fn, f32_case, own):
     """Kernel vs plain on each call recorded from each main path (``paths``:
     [(path, calls)], the kernel's headline path first; bf16) and on one
     float32 case with TF32 off.  Prints one ``kernel_call`` line per call
     (each tensor argument's shape and strides, times, bound, max and signed
-    mean of the difference), so that a time can be put on a stage.  Returns
-    the kernels-line entry: max |d| over every path, time, plain time and
-    bound per frame of the headline path."""
+    mean of the difference), so that a time can be put on a stage.  ``ms``
+    is the wrapper's time from CUDA events over 20 calls; ``device_ms`` the
+    device time of the library's kernels (``own``: their names) over 20 more
+    calls under torch.profiler, and ``device_total_ms`` that of every device
+    event of the call (the wrapper's own copies and casts too).  Returns the
+    kernels-line entry: max |d| over every path, time, plain time and bound
+    per frame of the headline path."""
     import torch
 
     per_path = {}
     for path, calls in paths:
         worst, ms, plain_ms, t_bound, by_ops = 0.0, 0.0, 0.0, 0.0, 0.0
+        dev = 0.0
         for i, (args, kw) in enumerate(calls):
             # the tap strategy only orders the kernel's sum; the plain
             # version has one order
@@ -288,12 +361,16 @@ def check_kernel(name, kernel, plain, paths, tol_fn, work_fn, f32_case):
                                      f"{shapes}")
             worst = max(worst, d)
             t = cuda_ms(lambda: kernel(*args, **kw))
+            td, td_all = kernel_device_ms(lambda: kernel(*args, **kw), own)
             tp = cuda_ms(lambda: plain(*args, **pkw), iters=5, warmup=1)
             b, kind = work_fn(args, kw)
             ms, plain_ms, t_bound = ms + t, plain_ms + tp, t_bound + b
+            dev = None if dev is None or td is None else dev + td
             by_ops += b if kind == "operations" else 0.0
             emit({"phase": "kernel_call", "name": name, "path": path,
-                  "bound_share": b / t,
+                  "bound_share": b / t, "device_ms": td,
+                  "device_total_ms": td_all,
+                  "device_bound_share": None if td is None else b / td,
                   "call": i, "args": [[list(a.shape), list(a.stride())]
                                       for a in args if torch.is_tensor(a)],
                   "options": {k: list(v.shape) if torch.is_tensor(v) else
@@ -304,7 +381,7 @@ def check_kernel(name, kernel, plain, paths, tol_fn, work_fn, f32_case):
                   "tol": tol})
         per_path[path] = {
             "calls_per_frame": len(calls), "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": t_bound,
+            "device_ms": dev, "plain_ms": plain_ms, "bound_ms": t_bound,
             "bound_by": "operations" if by_ops > t_bound / 2 else "bytes",
             "shapes": [[tuple(a.shape) for a in args if hasattr(a, "shape")][:1]
                        for args, _ in calls]}
@@ -332,10 +409,6 @@ def f32(call):
     return (tuple(a.float() if torch.is_tensor(a) and a.is_floating_point()
                   else a for a in args),
             {k: (v.float() if torch.is_tensor(v) else v) for k, v in kw.items()})
-
-
-def rel_tol(scale):
-    return lambda want, args: scale * max(1.0, want.float().abs().max().item())
 
 
 # bf16 output: one bf16 rounding of the output plus flips of the hidden
@@ -406,11 +479,21 @@ def conv3x3_int8_work(args, kw):
 
 
 def scrub_work(args, kw):
-    return bound_ms(2 * nbytes(args[0]), 0, 1)
+    """The frame read once, the output written once with its pad columns
+    (the entry's layout, in ``out_dtype``)."""
+    import torch
+
+    from pcss_unet_tpu_torch.ops.kernels.fused import entry_shape
+
+    x = args[0]
+    out = math.prod(entry_shape(x.shape, kw.get("entry")))
+    out_size = torch.empty((), dtype=kw.get("out_dtype", torch.bfloat16)).element_size()
+    return bound_ms(nbytes(x) + out * out_size, 0, 1)
 
 
 def u8_work(args, kw):
-    return bound_ms(nbytes(args[0]) * 5 // 4, 0, 1)
+    """The float32 mask read once, one byte a pixel written once."""
+    return bound_ms(nbytes(args[0]) + args[0].numel(), 0, 1)
 
 
 def block128_storage(kc128, build, call) -> None:
@@ -520,7 +603,7 @@ def golden_phase(phase, variables, meta, xv, yv, layout):
         raise AssertionError(f"{phase}: float32 card vs CPU mask max |d| {d_cpu}")
 
 
-def main_path(phase, engine, frames, n_frames, want, card):
+def main_path(phase, engine, frames, n_frames, want, card, own):
     """``n_frames`` frames through ``render_u8`` with every launch counter
     zeroed just before and read just after; every kernel must have launched
     exactly ``want[name]`` times per frame (0 if absent)."""
@@ -551,7 +634,7 @@ def main_path(phase, engine, frames, n_frames, want, card):
     if engine.model is not None:
         line["routes"] = engine.model.routes()
     emit(line)
-    emit(profile_frame(f"profile_{phase}", engine, frames, frame_ms))
+    emit(profile_frame(f"profile_{phase}", engine, frames, frame_ms, own))
     return launches
 
 
@@ -602,7 +685,9 @@ def main() -> int:
         e["smem_bytes_per_block"] = _build.library().pcss_int8_smem_bytes(
             1 if "Li1ELb" in e["name"] else 9, 4 if "Lb1E" in e["name"] else 1)
     dp4a = {f: c["IDP4A"] for f, c in sass.items() if c["IDP4A"]}
+    own = kernel_names(log)
     emit({"phase": "build", "card": card, "seconds": build_s,
+          "kernel_names": sorted(own),
           "ptxas": ptxas, "bf16_tc_kernels": bf16_tc,
           "int8_kernels": [{k: e[k] for k in ("kernel", "registers", "spill_bytes",
                                               "smem_bytes_per_block", "IMMA", "IDP4A")}
@@ -664,31 +749,39 @@ def main() -> int:
 
     # ---------------------------------------------------------- kernels
     all3 = ("w16_chw", "w64_nhwc", "w64_chw")
+    # K1 as each path calls it (entry "chw" / "nhwc", bf16 out), and the
+    # reference's own layout (entry None) on the w16 frame; the float32
+    # case is the w16 call with float32 out.  Exact: one rounding of the
+    # same IEEE steps on both sides.
+    scrub_args, scrub_kw = first("scrub", "w16_chw")
     entries = [
         check_kernel("fused_scrub_standardize", kfu.fused_scrub_standardize,
-                     kfu.scrub_standardize_plain, on("scrub", *all3),
-                     rel_tol(1e-6), scrub_work, first("scrub", "w16_chw")),
+                     kfu.scrub_standardize_plain,
+                     on("scrub", *all3) + [("w16_entry_none", [
+                         (scrub_args, dict(scrub_kw, entry=None))])],
+                     lambda *_: 0.0, scrub_work,
+                     (scrub_args, dict(scrub_kw, out_dtype=torch.float32)), own),
         check_kernel("fused_conv_block_chw", kcb.fused_conv_block_chw,
                      kcb.conv_block_chw_plain,
                      on("convblock", "w16_chw", "w64_chw"), conv_tol,
-                     conv_work, f32(first("convblock", "w16_chw", -2))),
+                     conv_work, f32(first("convblock", "w16_chw", -2)), own),
         # int8 x int8 -> int32 sums are exact in any order, and the kernel
         # takes every float32 step (dequantize, bias, leaky, rounding of h,
         # the band max) as the plain version does: equal, bit for bit
         check_kernel("fused_block_int8_nhwc", kb8.fused_block_int8_nhwc,
                      kb8.block_int8_nhwc_plain, on("int8", *all3),
-                     lambda *_: 0.0, int8_work, f32(first("int8", "w16_chw"))),
+                     lambda *_: 0.0, int8_work, f32(first("int8", "w16_chw")), own),
         check_kernel("fused_mask_to_u8", kfu.fused_mask_to_u8,
                      kfu.mask_to_u8_plain, on("u8", *all3), lambda *_: 0.0,
-                     u8_work, first("u8", "w16_chw")),
+                     u8_work, first("u8", "w16_chw"), own),
         # K5: exact as K3, the float32 chunk sums in the same order on both sides
         check_kernel("fused_block_int8_kchunked", kb8.fused_block_int8_kchunked,
                      kb8.block_int8_kchunked_plain,
                      on("kchunked", "w64_nhwc", "w64_chw"), lambda *_: 0.0,
-                     int8_work, f32(first("kchunked", "w64_nhwc"))),
+                     int8_work, f32(first("kchunked", "w64_nhwc")), own),
         check_kernel("fused_block128_nhwc", kc128.fused_block128_nhwc,
                      kc128.block128_nhwc_plain, on("block128", "w64_nhwc"),
-                     conv_tol, block128_work, f32(first("block128", "w64_nhwc"))),
+                     conv_tol, block128_work, f32(first("block128", "w64_nhwc")), own),
     ]
     xk7 = torch.randn((1, 272, 480, 512), generator=gen, device="cuda").bfloat16()
     wk7 = torch.randint(-127, 127, (9, 512, 512), generator=gen, device="cuda",
@@ -704,10 +797,10 @@ def main() -> int:
                      lambda *a, co_tile=None, **k: kc7.conv3x3_int8_plain(*a, **k),
                      [("w64_dec_1a", [k7_call])], lambda *_: 0.0,
                      conv3x3_int8_work,
-                     (f32(k7_call)[0], dict(k7_call[1], out_dtype=torch.float32))),
+                     (f32(k7_call)[0], dict(k7_call[1], out_dtype=torch.float32)), own),
         check_kernel("fused_conv_block_nhwc", kcb.fused_conv_block_nhwc,
                      kcb.conv_block_nhwc_plain, on("nhwc", "w64_nhwc"), conv_tol,
-                     conv_nhwc_work, f32(first("nhwc", "w64_nhwc", 1))),
+                     conv_nhwc_work, f32(first("nhwc", "w64_nhwc", 1)), own),
     ]
     block128_storage(kc128, _build, first("block128", "w64_nhwc"))
     del calls
@@ -767,17 +860,17 @@ def main() -> int:
     golden_phase("golden", variables, meta, xv, yv, "chw")
     runs = [main_path("main_path", engine, frames, MAIN_FRAMES, {
         "fused_scrub_standardize": 1, "fused_conv_block_chw": 6,
-        "fused_block_int8_nhwc": 1, "fused_mask_to_u8": 1}, card)]
+        "fused_block_int8_nhwc": 1, "fused_mask_to_u8": 1}, card, own)]
     golden_phase("golden_nhwc", variables, meta, xv, yv, "nhwc")
     runs.append(main_path("main_path_w64_nhwc", e64_nhwc, frames64, W64_FRAMES, {
         "fused_scrub_standardize": 1, "fused_conv_block_nhwc": 3,
         "fused_conv_block_chw": 3, "fused_block_int8_nhwc": 1,
         "fused_block_int8_kchunked": 1, "fused_block128_nhwc": 1,
-        "fused_mask_to_u8": 1}, card))
+        "fused_mask_to_u8": 1}, card, own))
     runs.append(main_path("main_path_w64_chw", e64_chw, frames64, W64_FRAMES, {
         "fused_scrub_standardize": 1, "fused_conv_block_chw": 4,
         "fused_block_int8_nhwc": 1, "fused_block_int8_kchunked": 1,
-        "fused_mask_to_u8": 1}, card))
+        "fused_mask_to_u8": 1}, card, own))
 
     for e in entries:
         e["route"] = "cuda"

@@ -6,6 +6,9 @@ with zero columns to the next multiple of 128, at least one — through the
 whole forward:
 
 - entry: pixel unshuffle to [N, in_ch·4, H/2, Wp]
+  (``pixel_unshuffle_chw_padded``); the inference engine has K1 write it in
+  the same pass as the scrub and standardization and starts the forward at
+  ``chw_forward_entered``
 - small-channel ConvBlocks run the K2 kernel (``fused_conv_block_chw``)
   directly, with the pad-column re-zeroing and the decoder skip-add in its
   epilogue
@@ -32,14 +35,11 @@ import torch.nn.functional as F
 from pcss_unet_tpu_torch.models.unet import widths_from_params
 from pcss_unet_tpu_torch.ops.kernels.convblock import fused_conv_block_chw
 from pcss_unet_tpu_torch.ops.kernels.deploy import block_kernel_nhwc
+from pcss_unet_tpu_torch.ops.pixelshuffle import padded_width as _wp
+from pcss_unet_tpu_torch.ops.pixelshuffle import pixel_unshuffle_chw_padded
 from pcss_unet_tpu_torch.ops.resize import (apply_matrix,
                                             compose_resize_matrices,
                                             interp_matrix)
-
-
-def _wp(w: int) -> int:
-    """Lane-padded width: next multiple of 128 with ≥1 zero pad column."""
-    return (w // 128 + 1) * 128
 
 
 def _pad_matrix(m: np.ndarray, rows: int, cols: int) -> np.ndarray:
@@ -59,15 +59,6 @@ def _param(p, device) -> torch.Tensor:
     if isinstance(p, torch.Tensor):
         return p.to(device)
     return torch.tensor(p, device=device)
-
-
-def _entry_chw(x: torch.Tensor, dtype) -> torch.Tensor:
-    """[N,H,W,C] → pixel-unshuffled, channels-major, padded
-    [N, C·4, H/2, Wp] (channel order c·4+dy·2+dx)."""
-    n, h, w, c = x.shape
-    x = x.to(dtype).reshape(n, h // 2, 2, w // 2, 2, c)   # [N,H',dy,W',dx,C]
-    x = x.permute(0, 5, 2, 4, 1, 3).reshape(n, c * 4, h // 2, w // 2)
-    return F.pad(x, (0, _wp(w // 2) - w // 2))
 
 
 def _exit_nhwc(x: torch.Tensor, w: int, out_ch: int) -> torch.Tensor:
@@ -172,6 +163,17 @@ def _chw_fusable(cin: int, cout: int, use128: bool) -> bool:
     return use128 and cin == 128 and cout <= 128
 
 
+def _check(h: int, w: int, depth: int, movers: str, wide: str) -> None:
+    align = 2 ** depth
+    if h % align or w % align:
+        raise ValueError(f"chw_forward needs H,W divisible by {align} "
+                         f"(got {h}x{w}); pad at the pipeline edge")
+    if movers not in ("mxu", "xla"):
+        raise ValueError(f"movers must be 'mxu' or 'xla', got {movers!r}")
+    if wide not in ("auto", "einsum", "nhwc"):
+        raise ValueError(f"wide must be auto/einsum/nhwc, got {wide!r}")
+
+
 @torch.inference_mode()
 def chw_forward(variables: dict, x: torch.Tensor, *,
                 dtype: torch.dtype = torch.bfloat16, int8: bool = False,
@@ -188,20 +190,28 @@ def chw_forward(variables: dict, x: torch.Tensor, *,
     the port has one.  ``wide``: ``"auto"`` runs the wide stages as plain
     channels-major convolutions except where the int8 NHWC kernel engages;
     ``"einsum"``/``"nhwc"`` force one path."""
+    _, h, w, _ = x.shape
+    _check(h, w, len(widths_from_params(variables["params"])[0]), movers, wide)
+    return chw_forward_entered(
+        variables, pixel_unshuffle_chw_padded(x, dtype), w, dtype=dtype,
+        int8=int8, taps=taps, use128_chw=use128_chw, movers=movers, wide=wide)
+
+
+@torch.inference_mode()
+def chw_forward_entered(variables: dict, x: torch.Tensor, w: int, *,
+                        dtype: torch.dtype = torch.bfloat16, int8: bool = False,
+                        taps: str | dict = "stack", use128_chw: bool = True,
+                        movers: str = "mxu", wide: str = "auto") -> torch.Tensor:
+    """:func:`chw_forward` from its first input: x is the entered frame
+    [N, in·4, H/2, Wp] in ``dtype`` (``pixel_unshuffle_chw_padded``, or K1
+    with ``entry="chw"`` in one pass), ``w`` the frame's width W."""
     params = variables["params"]
     widths, _, out_ch = widths_from_params(params)
-    n, h, w, c = x.shape
     depth = len(widths)
-    align = 2 ** depth
-    if h % align or w % align:
-        raise ValueError(f"chw_forward needs H,W divisible by {align} "
-                         f"(got {h}x{w}); pad at the pipeline edge")
-    if movers not in ("mxu", "xla"):
-        raise ValueError(f"movers must be 'mxu' or 'xla', got {movers!r}")
-    if wide not in ("auto", "einsum", "nhwc"):
-        raise ValueError(f"wide must be auto/einsum/nhwc, got {wide!r}")
-
-    x = _entry_chw(x, dtype)                 # [N, in·4, H/2, Wp]
+    _check(2 * x.shape[2], w, depth, movers, wide)
+    if x.shape[3] != _wp(w // 2):
+        raise ValueError(f"entered frame has {x.shape[3]} columns, want "
+                         f"{_wp(w // 2)} for W = {w}")
     cur_w = w // 2
 
     def any_block(x, name, cur_w, residual=None):

@@ -1,9 +1,11 @@
 """Batched full-frame inference (port of ``pcss_unet_tpu/infer/frame.py``).
 
 One engine for the reference's inference paths: frames are reflection-padded
-to ``pad_multiple``, NaN/Inf-scrubbed and standardized (the K1 kernel),
-run through the network, scrubbed and clipped to [0, 1]; ``render_u8``
-adds the serving quantization (the K4 kernel).
+to ``pad_multiple``, NaN/Inf-scrubbed and standardized by the K1 kernel,
+which writes the forward's first input (pixel-unshuffled, in the working
+dtype, in the posture's layout) in the same pass, run through the network,
+scrubbed and clipped to [0, 1]; ``render_u8`` quantizes the forward's mask
+with the K4 kernel, which scrubs and clips by itself.
 
 ``layout="chw"`` runs the channels-major engine (``infer.chw_engine``);
 ``layout="nhwc"`` runs the module forward (``models.unet.UNet``).  With
@@ -21,7 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pcss_unet_tpu_torch.infer.chw_engine import chw_forward
+from pcss_unet_tpu_torch.infer.chw_engine import (chw_forward,
+                                                  chw_forward_entered)
 from pcss_unet_tpu_torch.models.fold_bn import fold_batchnorm
 from pcss_unet_tpu_torch.models.torch_import import load_variables
 from pcss_unet_tpu_torch.models.unet import (UNet, unet_for_variables,
@@ -96,6 +99,7 @@ class InferenceEngine:
         self.layout = layout
         self.taps = taps
         self.quantize = quantize
+        self._chw_kw = dict(dtype=dtype, int8=quantize == "int8", taps=taps)
         self._dtype = dtype
         self.variables = {"params": _tree_to(variables["params"], self.device)}
         self.means = (None if means is None else
@@ -113,13 +117,29 @@ class InferenceEngine:
                 int8_inference=fold_bn and quantize == "int8")
         self.pad_multiple = pad_multiple
 
-    def _preprocess(self, x: torch.Tensor) -> torch.Tensor:
-        """Input scrub + standardization: one K1 pass when stats are given."""
-        x = x.float()
+    def _forward(self, frames) -> torch.Tensor:
+        """Frames → the forward's float32 sigmoid mask, not yet scrubbed or
+        clipped.  With stats, one K1 pass scrubs and standardizes the frame
+        and writes it in the working dtype and the posture's entry layout,
+        the forward's first input; without, the frame is scrubbed and the
+        forward starts from it (as it does for an odd-size NHWC frame, which
+        the model resizes first)."""
+        x = torch.as_tensor(frames, device=self.device).float()
+        _, h, w, _ = x.shape
+        if self.means is not None and not (h % 2 or w % 2):
+            xe = fused_scrub_standardize(x, self.means, self.stds,
+                                         out_dtype=self._dtype, entry=self.layout)
+            if self.layout == "chw":
+                return chw_forward_entered(self.variables, xe, w, **self._chw_kw)
+            return self.model.forward_entered(xe)
         if self.means is not None:
-            return fused_scrub_standardize(x, self.means, self.stds,
-                                           out_dtype=torch.float32)
-        return torch.nan_to_num(x, nan=0.0, posinf=1.0, neginf=0.0)
+            x = fused_scrub_standardize(x, self.means, self.stds,
+                                        out_dtype=torch.float32)
+        else:
+            x = torch.nan_to_num(x, nan=0.0, posinf=1.0, neginf=0.0)
+        if self.layout == "chw":
+            return chw_forward(self.variables, x, **self._chw_kw)
+        return self.model(x)
 
     @staticmethod
     def _postprocess(out: torch.Tensor) -> torch.Tensor:
@@ -129,19 +149,17 @@ class InferenceEngine:
     @torch.inference_mode()
     def run_padded(self, frames: torch.Tensor) -> torch.Tensor:
         """Forward on already-aligned frames [B, H, W, C] (a tensor on any
-        device; moved to the engine's) → masks on the engine's device."""
-        x = self._preprocess(torch.as_tensor(frames, device=self.device))
-        if self.layout == "chw":
-            out = chw_forward(self.variables, x, dtype=self._dtype,
-                              int8=self.quantize == "int8", taps=self.taps)
-        else:
-            out = self.model(x)
-        return self._postprocess(out)
+        device; moved to the engine's) → masks on the engine's device,
+        scrubbed and clipped to [0, 1]."""
+        return self._postprocess(self._forward(frames))
 
+    @torch.inference_mode()
     def render_u8(self, frames: torch.Tensor) -> torch.Tensor:
         """Serving path: forward + ×255 uint8 quantization (K4) on the
-        engine's device."""
-        return fused_mask_to_u8(self.run_padded(frames))
+        engine's device.  K4 scrubs and clips by itself, so it takes the
+        forward's mask as it comes (the same codes as after
+        ``_postprocess``)."""
+        return fused_mask_to_u8(self._forward(frames))
 
     def __call__(self, frames: np.ndarray) -> np.ndarray:
         frames = np.asarray(frames, np.float32)

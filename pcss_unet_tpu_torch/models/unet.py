@@ -207,7 +207,15 @@ class UNet(nn.Module):
         if h % 2 or w % 2:
             # odd-size fixup, reference Unetmodel.py:93-97
             x = resize_bilinear_align_corners(x, (h - h % 2, w - w % 2))
-        x = pixel_unshuffle_nhwc(x.to(self.dtype), 2).permute(0, 3, 1, 2)
+        out = self.forward_entered(pixel_unshuffle_nhwc(x.to(self.dtype), 2))
+        return out if orig_dtype == torch.float32 else out.to(self.dtype)
+
+    def forward_entered(self, x: torch.Tensor) -> torch.Tensor:
+        """The forward from its first input: x is the pixel-unshuffled frame
+        [B, H/2, W/2, in_ch·4] in ``dtype`` (``pixel_unshuffle_nhwc``, or
+        K1 with ``entry="nhwc"`` in one pass).  Returns the float32 sigmoid
+        mask [B, H, W, out_ch]."""
+        x = x.permute(0, 3, 1, 2)
         depth = len(self.encoder_widths)
         skips = []
         for i in range(depth - 1):
@@ -232,8 +240,7 @@ class UNet(nn.Module):
         x = self.dec_final(x)
         x = _conv(self.head, x, self.dtype)
         x = pixel_shuffle_nhwc(x.permute(0, 2, 3, 1), 2)
-        x = torch.sigmoid(x.float())
-        return x if orig_dtype == torch.float32 else x.to(self.dtype)
+        return torch.sigmoid(x.float())
 
 
 def widths_from_params(params) -> tuple[tuple[int, ...], int, int]:

@@ -33,8 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points and their argument types; every one returns a cudaError_t
 _SIGNATURES = {
-    "pcss_scrub_standardize": (_P, _P, _P, _P, _LL, _I, _I, _P),
-    "pcss_mask_to_u8": (_P, _P, _LL, _P),
+    "pcss_scrub_standardize": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _P),
+    "pcss_mask_to_u8": (_P, _P, _LL, _I, _P),
     "pcss_convblock_chw": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _F, _I, _P),
     "pcss_block_int8_nhwc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

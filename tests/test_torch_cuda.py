@@ -64,6 +64,54 @@ def test_scrub_standardize_kernel(dev, gen, out_dtype):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("entry", [None, "nhwc", "chw"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,shape", [
+    ("aligned", (2, 6, 36, 4)),        # H/2 = 3 odd, W = 36 not a multiple of 8
+    ("offset", (1, 10, 20, 4)),        # base 4 bytes off 16: element by element
+    ("c3", (2, 6, 36, 3)),             # C != 4: the general path
+    ("w64_row", (1, 4, 1920, 4)),      # the w64 frame's width: W/2 = 960, Wp 1024
+])
+def test_scrub_standardize_entry_kernel(dev, gen, entry, out_dtype, case, shape):
+    """K1 in every layout ≡ its plain version exactly, pad columns included,
+    one launch each."""
+    x = (gen.standard_normal(shape) * 3).astype(np.float32)
+    x.reshape(-1)[[0, 5, 9, 14]] = [np.nan, np.inf, -np.inf, -0.0]
+    xt = torch.from_numpy(x).to(dev)
+    if case == "offset":
+        buf = torch.empty(xt.numel() + 1, device=dev)
+        xt = buf[1:].view(xt.shape)
+        xt.copy_(torch.from_numpy(x).to(dev))
+        assert xt.data_ptr() % 16 == 4
+    c = shape[3]
+    m = torch.from_numpy(gen.standard_normal(c).astype(np.float32)).to(dev)
+    s = torch.from_numpy((gen.random(c) + 0.1).astype(np.float32)).to(dev)
+    before = kfu.fused_scrub_standardize.launches
+    got = kfu.fused_scrub_standardize(xt, m, s, out_dtype=out_dtype, entry=entry)
+    assert kfu.fused_scrub_standardize.launches == before + 1
+    want = kfu.scrub_standardize_plain(xt, m, s, out_dtype, entry=entry)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("offset,n", [(0, 16 * 40 + 5), (1, 16 * 40 + 5), (4, 16 * 40 + 5),
+                                      (0, 7), (0, 1088 * 1920)])
+def test_mask_to_u8_kernel_tail_and_offset(dev, gen, offset, n):
+    """K4 ≡ its plain version exactly at counts not divisible by 16, on a
+    view 4 bytes off 16 (element by element) and 16 bytes off (vector
+    path), and at the w64 frame's size; one launch each."""
+    x = (gen.random(n) * 1.4 - 0.2).astype(np.float32)
+    x[:4] = [np.nan, np.inf, -np.inf, -0.0][:min(4, n)]
+    buf = torch.zeros(offset + n, device=dev)
+    xt = buf[offset:].view(1, 1, n, 1)
+    xt.copy_(torch.from_numpy(x).to(dev).view(1, 1, n, 1))
+    before = kfu.fused_mask_to_u8.launches
+    got = kfu.fused_mask_to_u8(xt)
+    assert kfu.fused_mask_to_u8.launches == before + 1
+    assert torch.equal(got, kfu.mask_to_u8_plain(xt))
+
+
 def test_mask_to_u8_kernel(dev, gen):
     x = (gen.random((1, 6, 51, 1)) * 1.4 - 0.2).astype(np.float32)  # 306 ≥ 4 + 255
     ks = np.arange(255)

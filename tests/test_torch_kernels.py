@@ -49,6 +49,175 @@ def test_scrub_standardize_matches(rng, out_dtype):
     np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
 
 
+def _frame_with_specials(rng, n, h, w, c=4):
+    x = (rng.standard_normal((n, h, w, c)) * 3).astype(np.float32)
+    flat = x.reshape(-1)
+    idx = rng.choice(flat.size, 12, replace=False)
+    flat[idx[:4]] = np.nan
+    flat[idx[4:8]] = np.inf
+    flat[idx[8:]] = -np.inf
+    means = rng.standard_normal(c).astype(np.float32)
+    stds = (rng.random(c) + 0.1).astype(np.float32)
+    return x, means, stds
+
+
+@pytest.mark.parametrize("entry", ["nhwc", "chw"])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_scrub_standardize_entry_matches_jax_chain(rng, entry, out_dtype):
+    """K1 writing the forward's first input ≡ the reference's chain: its
+    Pallas kernel (interpret mode) into float32, then the posture's entry
+    (``pixel_unshuffle_nhwc`` of the working dtype, or the chw engine's
+    ``_entry_chw``), bit for bit.  W/2 = 20 leaves 108 pad columns."""
+    from pcss_unet_tpu.infer.chw_engine import _entry_chw
+    from pcss_unet_tpu.ops.pixelshuffle import pixel_unshuffle_nhwc
+
+    x, means, stds = _frame_with_specials(rng, 2, 6, 40)
+    jd = getattr(jnp, out_dtype)
+    y = jfused.fused_scrub_standardize(jnp.asarray(x), jnp.asarray(means),
+                                       jnp.asarray(stds), out_dtype=jnp.float32,
+                                       interpret=True)
+    want = (pixel_unshuffle_nhwc(y.astype(jd), 2) if entry == "nhwc"
+            else _entry_chw(y, jd))
+    got = tfused.fused_scrub_standardize(_t(x), _t(means), _t(stds),
+                                         out_dtype=getattr(torch, out_dtype),
+                                         entry=entry)
+    assert got.dtype == getattr(torch, out_dtype)
+    assert tuple(got.shape) == want.shape == tfused.entry_shape(x.shape, entry)
+    assert torch.equal(got.float(), _t(np.asarray(want.astype(jnp.float32))))
+    if entry == "chw":
+        assert not got[..., 20:].any()
+
+
+def _emulate_c_entry(x, mean, std, out_shape, a):
+    """The card kernel's addressing (csrc/fused.cu) over the arguments the
+    wrapper passed: value (n, h', dy, w', dx, c) of the scrubbed,
+    standardized frame at offset n·sn + h'·sh + dy·sdy + w'·sw + dx·sdx +
+    c·sc; columns w' ≥ W/R zero."""
+    n, h, w, c, r, wout = a[4:10]
+    sn, sh, sdy, sw, sdx, sc = a[10:16]
+    y = tfused.scrub_standardize_plain(x, mean, std, torch.float32)
+    flat = torch.full((int(np.prod(out_shape)),), float("nan"))
+    idx = torch.meshgrid(*(torch.arange(k) for k in (n, h // r, r, wout, r, c)),
+                         indexing="ij")
+    i_n, i_h, i_dy, i_w, i_dx, i_c = idx
+    off = i_n * sn + i_h * sh + i_dy * sdy + i_w * sw + i_dx * sdx + i_c * sc
+    pad = i_w >= w // r
+    src = y[i_n, i_h * r + i_dy, (i_w * r + i_dx).clamp(max=w - 1), i_c]
+    flat[off.reshape(-1)] = torch.where(pad, 0.0, src).reshape(-1)
+    return flat.reshape(out_shape)
+
+
+@pytest.mark.parametrize("entry", [None, "nhwc", "chw"])
+@pytest.mark.parametrize("case,c,mode", [
+    ("aligned", 4, "vec"),
+    ("offset", 4, tfused.GENERAL),     # base 4 bytes off 16: element by element
+    ("c3", 3, tfused.GENERAL),         # C ≠ 4: the general path
+])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_scrub_standardize_c_entry_arguments(rng, monkeypatch, entry, case, c,
+                                             mode, out_dtype):
+    """What the wrapper hands the C entry, with a stub in its place: the
+    sizes, the output's columns, the mode, and six strides that put every
+    value where the plain version has it (the kernel's addressing emulated
+    over those arguments gives the plain output exactly, pad columns
+    included)."""
+    seen = []
+    monkeypatch.setattr(tfused._build, "call", lambda name, *a: seen.append((name, a)))
+    n, h, w = 2, 6, 18                                  # W/2 = 9, H/2 odd
+    x, means, stds = _frame_with_specials(rng, n, h, w, c)
+    xt = _t(x)
+    if case == "offset":
+        buf = torch.empty(xt.numel() + 1)
+        xt = buf[1:].view(xt.shape)
+        xt.copy_(_t(x))
+    out = torch.empty(tfused.entry_shape(xt.shape, entry), dtype=out_dtype)
+    tfused._launch(xt, _t(means), _t(stds), out, entry, 7)
+    (name, a), = seen
+    assert name == "pcss_scrub_standardize"
+    r = 1 if entry is None else 2
+    want_mode = ({None: tfused.UNIT, "nhwc": tfused.UNIT, "chw": tfused.PLANES}[entry]
+                 if mode == "vec" else mode)
+    assert a[0] == xt.data_ptr() and a[3] == out.data_ptr()
+    assert a[4:10] == (n, h, w, c, r, out.shape[3 if entry == "chw" else 2])
+    assert a[16:] == (int(out_dtype == torch.bfloat16), want_mode, 7)
+    got = _emulate_c_entry(xt, _t(means), _t(stds), out.shape, a).to(out_dtype)
+    want = tfused.scrub_standardize_plain(xt, _t(means), _t(stds), out_dtype,
+                                          entry=entry)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("layout", ["chw", "nhwc"])
+def test_engine_entry_equals_two_step_path(layout):
+    """The engine's one-pass entry (K1 into the posture's first input, then
+    ``chw_forward_entered`` / ``UNet.forward_entered``) gives the masks of
+    the two-step path it replaced (K1 into float32 NHWC, then the whole
+    forward), bit for bit in bf16; ``render_u8`` gives K4 of that mask."""
+    from pcss_unet_tpu_torch.infer import InferenceEngine
+    from pcss_unet_tpu_torch.infer.chw_engine import chw_forward
+    from pcss_unet_tpu_torch.models.init import seeded_variables
+
+    rng = np.random.default_rng(3)
+    means = rng.standard_normal(4).astype(np.float32)
+    stds = (rng.random(4) + 0.5).astype(np.float32)
+    eng = InferenceEngine(None, seeded_variables((16, 32), seed=1), means=means,
+                          stds=stds, fold_bn=True, quantize="int8", layout=layout,
+                          dtype=torch.bfloat16, device="cpu")
+    frames = _t(_frame_with_specials(rng, 1, 32, 64)[0])
+    x = tfused.fused_scrub_standardize(frames, _t(means), _t(stds),
+                                       out_dtype=torch.float32)
+    with torch.inference_mode():
+        raw = (chw_forward(eng.variables, x, dtype=torch.bfloat16, int8=True)
+               if layout == "chw" else eng.model(x))
+    assert raw.dtype == torch.float32
+    want = InferenceEngine._postprocess(raw)
+    assert torch.equal(eng.run_padded(frames), want)
+    assert torch.equal(eng.render_u8(frames), tfused.mask_to_u8_plain(want))
+
+
+def test_scrub_standardize_entry_validates():
+    x, m = torch.zeros(1, 6, 10, 4), torch.zeros(4)
+    with pytest.raises(ValueError, match="entry must be"):
+        tfused.fused_scrub_standardize(x, m, m, entry="nchw")
+    with pytest.raises(ValueError, match="H, W even"):
+        tfused.fused_scrub_standardize(torch.zeros(1, 5, 10, 4), m, m, entry="nhwc")
+    with pytest.raises(ValueError, match="means/stds"):
+        tfused.fused_scrub_standardize(x, torch.zeros(3), m)
+
+
+def test_mask_to_u8_needs_no_postprocess(rng):
+    """K4 scrubs and clips by itself, so the serving path feeds it the
+    forward's mask as it is: equal, bit for bit, to K4 after the engine's
+    ``_postprocess``, over NaN, ±Inf, −0.0, out-of-range values and every
+    exact ×255 tie."""
+    from pcss_unet_tpu_torch.infer import InferenceEngine
+
+    planted = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, 1.0, -1e-30, 1 + 1e-7,
+                        -3.5, 7.25, np.finfo(np.float32).max,
+                        -np.finfo(np.float32).max, np.finfo(np.float32).tiny],
+                       np.float32)
+    x = np.concatenate([planted, _u8_ties(),
+                        (rng.random(4000) * 3 - 1).astype(np.float32)])
+    xt = _t(x).reshape(1, 1, -1, 1)
+    want = tfused.mask_to_u8_plain(InferenceEngine._postprocess(xt))
+    assert torch.equal(tfused.mask_to_u8_plain(xt), want)
+    assert torch.equal(tfused.fused_mask_to_u8(xt), want)
+
+
+@pytest.mark.parametrize("offset,vec", [(0, 1), (1, 0), (4, 1)])
+def test_mask_to_u8_c_entry_arguments(monkeypatch, offset, vec):
+    """K4's C entry gets the count and takes its 16-pixel vector path only
+    on a 16-byte aligned mask; an offset view is read in place."""
+    seen = []
+    monkeypatch.setattr(tfused._build, "call", lambda name, *a: seen.append((name, a)))
+    buf = torch.zeros(offset + 5 * 37)
+    x = buf[offset:].view(1, 5, 37, 1)
+    out = torch.empty(x.shape, dtype=torch.uint8)
+    tfused._launch_u8(x, out, 7)
+    (name, a), = seen
+    assert name == "pcss_mask_to_u8"
+    assert a == (x.data_ptr(), out.data_ptr(), 185, vec, 7)
+
+
 def _u8_ties():
     """float32 x in [0,1] with x·255 exactly k + 0.5 in float32."""
     ks = np.arange(255)
