@@ -4,7 +4,9 @@
     python3 chip_smoke.py          # from the root of a checkout, one card
 
 Builds the port's CUDA kernels from ``pcss_unet_tpu_torch/csrc`` (into
-``build/kernels``), then runs these phases, each printing one JSON line:
+``build/kernels``) and, beside them, the native EXR codec from
+``native/exr`` (into ``build/exr``), then runs these phases, each printing
+one JSON line:
 
 1. ``build``: the card (name, power limit), the kernels' build time and the
    ``ptxas`` register/spill report.  For the bf16 tensor-core kernels (K2's
@@ -17,7 +19,9 @@ Builds the port's CUDA kernels from ``pcss_unet_tpu_torch/csrc`` (into
    ``IMMA``, or if any function has an ``IDP4A``.
 2. ``kernel``: each kernel against its plain PyTorch version on the card, on
    the inputs each main path really gives it (recorded from one forward of
-   each of the three paths below), in bfloat16, plus one float32 case per
+   each of the three paths below, and of the tiled CLI's forward,
+   ``w16_tiled``: the 2048×1024 frame as 15 tiles of 512 in one batch, so
+   K1, K2 and K3 are held at N = 15), in bfloat16, plus one float32 case per
    kernel with TF32 off; max |d| against the stated tolerance (exact for K1
    in each of its layouts, the int8 kernels and K4), kernel and plain times
    from CUDA events, per path.  Each kernel also prints one ``kernel_call``
@@ -63,8 +67,26 @@ Builds the port's CUDA kernels from ``pcss_unet_tpu_torch/csrc`` (into
 7. ``main_path_w64_chw``: the same frames through the chw+int8 engine (per
    frame: K1 ×1, K2 ×4, K3 ×1, K5 ×1, K4 ×1), then a profile.
 
+8. ``cli_infer``: the user's command, in process: the w16 main-path frame
+   written as a float32 ZIP EXR by the port's ``write_exr``, a
+   ``train_stats.npy`` from ``deploy_w16.json``, then ``cli.infer.main``
+   with ``--weights tests/golden/deploy_w16.npz --stats_dir … --fold_bn
+   --quantize int8 --layout chw``, launch counters zeroed just before each
+   run and read just after (K1 ×1, K2 ×6, K3 ×1, K4 ×0: the CLI truncates
+   on the host as the reference does); the PNG's codes must equal
+   ``trunc(255 · engine(frame))`` exactly; the EXR codec that decoded
+   (``native`` or ``python``, with the build error if any) and the median
+   host-clock ms of decode, forward and PNG write over 5 runs after one warm
+   run.
+9. ``cli_tiled``: the same with ``--tile 512 --halo 32`` (one batch of 15
+   tiles, the same launch counts): PSNR ≥ 35 dB against the untiled mask,
+   device blend within 1e-6 of host blend, PNG codes those of the mask.
+10. ``cli_validate``: ``cli.validate.main`` on the first deploy_w16
+    validation frame as an EXR, float32 ``--fold_bn`` (must be EXACT or
+    PASS) and ``--fold_bn --quantize int8 --bf16``, with the state of TF32.
+
 Then the ``{"kernels": [...]}`` line (``launches``: the sum over the three
-main-path runs; ``ms``, ``plain_ms`` and ``bound_ms``: per frame of the
+main-path runs and the two counted CLI runs; ``ms``, ``plain_ms`` and ``bound_ms``: per frame of the
 kernel's headline path; ``max_abs_err``: over every path), the card's name and power limit as ``nvidia-smi`` prints
 them, and the result line.  Any failure raises and exits non-zero; with no
 CUDA device the script exits 2 and prints nothing.
@@ -77,8 +99,11 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -93,6 +118,9 @@ MAIN_FRAMES = 10
 W64 = (64, 128, 512, 1024)
 W64_H, W64_W = 1080, 1920       # padded to 1088 rows by the engine's ×16
 W64_FRAMES = 5
+TILE, HALO = 512, 32           # the tiled CLI's --tile / --halo: 3 x 5 tiles
+CLI_RUNS = 5                   # timed CLI runs after one warm run
+WEIGHTS = os.path.join(REPO, "tests", "golden", "deploy_w16.npz")
 NO_LIBRARY = ("no single PyTorch call computes this function (a whole "
               "block, or an int8 conv with per-band dynamic scales)")
 
@@ -129,8 +157,6 @@ def ptxas_entries(log: str, kernel: str) -> list[dict]:
 def sass_counts(lib_path: str) -> dict:
     """{function: {"HMMA": n, "IMMA": n, "IDP4A": n}} over the library's
     SASS."""
-    import shutil
-
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "--dump-sass", lib_path], capture_output=True,
                           text=True, timeout=300, check=True).stdout
@@ -221,12 +247,13 @@ def swapped(replacements):
             setattr(mod, name, fn)
 
 
-def record_calls(engine, frames, patched):
-    """Run one forward with the given kernel wrappers (module, name, key)
-    recording their arguments (the inputs the main path gives each) as
-    copies with the caller's strides, so that a wrapper is timed on the
-    layout the main path hands it (K2′, for one, gets an NHWC view of NCHW
-    storage, which its padding turns back into NCHW without a transpose)."""
+def record_calls(run, patched):
+    """Run ``run()`` (one forward) with the given kernel wrappers (module,
+    name, key) recording their arguments (the inputs the main path gives
+    each) as copies with the caller's strides, so that a wrapper is timed on
+    the layout the main path hands it (K2′, for one, gets an NHWC view of
+    NCHW storage, which its padding turns back into NCHW without a
+    transpose)."""
     import torch
 
     calls = {key: [] for _, _, key in patched}
@@ -240,7 +267,7 @@ def record_calls(engine, frames, patched):
 
     with swapped([(mod, name, recorder(getattr(mod, name), key))
                   for mod, name, key in patched]):
-        engine.render_u8(frames)
+        run()
     return calls
 
 
@@ -638,11 +665,177 @@ def main_path(phase, engine, frames, n_frames, want, card, own):
     return launches
 
 
+def launch_counts() -> dict:
+    from pcss_unet_tpu_torch.ops.kernels import KERNELS
+
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def run_cli(main, argv, want):
+    """``main(argv)`` in process with every launch counter zeroed just
+    before and read just after; each kernel must have launched ``want[name]``
+    times (0 if absent).  → (what main returned, the counts)."""
+    from pcss_unet_tpu_torch.ops.kernels import reset_launch_counts
+
+    reset_launch_counts()
+    out = main(argv)
+    launches = launch_counts()
+    bad = {k: v for k, v in launches.items() if v != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{argv}: launches {launches}, want {want}")
+    return out, launches
+
+
+def png_codes(mask: np.ndarray) -> np.ndarray:
+    """The mask's PNG codes as the reference writes them: scrubbed,
+    clipped, ×255 and truncated (not K4's half-even rounding)."""
+    m = np.clip(np.nan_to_num(mask[..., 0], nan=0.0, posinf=1.0, neginf=0.0),
+                0.0, 1.0)
+    return (m * 255.0).astype(np.uint8)
+
+
+def read_png(path: str) -> np.ndarray:
+    from pcss_unet_tpu_torch.io.png import decode_png_l
+
+    with open(path, "rb") as f:
+        return decode_png_l(f.read())
+
+
+CLI_WANT = {"fused_scrub_standardize": 1, "fused_conv_block_chw": 6,
+            "fused_block_int8_nhwc": 1}
+
+
+def cli_infer_phase(work, frame, stats, card):
+    """The user's command on one 2048×1024 frame, in process:
+    ``infer --input f.exr --output m.png --weights deploy_w16.npz
+    --stats_dir d --fold_bn --quantize int8 --layout chw`` (bf16, the
+    card).  The frame is written as a float32 ZIP EXR by the port's
+    ``write_exr``.  One warm run with the launch counters checked (K1 ×1,
+    K2 ×6, K3 ×1, K4 ×0), then ``CLI_RUNS`` timed runs (host clock: decode,
+    forward, PNG write; medians).  The PNG must hold exactly the codes
+    ``trunc(255 · engine(frame))`` of an engine built the same way.  Also
+    the decode time of the frame as a DWAA file (median of 5 after one).
+    → (the launch counts, the engine, the frame as read, its mask)."""
+    from pcss_unet_tpu_torch.cli import infer as cli_infer
+    from pcss_unet_tpu_torch.infer import InferenceEngine, load_variables
+    from pcss_unet_tpu_torch.io import exr
+
+    import torch
+
+    path, png = os.path.join(work, "frame.exr"), os.path.join(work, "mask.png")
+    t0 = time.perf_counter()
+    exr.write_exr(path, {c: frame[..., i] for i, c in enumerate("RGBA")})
+    exr_write_ms = (time.perf_counter() - t0) * 1e3
+    np.save(os.path.join(work, "train_stats.npy"),
+            {"means": stats["means"].tolist(), "stds": stats["stds"].tolist()},
+            allow_pickle=True)
+    argv = ["--input", path, "--output", png, "--weights", WEIGHTS,
+            "--stats_dir", work, "--fold_bn", "--quantize", "int8",
+            "--layout", "chw"]
+    _, launches = run_cli(cli_infer.main, argv, CLI_WANT)
+    timed = [run_cli(cli_infer.main, argv, CLI_WANT)[0] for _ in range(CLI_RUNS)]
+    # the same frame as a DWAA file (lossy DCT, the costliest decode): its
+    # decode time on this host beside the forward's
+    dwaa = os.path.join(work, "frame_dwaa.exr")
+    exr.write_exr(dwaa, {c: frame[..., i] for i, c in enumerate("RGBA")},
+                  compression="DWAA")
+    dwaa_ms = []
+    for _ in range(CLI_RUNS + 1):
+        t0 = time.perf_counter()
+        exr.read_exr_stack(dwaa)
+        dwaa_ms.append((time.perf_counter() - t0) * 1e3)
+    engine = InferenceEngine(None, load_variables(WEIGHTS), fold_bn=True,
+                             quantize="int8", layout="chw",
+                             dtype=torch.bfloat16, device="cuda", **stats)
+    x = exr.read_exr_stack(path)
+    mask = engine(x)
+    got, want = read_png(png), png_codes(mask)
+    line = {"phase": "cli_infer", "frame_hw": list(x.shape[:2]),
+            "exr_backend": timed[-1]["exr_backend"],
+            "exr_native_error": exr.native_error(),
+            "exr_read_back_equal": bool(np.array_equal(x, frame)),
+            "exr_write_ms": exr_write_ms, "runs": CLI_RUNS,
+            **{f"{k}_median": float(np.median([t[k] for t in timed]))
+               for k in ("decode_ms", "forward_ms", "write_ms")},
+            **{k: [t[k] for t in timed]
+               for k in ("decode_ms", "forward_ms", "write_ms")},
+            "dwaa_decode_ms_median": float(np.median(dwaa_ms[1:])),
+            "dwaa_backend": exr.last_backend(),
+            "launches": launches, "png_codes_differing": int((got != want).sum()),
+            "card": card}
+    emit(line)
+    if not (line["exr_read_back_equal"] and got.shape == want.shape
+            and line["png_codes_differing"] == 0 and want.min() < want.max()):
+        raise AssertionError(f"cli_infer: {line}")
+    return launches, engine, x, mask
+
+
+def cli_tiled_phase(work, engine, x, mask, card):
+    """The same command with ``--tile 512 --halo 32``: 3 × 5 tiles in one
+    batch of 15 (K1 ×1, K2 ×6, K3 ×1).  The tiled mask must be within
+    35 dB PSNR of the untiled one (the JAX suite's bar), the device blend
+    within 1e-6 of the host blend, and the PNG's codes those of the device
+    blend.  → the launch counts."""
+    from pcss_unet_tpu_torch.cli import infer as cli_infer
+    from pcss_unet_tpu_torch.infer import infer_tiled
+    from pcss_unet_tpu_torch.parity import compare_outputs
+
+    png = os.path.join(work, "mask_tiled.png")
+    argv = ["--input", os.path.join(work, "frame.exr"), "--output", png,
+            "--weights", WEIGHTS, "--stats_dir", work, "--fold_bn",
+            "--quantize", "int8", "--layout", "chw", "--tile", str(TILE),
+            "--halo", str(HALO)]
+    times, launches = run_cli(cli_infer.main, argv, CLI_WANT)
+    dev = infer_tiled(engine, x, tile=TILE, halo=HALO, blend="device")
+    host = infer_tiled(engine, x, tile=TILE, halo=HALO, blend="host")
+    res = compare_outputs(dev, mask, psnr_pass=35.0)
+    line = {"phase": "cli_tiled", "tile": TILE, "halo": HALO,
+            "forward_ms": times["forward_ms"], "launches": launches,
+            "psnr_vs_untiled_db": res["psnr"], "min_psnr_db": 35.0,
+            "max_abs_vs_untiled": res["max_abs"],
+            "device_vs_host_blend_max_abs": float(np.abs(dev - host).max()),
+            "tol_blend": 1e-6,
+            "png_codes_differing": int((read_png(png) != png_codes(dev)).sum()),
+            "card": card}
+    emit(line)
+    if not (res["psnr"] >= 35.0 and line["device_vs_host_blend_max_abs"] <= 1e-6
+            and line["png_codes_differing"] == 0):
+        raise AssertionError(f"cli_tiled: {line}")
+    return launches
+
+
+def cli_validate_phase(work, frame, stats):
+    """``validate`` on the first deploy_w16 validation frame, written as an
+    EXR, in two postures: float32 ``--fold_bn`` (must be EXACT or PASS) and
+    ``--fold_bn --quantize int8 --bf16``.  The training pathway's float32
+    convolutions are cuDNN's, so the line carries TF32's state."""
+    import torch
+
+    from pcss_unet_tpu_torch.cli import validate as cli_validate
+    from pcss_unet_tpu_torch.io import exr
+
+    path = os.path.join(work, "val0.exr")
+    exr.write_exr(path, {c: frame[..., i] for i, c in enumerate("RGBA")})
+    for posture in (["--fold_bn"], ["--fold_bn", "--quantize", "int8", "--bf16"]):
+        res = cli_validate.main(["--weights", WEIGHTS, "--input", path,
+                                 "--output_dir", os.path.join(work, "validate"),
+                                 "--stats_dir", work, *posture])
+        line = {"phase": "cli_validate", "posture": " ".join(posture),
+                "frame_hw": list(frame.shape[:2]), **res,
+                "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+                "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+        emit(line)
+        if posture == ["--fold_bn"] and res["verdict"] not in ("exact", "pass"):
+            raise AssertionError(f"cli_validate float32: {line}")
+
+
 def main() -> int:
     import torch
 
     from pcss_unet_tpu_torch.infer import (InferenceEngine, chw_engine, frame,
-                                           load_variables, pad_to_multiple)
+                                           load_variables, pad_to_multiple,
+                                           tiled)
+    from pcss_unet_tpu_torch.io import exr
     from pcss_unet_tpu_torch.models import unet as unet_mod
     from pcss_unet_tpu_torch.models.init import seeded_variables
     from pcss_unet_tpu_torch.ops.kernels import KERNELS, _build
@@ -659,8 +852,12 @@ def main() -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
+    # the EXR codec (g++) builds beside the kernels (nvcc)
+    exr_build = threading.Thread(target=exr._load_native)
+    exr_build.start()
     _build.library()
     build_s = time.perf_counter() - t0
+    exr_build.join()
     log = _build.build_log()
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
@@ -687,6 +884,8 @@ def main() -> int:
     dp4a = {f: c["IDP4A"] for f, c in sass.items() if c["IDP4A"]}
     own = kernel_names(log)
     emit({"phase": "build", "card": card, "seconds": build_s,
+          "exr_codec": "native" if exr._lib is not None else "python",
+          "exr_native_error": exr.native_error(),
           "kernel_names": sorted(own),
           "ptxas": ptxas, "bf16_tc_kernels": bf16_tc,
           "int8_kernels": [{k: e[k] for k in ("kernel", "registers", "spill_bytes",
@@ -718,8 +917,16 @@ def main() -> int:
                 "int8": (deploy, "fused_block_int8_nhwc"),
                 "kchunked": (deploy, "fused_block_int8_kchunked"),
                 "block128": (deploy, "fused_block128_nhwc")}
-    calls = {"w16_chw": record_calls(engine, frames, [
+    calls = {"w16_chw": record_calls(lambda: engine.render_u8(frames), [
         (*wrappers[k], k) for k in ("scrub", "convblock", "int8", "u8")])}
+    # the tiled CLI's forward: the same frame as 15 tiles of 512 in one batch
+    frame_np = frames[0].cpu().numpy()
+    calls["w16_tiled"] = record_calls(
+        lambda: tiled.infer_tiled(engine, frame_np, tile=TILE, halo=HALO), [
+            (*wrappers[k], k) for k in ("scrub", "convblock", "int8")])
+    n_tiles = calls["w16_tiled"]["scrub"][0][0][0].shape[0]
+    if n_tiles != 15:
+        raise AssertionError(f"w16_tiled: K1 saw a batch of {n_tiles} tiles, want 15")
 
     v64 = seeded_variables(W64, seed=0)
     e64_nhwc = InferenceEngine(None, v64, layout="nhwc", **kw)
@@ -728,10 +935,10 @@ def main() -> int:
     f64, _ = pad_to_multiple(rng.random((1, W64_H, W64_W, 4), np.float32),
                              e64_nhwc.pad_multiple)
     frames64 = torch.from_numpy(f64).cuda()
-    calls["w64_nhwc"] = record_calls(e64_nhwc, frames64, [
+    calls["w64_nhwc"] = record_calls(lambda: e64_nhwc.render_u8(frames64), [
         (*wrappers[k], k) for k in ("scrub", "nhwc", "int8", "kchunked",
                                     "block128", "u8")])
-    calls["w64_chw"] = record_calls(e64_chw, frames64, [
+    calls["w64_chw"] = record_calls(lambda: e64_chw.render_u8(frames64), [
         (*wrappers[k], k) for k in ("scrub", "convblock", "int8", "kchunked",
                                     "u8")])
 
@@ -749,6 +956,7 @@ def main() -> int:
 
     # ---------------------------------------------------------- kernels
     all3 = ("w16_chw", "w64_nhwc", "w64_chw")
+    all4 = all3 + ("w16_tiled",)
     # K1 as each path calls it (entry "chw" / "nhwc", bf16 out), and the
     # reference's own layout (entry None) on the w16 frame; the float32
     # case is the w16 call with float32 out.  Exact: one rounding of the
@@ -757,19 +965,19 @@ def main() -> int:
     entries = [
         check_kernel("fused_scrub_standardize", kfu.fused_scrub_standardize,
                      kfu.scrub_standardize_plain,
-                     on("scrub", *all3) + [("w16_entry_none", [
+                     on("scrub", *all4) + [("w16_entry_none", [
                          (scrub_args, dict(scrub_kw, entry=None))])],
                      lambda *_: 0.0, scrub_work,
                      (scrub_args, dict(scrub_kw, out_dtype=torch.float32)), own),
         check_kernel("fused_conv_block_chw", kcb.fused_conv_block_chw,
                      kcb.conv_block_chw_plain,
-                     on("convblock", "w16_chw", "w64_chw"), conv_tol,
+                     on("convblock", "w16_chw", "w64_chw", "w16_tiled"), conv_tol,
                      conv_work, f32(first("convblock", "w16_chw", -2)), own),
         # int8 x int8 -> int32 sums are exact in any order, and the kernel
         # takes every float32 step (dequantize, bias, leaky, rounding of h,
         # the band max) as the plain version does: equal, bit for bit
         check_kernel("fused_block_int8_nhwc", kb8.fused_block_int8_nhwc,
-                     kb8.block_int8_nhwc_plain, on("int8", *all3),
+                     kb8.block_int8_nhwc_plain, on("int8", *all4),
                      lambda *_: 0.0, int8_work, f32(first("int8", "w16_chw")), own),
         check_kernel("fused_mask_to_u8", kfu.fused_mask_to_u8,
                      kfu.mask_to_u8_plain, on("u8", *all3), lambda *_: 0.0,
@@ -871,6 +1079,18 @@ def main() -> int:
         "fused_scrub_standardize": 1, "fused_conv_block_chw": 4,
         "fused_block_int8_nhwc": 1, "fused_block_int8_kchunked": 1,
         "fused_mask_to_u8": 1}, card, own))
+
+    # the user's command: EXR in, PNG out, untiled and tiled; then validate
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(dir=os.path.join(REPO, "build"))
+    try:
+        launches, engine_cli, x_cli, mask_cli = cli_infer_phase(
+            work, frame_np, stats, card)
+        runs.append(launches)
+        runs.append(cli_tiled_phase(work, engine_cli, x_cli, mask_cli, card))
+        cli_validate_phase(work, xv[0], stats)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     for e in entries:
         e["route"] = "cuda"

@@ -1,0 +1,34 @@
+"""Top-level dispatcher: ``python -m pcss_unet_tpu_torch <command> [args...]``.
+
+The commands of ``python -m pcss_unet_tpu`` that the port has so far
+(``PORTED``) run; the others exit 2 with a message that says they are not
+ported yet.
+"""
+
+import sys
+
+COMMANDS = ("organize", "prepare", "stats", "train", "infer", "serve",
+            "validate", "temporal", "check", "inspect")
+PORTED = ("infer", "validate")
+
+
+def main() -> None:
+    if len(sys.argv) < 2 or sys.argv[1] in ("-h", "--help") or \
+            sys.argv[1] not in COMMANDS:
+        print("usage: python -m pcss_unet_tpu_torch <command> [args...]")
+        print(f"commands: {', '.join(PORTED)} (not ported yet: "
+              f"{', '.join(c for c in COMMANDS if c not in PORTED)})")
+        raise SystemExit(0 if len(sys.argv) >= 2 and
+                         sys.argv[1] in ("-h", "--help") else 2)
+    if sys.argv[1] not in PORTED:
+        print(f"pcss_unet_tpu_torch: command {sys.argv[1]!r} is not ported "
+              "yet; run it with python -m pcss_unet_tpu", file=sys.stderr)
+        raise SystemExit(2)
+    import importlib
+
+    module = importlib.import_module(f"pcss_unet_tpu_torch.cli.{sys.argv[1]}")
+    module.main(sys.argv[2:])
+
+
+if __name__ == "__main__":
+    main()

@@ -20,19 +20,35 @@ switches have no counterpart: the device decides.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from pcss_unet_tpu_torch.infer.chw_engine import (chw_forward,
                                                   chw_forward_entered)
 from pcss_unet_tpu_torch.models.fold_bn import fold_batchnorm
-from pcss_unet_tpu_torch.models.torch_import import load_variables
+from pcss_unet_tpu_torch.models.torch_import import \
+    load_variables as _load_reference
 from pcss_unet_tpu_torch.models.unet import (UNet, unet_for_variables,
                                              widths_from_params)
 from pcss_unet_tpu_torch.ops.kernels.fused import (fused_mask_to_u8,
                                                    fused_scrub_standardize)
 
 __all__ = ["InferenceEngine", "load_variables", "pad_to_multiple"]
+
+
+def load_variables(path: str, ema: bool = False) -> dict:
+    """Load model variables from a reference ``.pth`` (both formats) or a
+    reference-named ``.npz`` export (infer.py:36-41).  Orbax checkpoint
+    directories need JAX to read and are refused with a ``ValueError`` that
+    names the converter.  ``ema=True`` asks for the EMA parameters, which
+    only Orbax checkpoints carry: on a ``.pth`` or ``.npz`` it raises the
+    reference's ``ValueError``."""
+    if ema and not os.path.isdir(path):
+        raise ValueError("--ema requires an Orbax checkpoint directory "
+                         "(reference .pth/.npz exports carry no EMA)")
+    return _load_reference(path)
 
 
 def pad_to_multiple(x: np.ndarray, multiple: int) -> tuple[np.ndarray, tuple]:

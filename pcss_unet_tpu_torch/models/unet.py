@@ -263,18 +263,51 @@ def widths_from_params(params) -> tuple[tuple[int, ...], int, int]:
     return widths, folded_in // 4, folded_out // 4
 
 
-def unet_for_variables(variables: dict, *, dtype: torch.dtype = torch.float32,
+def unet_for_variables(cfg_or_variables, variables: dict | None = None, *,
+                       dtype: torch.dtype = torch.float32,
                        device: str | torch.device = "cuda",
                        fused_inference: bool = False,
                        int8_inference: bool = False) -> UNet:
     """Build the UNet a variables tree describes (widths, channels, and
     ``normalization='none'`` when the tree is BN-folded), load its weights,
     and return it in eval mode on ``device``, with the given deployment
-    switches."""
+    switches.
+
+    ``unet_for_variables(cfg, variables, ...)`` is the CLIs' form, as in the
+    reference (``pcss_unet_tpu/models/unet.py::unet_for_variables``): the
+    checkpoint is the authority on the architecture, and where its widths
+    or channels disagree with the config's ``base_width``/``model_depth``
+    the model follows the checkpoint (logged).  A config whose
+    ``activation``, ``normalization`` or ``apply_dilation`` the port's UNet
+    does not carry raises ``ValueError``: those wait for ROADMAP Queue 1
+    item 9 and are never ignored."""
+    from pcss_unet_tpu_torch.config import unported_model_keys
     from pcss_unet_tpu_torch.models.torch_import import from_flax_variables
 
+    cfg = None if variables is None else cfg_or_variables
+    if variables is None:
+        variables = cfg_or_variables
     params = variables["params"]
     widths, in_ch, out_ch = widths_from_params(params)
+    if cfg is not None:
+        unported = unported_model_keys(cfg)
+        if unported:
+            raise ValueError(
+                f"config {unported}: the port's UNet carries only "
+                "activation='leaky_relu', normalization 'batch_norm' (or a "
+                "folded checkpoint) and apply_dilation=False; the other "
+                "options wait for ROADMAP Queue 1 item 9")
+        depth_widths = {
+            3: (1, 2, 4), 4: (1, 2, 8, 16), 5: (1, 2, 4, 8, 16),
+            7: (1, 1, 2, 4, 8, 8, 16)}.get(cfg.model_depth, ())
+        cfg_widths = tuple(cfg.base_width * m for m in depth_widths)
+        if (widths, in_ch, out_ch) != (cfg_widths, cfg.input_channels,
+                                       cfg.output_channels):
+            import logging
+            logging.info("checkpoint architecture widths=%s in=%d out=%d "
+                         "overrides config (base_width=%d, model_depth=%d)",
+                         widths, in_ch, out_ch, cfg.base_width,
+                         cfg.model_depth)
     normalization = ("batch_norm" if "norm_a" in params["enc_0"]
                      else "none")
     model = UNet(in_ch=in_ch, out_ch=out_ch, encoder_widths=widths,

@@ -408,3 +408,110 @@ def test_int8_quantization_at_rounding_ties(dev, gen, c_chunk):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(got5, want5)
+
+
+# ------------------------------------------- the tiled CLI's batches, the CLI
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("cin,cmid,cout,h,w", [
+    (16, 16, 16, 128, 128),     # a 256-pixel tile's enc_0 / dec_final (Wp 256)
+    (128, 128, 32, 32, 32),     # its dec_1, with the skip
+])
+def test_convblock_kernel_batch_of_tiles(dev, gen, dtype, rel, cin, cmid, cout, h, w):
+    """K2 on a batch of two tiles ≡ its plain version, and each image of the
+    batch ≡ the kernel on that image alone (the grid indexes N)."""
+    x, ws, res, w = _conv_operands(gen, dev, cin, cmid, cout, 2, h, w, dtype)
+    kw = dict(true_w=w, residual=res)
+    got = kcb.fused_conv_block_chw(x, *ws, **kw)
+    _close(got, kcb.conv_block_chw_plain(x, *ws, **kw), rel)
+    for i in range(2):
+        one = kcb.fused_conv_block_chw(x[i:i + 1], *ws, true_w=w,
+                                       residual=res[i:i + 1])
+        assert torch.equal(got[i:i + 1], one)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_int8_kernel_batch_of_tiles(dev, gen, dtype):
+    """K3 on a batch of two tiles at a 256-pixel tile's dec_0 shape (256 →
+    128 at 16×16) ≡ its plain version exactly, and each image ≡ the kernel
+    on that image alone: band scales are per image."""
+    x, ops = _int8_block_operands(gen, dev, dtype, 2, 16, 16, 256, 128)
+    k = kb8.pick_k_rows_int8(16, 16, 256, 128)
+    got = kb8.fused_block_int8_nhwc(x, *ops, k_rows=k)
+    assert torch.equal(got, kb8.block_int8_nhwc_plain(x, *ops, k_rows=k))
+    for i in range(2):
+        assert torch.equal(got[i:i + 1],
+                           kb8.fused_block_int8_nhwc(x[i:i + 1], *ops, k_rows=k))
+
+
+@pytest.mark.parametrize("with_norm", [False, True])
+def test_blend_tiles_device_on_card(dev, gen, with_norm):
+    """The tiled path's blend on the card ≡ the host's numpy accumulation
+    within 1e-6."""
+    from pcss_unet_tpu_torch.infer.tiled import _feather_weights, plan_tiles
+    from pcss_unet_tpu_torch.ops.blend import blend_tiles_device
+
+    fh, fw, tile, halo = 200, 300, 64, 8
+    offsets = np.array([(y, x) for y in plan_tiles(fh, tile, 2 * halo)
+                        for x in plan_tiles(fw, tile, 2 * halo)], np.int32)
+    tiles = gen.random((len(offsets), tile, tile, 1)).astype(np.float32)
+    w2d = np.outer(_feather_weights(tile, halo),
+                   _feather_weights(tile, halo)).astype(np.float32)[..., None]
+    acc = np.zeros((fh, fw, 1), np.float32)
+    norm = np.zeros((fh, fw, 1), np.float32)
+    for t, (y, x) in enumerate(offsets):
+        acc[y:y + tile, x:x + tile] += tiles[t] * w2d
+        norm[y:y + tile, x:x + tile] += w2d
+    got = blend_tiles_device(torch.from_numpy(tiles).to(dev),
+                             torch.from_numpy(w2d), offsets, (fh, fw),
+                             norm=torch.from_numpy(norm) if with_norm else None)
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), acc / np.maximum(norm, 1e-8),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("extra", [[], ["--tile", "128", "--halo", "16"]],
+                         ids=["untiled", "tiled"])
+def test_infer_cli_on_card_writes_the_engines_codes(dev, gen, tmp_path, extra):
+    """``infer`` on the card (its default device) writes exactly the codes
+    trunc(255 · mask) of the engine built the same way, untiled and tiled,
+    and launches K1, K2 ×6 and K3 once each and K4 never."""
+    import json
+    import os
+
+    from pcss_unet_tpu_torch.cli import infer as cli_infer
+    from pcss_unet_tpu_torch.infer import (InferenceEngine, infer_tiled,
+                                           load_variables)
+    from pcss_unet_tpu_torch.io.exr import write_exr
+    from pcss_unet_tpu_torch.io.png import decode_png_l
+    from pcss_unet_tpu_torch.ops.kernels import KERNELS, reset_launch_counts
+
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+    with open(os.path.join(golden, "deploy_w16.json")) as f:
+        meta = json.load(f)
+    np.save(tmp_path / "train_stats.npy",
+            {"means": meta["means"], "stds": meta["stds"]}, allow_pickle=True)
+    frame = gen.random((256, 384, 4)).astype(np.float32)
+    write_exr(str(tmp_path / "f.exr"), {c: frame[..., i] for i, c in enumerate("RGBA")})
+    weights = os.path.join(golden, "deploy_w16.npz")
+    reset_launch_counts()
+    cli_infer.main(["--input", str(tmp_path / "f.exr"), "--output",
+                    str(tmp_path / "m.png"), "--weights", weights,
+                    "--stats_dir", str(tmp_path), "--fold_bn", "--quantize",
+                    "int8", "--layout", "chw", *extra])
+    launches = {k.__name__: k.launches for k in KERNELS}
+    assert launches == {**{k.__name__: 0 for k in KERNELS},
+                        "fused_scrub_standardize": 1, "fused_conv_block_chw": 6,
+                        "fused_block_int8_nhwc": 1}
+    engine = InferenceEngine(None, load_variables(weights), fold_bn=True,
+                             quantize="int8", layout="chw", dtype=torch.bfloat16,
+                             means=np.asarray(meta["means"], np.float32),
+                             stds=np.asarray(meta["stds"], np.float32))
+    mask = (infer_tiled(engine, frame, tile=128, halo=16) if extra
+            else engine(frame))
+    want = (np.clip(mask[..., 0], 0.0, 1.0) * 255.0).astype(np.uint8)
+    with open(tmp_path / "m.png", "rb") as f:
+        got = decode_png_l(f.read())
+    assert np.array_equal(got, want)
