@@ -84,9 +84,31 @@ one JSON line:
 10. ``cli_validate``: ``cli.validate.main`` on the first deploy_w16
     validation frame as an EXR, float32 ``--fold_bn`` (must be EXACT or
     PASS) and ``--fold_bn --quantize int8 --bf16``, with the state of TF32.
+11. ``serve``: the streaming server (``infer/server.py``) on the w64 NHWC
+    fused+int8 engine of phase 6: 8 renderer-plausible 1920×1080 frames
+    per codec (``scripts/bench_serve.py``'s content, written by the port's
+    ``write_exr``) served as 32 files, DWAA and PIZ, at (batch, decode
+    workers) = (1, 4) and (4, 8), one line per run with the JAX bench's
+    fields (fps, p50/p99 ms, decode / dispatch / sync / wall s, the
+    decode-only and compute-side fps ceilings) and the launches per batch
+    (K1 ×1, K2′ ×3, K3 ×1, K5 ×1, K6 ×1, K4 ×1, checked); every served mask
+    must equal ``render_u8`` of the same padded batch, code for code (the
+    difference from the same frame at N = 1 is printed, not gated).  The
+    kernel phase holds the same engine's batch of 4 frames (path
+    ``w64_serve_b4``): K1, K3, K4, K5 exact, K2′ and K6 within 2e-2.
+12. ``serve_cli``: ``python -m pcss_unet_tpu_torch serve`` in process on the
+    8 DWAA frames (``--quantize int8 --batch 4``, the w64 weights as an
+    ``.npz``): every PNG's codes equal ``render_u8``'s; fps and the PNG
+    write's share of the wall time.
+13. ``export``: the w64 engine's plain graph through ``torch.export`` at
+    1088×1920 on the card, loaded from bytes: float32 (TF32 off) within
+    1e-6 of ``run_padded(x, plain=True)``; the bf16 export against the
+    kernel path (max |d| and ms per frame of each); blob size, torch
+    version.
 
 Then the ``{"kernels": [...]}`` line (``launches``: the sum over the three
-main-path runs and the two counted CLI runs; ``ms``, ``plain_ms`` and ``bound_ms``: per frame of the
+main-path runs, the two counted CLI runs, the four server runs and the
+serve CLI's run; ``ms``, ``plain_ms`` and ``bound_ms``: per frame of the
 kernel's headline path; ``max_abs_err``: over every path), the card's name and power limit as ``nvidia-smi`` prints
 them, and the result line.  Any failure raises and exits non-zero; with no
 CUDA device the script exits 2 and prints nothing.
@@ -120,6 +142,9 @@ W64_H, W64_W = 1080, 1920       # padded to 1088 rows by the engine's ×16
 W64_FRAMES = 5
 TILE, HALO = 512, 32           # the tiled CLI's --tile / --halo: 3 x 5 tiles
 CLI_RUNS = 5                   # timed CLI runs after one warm run
+SERVE_FRAMES, SERVE_FILES = 8, 32   # distinct frames per codec, files served
+SERVE_RUNS = ((1, 4), (4, 8))       # (batch, decode workers), as the JAX bench
+SERVE_BATCH = 4                     # the kernel phase's w64_serve_b4 batch
 WEIGHTS = os.path.join(REPO, "tests", "golden", "deploy_w16.npz")
 NO_LIBRARY = ("no single PyTorch call computes this function (a whole "
               "block, or an int8 conv with per-band dynamic scales)")
@@ -829,6 +854,219 @@ def cli_validate_phase(work, frame, stats):
             raise AssertionError(f"cli_validate float32: {line}")
 
 
+# per batch of the w64 NHWC fused+int8 forward (K2′ launches K2 once each)
+W64_NHWC_WANT = {"fused_scrub_standardize": 1, "fused_conv_block_nhwc": 3,
+                 "fused_conv_block_chw": 3, "fused_block_int8_nhwc": 1,
+                 "fused_block_int8_kchunked": 1, "fused_block128_nhwc": 1,
+                 "fused_mask_to_u8": 1}
+
+
+def serve_files(root: str, codec: str):
+    """``SERVE_FRAMES`` renderer-plausible 1920×1080 frames (the content of
+    ``scripts/bench_serve.py::make_frames``: smooth G-buffer fields, which
+    compress as renders do) written as ``codec`` EXRs by the port's
+    ``write_exr``, and ``SERVE_FILES`` files to serve, file j a link to
+    frame j mod 8.  → (the source paths, the served paths, each source frame
+    as it decodes)."""
+    from pcss_unet_tpu_torch.io.exr import read_exr_stack, write_exr
+
+    src, served = os.path.join(root, codec, "src"), os.path.join(root, codec, "serve")
+    os.makedirs(src)
+    os.makedirs(served)
+    h, w = W64_H, W64_W
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    sources = []
+    for i in range(SERVE_FRAMES):
+        base = np.sin(xx / (40 + i) + i) * np.cos(yy / (60 + i))
+        chans = {
+            "R": (base + 0.05 * rng.standard_normal((h, w))).astype(np.float32),
+            "G": (base * 0.5 + 0.3).astype(np.float32),
+            "B": (xx / w + 0.02 * rng.standard_normal((h, w))).astype(np.float32),
+            "A": np.ones((h, w), np.float32),
+        }
+        sources.append(os.path.join(src, f"f{i:04d}.exr"))
+        write_exr(sources[-1], chans, compression=codec)
+    paths = []
+    for j in range(SERVE_FILES):
+        paths.append(os.path.join(served, f"f{j:04d}.exr"))
+        os.link(sources[j % SERVE_FRAMES], paths[-1])
+    return sources, paths, [read_exr_stack(p) for p in sources]
+
+
+def batch_codes(engine, frames):
+    """``render_u8`` of the padded batch, cropped: uint8 [N, H, W, 1]."""
+    from pcss_unet_tpu_torch.infer import pad_to_multiple
+
+    padded, (h, w) = pad_to_multiple(np.stack(frames), engine.pad_multiple)
+    return engine.render_u8(padded).cpu().numpy()[:, :h, :w]
+
+
+def serve_phase(engine, root, card):
+    """The streaming server on the w64 NHWC fused+int8 engine (bf16):
+    DWAA and PIZ files at (batch, decode workers) = (1, 4) and (4, 8), each
+    run after a warm forward of its batch shape, with the launch counters
+    zeroed just before and read just after (``W64_NHWC_WANT`` per batch).
+    One line per run with ``scripts/bench_serve.py``'s fields.  Every served
+    mask must equal ``render_u8`` of the same padded batch (the sink sees
+    the batches in order), code for code; against the same frame at N = 1
+    the difference is printed, not gated (the int8 postures are not
+    continuous).  → (the launch counts of every run, the DWAA sources and
+    their decoded frames)."""
+    import torch
+
+    from pcss_unet_tpu_torch.infer import ShadowServer
+    from pcss_unet_tpu_torch.io.exr import read_exr_stack
+    from pcss_unet_tpu_torch.ops.kernels import reset_launch_counts
+
+    runs, kept = [], {}
+    for codec in ("DWAA", "PIZ"):
+        t0 = time.perf_counter()
+        sources, paths, decoded = serve_files(root, codec)
+        write_s = time.perf_counter() - t0
+        kept[codec] = (sources, decoded)
+        frame_of = {p: j % SERVE_FRAMES for j, p in enumerate(paths)}
+        at_n1 = {}
+        for batch, workers in SERVE_RUNS:
+            batch_codes(engine, decoded[:1] * batch)          # warm
+            torch.cuda.synchronize()
+            got, order = {}, []
+
+            def sink(p, m):
+                got[p] = m
+                order.append(p)
+            server = ShadowServer(engine, batch_size=batch, decode_workers=workers)
+            reset_launch_counts()
+            stats = server.run(paths, sink)
+            launches = launch_counts()
+            n_batches = -(-len(paths) // batch)
+            t0 = time.perf_counter()
+            for p in paths[:16]:
+                read_exr_stack(p)
+            decode_fps = 16 / (time.perf_counter() - t0) * workers
+            compute_fps = stats.frames / max(stats.compute_seconds
+                                             + stats.sync_seconds, 1e-9)
+            differing, n1_diff, n1_pixels = 0, 0, 0
+            for b in range(0, len(order), batch):
+                group = order[b:b + batch]
+                want = batch_codes(engine, [decoded[frame_of[p]] for p in group])
+                for k, p in enumerate(group):
+                    differing += int((got[p] != want[k]).sum())
+                    if batch == 1:
+                        at_n1[frame_of[p]] = got[p]
+                    else:
+                        d = np.abs(got[p].astype(int) - at_n1[frame_of[p]].astype(int))
+                        n1_diff, n1_pixels = max(n1_diff, int(d.max())), n1_pixels + int((d > 0).sum())
+            line = {"phase": "serve", "metric": "serve_e2e_fps", "value": stats.fps,
+                    "unit": "frames/sec", "frame": f"{W64_W}x{W64_H}",
+                    "compression": codec, "batch": batch, "decode_workers": workers,
+                    "frames": stats.frames, "distinct_frames": SERVE_FRAMES,
+                    "p50_ms": stats.p50_ms, "p99_ms": stats.p99_ms,
+                    "decode_s": stats.decode_seconds, "dispatch_s": stats.compute_seconds,
+                    "sync_s": stats.sync_seconds, "wall_s": stats.wall_seconds,
+                    "decode_only_fps_ceiling": decode_fps, "compute_side_fps": compute_fps,
+                    "pipeline_efficiency_vs_ceiling": stats.fps / min(decode_fps, compute_fps),
+                    "launches_per_batch": {k: v / n_batches for k, v in launches.items() if v},
+                    "codes_differing_from_render_u8": differing,
+                    "exr_write_s": write_s, "card": card}
+            if batch > 1:
+                line.update(max_code_diff_vs_n1=n1_diff, pixels_differing_vs_n1=n1_pixels)
+            emit(line)
+            bad = {k: v for k, v in launches.items()
+                   if v != W64_NHWC_WANT.get(k, 0) * n_batches}
+            if stats.frames != SERVE_FILES or differing or bad or len(got) != SERVE_FILES:
+                raise AssertionError(f"serve {codec} batch {batch}: frames "
+                                     f"{stats.frames}, codes differing {differing}, "
+                                     f"launches {launches}")
+            runs.append(launches)
+    return runs, kept["DWAA"]
+
+
+def serve_cli_phase(root, engine, variables, stats, sources, decoded, card):
+    """``python -m pcss_unet_tpu_torch serve`` in process (the dispatcher,
+    ``sys.argv`` patched) on the 8 DWAA frames, with ``--quantize int8
+    --batch 4 --decode_workers 1`` (one worker: the batches are the sorted
+    files in fours) and the w64 seeded weights saved as a reference-named
+    ``.npz``.  Launch counters zeroed just before and read just after (two
+    batches).  Every PNG's codes must equal ``render_u8`` of the same batch
+    of the engine the phase ``serve`` ran.  → the launch counts."""
+    import pcss_unet_tpu_torch.__main__ as pmain
+    from pcss_unet_tpu_torch.models.torch_import import export_to_torch_state_dict
+    from pcss_unet_tpu_torch.ops.kernels import reset_launch_counts
+
+    os.makedirs(root)
+    weights, out = os.path.join(root, "w64.npz"), os.path.join(root, "masks")
+    np.savez(weights, **export_to_torch_state_dict(variables))
+    np.save(os.path.join(root, "train_stats.npy"),
+            {"means": stats["means"].tolist(), "stds": stats["stds"].tolist()},
+            allow_pickle=True)
+    argv = ["pcss_unet_tpu_torch", "serve", "--frames_dir", os.path.dirname(sources[0]),
+            "--out_dir", out, "--weights", weights, "--stats_dir", root,
+            "--quantize", "int8", "--batch", "4", "--decode_workers", "1"]
+    saved, sys.argv = sys.argv, argv
+    try:
+        reset_launch_counts()
+        res = pmain.main()
+        launches = launch_counts()
+    finally:
+        sys.argv = saved
+    st = res["stats"]
+    differing = 0
+    for b in range(0, len(sources), 4):
+        want = batch_codes(engine, decoded[b:b + 4])
+        for k, src in enumerate(sources[b:b + 4]):
+            name = os.path.splitext(os.path.basename(src))[0] + ".png"
+            differing += int((read_png(os.path.join(out, name)) != want[k][..., 0]).sum())
+    line = {"phase": "serve_cli", "frames": st.frames, "fps": st.fps,
+            "wall_s": st.wall_seconds, "png_write_s": res["write_seconds"],
+            "png_write_share_of_wall": res["write_seconds"] / st.wall_seconds,
+            "p50_ms": st.p50_ms, "p99_ms": st.p99_ms, "launches": launches,
+            "png_codes_differing_from_render_u8": differing, "card": card}
+    emit(line)
+    bad = {k: v for k, v in launches.items() if v != W64_NHWC_WANT.get(k, 0) * 2}
+    if st.frames != len(sources) or differing or bad:
+        raise AssertionError(f"serve_cli: {line}")
+    return launches
+
+
+def export_phase(variables, kw, frames, engine_bf16, card):
+    """The w64 serving engine's plain graph exported by ``torch.export`` at
+    1088×1920, batch 1, on the card, and loaded from bytes: in float32 with
+    TF32 off within 1e-6 of ``run_padded(x, plain=True)`` (the JAX suite's
+    tolerance); the bf16 export against the kernel path (the same engine's
+    ``run_padded``), reported with both ms per frame (CUDA events)."""
+    import torch
+
+    from pcss_unet_tpu_torch.infer import (InferenceEngine, export_inference,
+                                           load_exported)
+
+    h, w = frames.shape[1:3]
+    with torch.inference_mode(False), no_tf32():
+        e32 = InferenceEngine(None, variables, layout="nhwc",
+                              **dict(kw, dtype=torch.float32))
+        t0 = time.perf_counter()
+        blob32 = export_inference(e32, h, w, batch=1)
+        export_s = time.perf_counter() - t0
+        fn32 = load_exported(blob32)
+        d32 = (fn32(frames) - e32.run_padded(frames, plain=True)).abs().max().item()
+        del e32, fn32
+        blob16 = export_inference(engine_bf16, h, w, batch=1)
+        fn16 = load_exported(blob16)
+        kernel_path = engine_bf16.run_padded(frames)
+        d16 = (fn16(frames) - kernel_path).abs().max().item()
+        ms16 = cuda_ms(lambda: fn16(frames), iters=10)
+        ms_kernels = cuda_ms(lambda: engine_bf16.run_padded(frames), iters=10)
+    line = {"phase": "export", "frame_hw": [h, w], "torch": torch.__version__,
+            "blob_bytes_f32": len(blob32), "blob_bytes_bf16": len(blob16),
+            "export_s_f32": export_s, "max_abs_err_f32_vs_plain": d32, "tol_f32": 1e-6,
+            "max_abs_err_bf16_vs_kernel_path": d16,
+            "ms_per_frame_bf16_export": ms16, "ms_per_frame_bf16_kernel_path": ms_kernels,
+            "card": card}
+    emit(line)
+    if not d32 <= 1e-6:
+        raise AssertionError(f"export float32: {line}")
+
+
 def main() -> int:
     import torch
 
@@ -941,6 +1179,15 @@ def main() -> int:
     calls["w64_chw"] = record_calls(lambda: e64_chw.render_u8(frames64), [
         (*wrappers[k], k) for k in ("scrub", "convblock", "int8", "kchunked",
                                     "u8")])
+    # the serving path's batch: 4 distinct 1080p frames through the same
+    # NHWC engine, so K1, K2′, K3, K5, K6 and K4 are held at N = 4
+    f64_b4, _ = pad_to_multiple(rng.random((SERVE_BATCH, W64_H, W64_W, 4), np.float32),
+                                e64_nhwc.pad_multiple)
+    calls["w64_serve_b4"] = record_calls(
+        lambda: e64_nhwc.render_u8(torch.from_numpy(f64_b4).cuda()), [
+            (*wrappers[k], k) for k in ("scrub", "nhwc", "int8", "kchunked",
+                                        "block128", "u8")])
+    del f64_b4
 
     def on(key, *paths):
         """The recorded calls of wrapper ``key`` on each path, headline
@@ -957,6 +1204,7 @@ def main() -> int:
     # ---------------------------------------------------------- kernels
     all3 = ("w16_chw", "w64_nhwc", "w64_chw")
     all4 = all3 + ("w16_tiled",)
+    b4 = "w64_serve_b4"
     # K1 as each path calls it (entry "chw" / "nhwc", bf16 out), and the
     # reference's own layout (entry None) on the w16 frame; the float32
     # case is the w16 call with float32 out.  Exact: one rounding of the
@@ -965,7 +1213,7 @@ def main() -> int:
     entries = [
         check_kernel("fused_scrub_standardize", kfu.fused_scrub_standardize,
                      kfu.scrub_standardize_plain,
-                     on("scrub", *all4) + [("w16_entry_none", [
+                     on("scrub", *all4, b4) + [("w16_entry_none", [
                          (scrub_args, dict(scrub_kw, entry=None))])],
                      lambda *_: 0.0, scrub_work,
                      (scrub_args, dict(scrub_kw, out_dtype=torch.float32)), own),
@@ -977,18 +1225,18 @@ def main() -> int:
         # takes every float32 step (dequantize, bias, leaky, rounding of h,
         # the band max) as the plain version does: equal, bit for bit
         check_kernel("fused_block_int8_nhwc", kb8.fused_block_int8_nhwc,
-                     kb8.block_int8_nhwc_plain, on("int8", *all4),
+                     kb8.block_int8_nhwc_plain, on("int8", *all4, b4),
                      lambda *_: 0.0, int8_work, f32(first("int8", "w16_chw")), own),
         check_kernel("fused_mask_to_u8", kfu.fused_mask_to_u8,
-                     kfu.mask_to_u8_plain, on("u8", *all3), lambda *_: 0.0,
+                     kfu.mask_to_u8_plain, on("u8", *all3, b4), lambda *_: 0.0,
                      u8_work, first("u8", "w16_chw"), own),
         # K5: exact as K3, the float32 chunk sums in the same order on both sides
         check_kernel("fused_block_int8_kchunked", kb8.fused_block_int8_kchunked,
                      kb8.block_int8_kchunked_plain,
-                     on("kchunked", "w64_nhwc", "w64_chw"), lambda *_: 0.0,
+                     on("kchunked", "w64_nhwc", "w64_chw", b4), lambda *_: 0.0,
                      int8_work, f32(first("kchunked", "w64_nhwc")), own),
         check_kernel("fused_block128_nhwc", kc128.fused_block128_nhwc,
-                     kc128.block128_nhwc_plain, on("block128", "w64_nhwc"),
+                     kc128.block128_nhwc_plain, on("block128", "w64_nhwc", b4),
                      conv_tol, block128_work, f32(first("block128", "w64_nhwc")), own),
     ]
     xk7 = torch.randn((1, 272, 480, 512), generator=gen, device="cuda").bfloat16()
@@ -1007,7 +1255,7 @@ def main() -> int:
                      conv3x3_int8_work,
                      (f32(k7_call)[0], dict(k7_call[1], out_dtype=torch.float32)), own),
         check_kernel("fused_conv_block_nhwc", kcb.fused_conv_block_nhwc,
-                     kcb.conv_block_nhwc_plain, on("nhwc", "w64_nhwc"), conv_tol,
+                     kcb.conv_block_nhwc_plain, on("nhwc", "w64_nhwc", b4), conv_tol,
                      conv_nhwc_work, f32(first("nhwc", "w64_nhwc", 1)), own),
     ]
     block128_storage(kc128, _build, first("block128", "w64_nhwc"))
@@ -1070,11 +1318,8 @@ def main() -> int:
         "fused_scrub_standardize": 1, "fused_conv_block_chw": 6,
         "fused_block_int8_nhwc": 1, "fused_mask_to_u8": 1}, card, own)]
     golden_phase("golden_nhwc", variables, meta, xv, yv, "nhwc")
-    runs.append(main_path("main_path_w64_nhwc", e64_nhwc, frames64, W64_FRAMES, {
-        "fused_scrub_standardize": 1, "fused_conv_block_nhwc": 3,
-        "fused_conv_block_chw": 3, "fused_block_int8_nhwc": 1,
-        "fused_block_int8_kchunked": 1, "fused_block128_nhwc": 1,
-        "fused_mask_to_u8": 1}, card, own))
+    runs.append(main_path("main_path_w64_nhwc", e64_nhwc, frames64, W64_FRAMES,
+                          W64_NHWC_WANT, card, own))
     runs.append(main_path("main_path_w64_chw", e64_chw, frames64, W64_FRAMES, {
         "fused_scrub_standardize": 1, "fused_conv_block_chw": 4,
         "fused_block_int8_nhwc": 1, "fused_block_int8_kchunked": 1,
@@ -1089,6 +1334,12 @@ def main() -> int:
         runs.append(launches)
         runs.append(cli_tiled_phase(work, engine_cli, x_cli, mask_cli, card))
         cli_validate_phase(work, xv[0], stats)
+        # serving: the streaming server, its CLI, the export of the plain graph
+        serve_runs, (dwaa_sources, dwaa_frames) = serve_phase(e64_nhwc, work, card)
+        runs += serve_runs
+        runs.append(serve_cli_phase(os.path.join(work, "serve_cli"), e64_nhwc, v64,
+                                    stats, dwaa_sources, dwaa_frames, card))
+        export_phase(v64, kw, frames64, e64_nhwc, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

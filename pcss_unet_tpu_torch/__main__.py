@@ -9,10 +9,11 @@ import sys
 
 COMMANDS = ("organize", "prepare", "stats", "train", "infer", "serve",
             "validate", "temporal", "check", "inspect")
-PORTED = ("infer", "validate")
+PORTED = ("infer", "serve", "validate")
 
 
-def main() -> None:
+def main():
+    """Run the command; returns what its ``main`` returns."""
     if len(sys.argv) < 2 or sys.argv[1] in ("-h", "--help") or \
             sys.argv[1] not in COMMANDS:
         print("usage: python -m pcss_unet_tpu_torch <command> [args...]")
@@ -27,7 +28,7 @@ def main() -> None:
     import importlib
 
     module = importlib.import_module(f"pcss_unet_tpu_torch.cli.{sys.argv[1]}")
-    module.main(sys.argv[2:])
+    return module.main(sys.argv[2:])
 
 
 if __name__ == "__main__":

@@ -5,11 +5,6 @@ section (reference: config.ini:1-38, read via configparser at main.py:875-885)
 plus the framework's own knobs.  An INI file with the reference's exact
 schema loads unchanged; CLI flags override INI values, matching the
 reference's argparse-over-configparser precedence (main.py:870-881).
-
-The port's ``UNet`` does not carry every model option yet:
-``unported_model_keys`` names the keys of a config whose values it cannot
-honour (``PORTED_MODEL_VALUES``), so that a caller refuses them instead of
-ignoring them.
 """
 
 from __future__ import annotations
@@ -218,16 +213,3 @@ def save_config(cfg: Config, path: str, extra: dict | None = None) -> None:
     with open(path, "w") as f:
         json.dump(payload, f, indent=2)
 
-
-# Model keys whose values the port's UNet carries; any other value of these
-# keys waits for ROADMAP Queue 1 item 9 (the rest of the model).
-# ``normalization`` 'none' is a folded checkpoint; the checkpoint decides.
-PORTED_MODEL_VALUES = {"activation": ("leaky_relu",),
-                       "normalization": ("batch_norm", "none"),
-                       "apply_dilation": (False,)}
-
-
-def unported_model_keys(cfg: Config) -> dict[str, Any]:
-    """{key: value} of the config's model options the port cannot honour."""
-    return {k: getattr(cfg, k) for k, ok in PORTED_MODEL_VALUES.items()
-            if getattr(cfg, k) not in ok}

@@ -37,14 +37,15 @@ from pcss_unet_tpu_torch.ops.kernels.convblock import fused_conv_block_chw
 from pcss_unet_tpu_torch.ops.kernels.deploy import block_kernel_nhwc
 from pcss_unet_tpu_torch.ops.pixelshuffle import padded_width as _wp
 from pcss_unet_tpu_torch.ops.pixelshuffle import pixel_unshuffle_chw_padded
-from pcss_unet_tpu_torch.ops.resize import (apply_matrix,
-                                            compose_resize_matrices,
-                                            interp_matrix)
+from pcss_unet_tpu_torch.ops.resize import (apply_matrix, matrix_on,
+                                            resize_chain)
 
 
-def _pad_matrix(m: np.ndarray, rows: int, cols: int) -> np.ndarray:
-    """Embed [out,in] into [rows,cols]: zero rows → zero pad outputs, zero
-    cols → pad-column values in the input cannot leak in."""
+def _padded_chain(sizes: tuple[int, ...], rows: int, cols: int) -> np.ndarray:
+    """``resize_chain(sizes)`` [out,in] embedded into [rows,cols]: zero rows
+    → zero pad outputs, zero cols → pad-column values in the input cannot
+    leak in."""
+    m = resize_chain(sizes)
     out = np.zeros((rows, cols), np.float32)
     out[:m.shape[0], :m.shape[1]] = m
     return out
@@ -78,14 +79,19 @@ def _pool2x_chw(x: torch.Tensor, w: int) -> torch.Tensor:
     return F.pad(x, (0, _wp(w // 2) - wp // 2))
 
 
-def _resize_chw(x, m_h: np.ndarray, m_w_padded: np.ndarray) -> torch.Tensor:
-    return apply_matrix(apply_matrix(x, m_h, 2), m_w_padded, 3)
+def _resize_chw(x, sizes_h: tuple[int, ...], sizes_w: tuple[int, ...],
+                rows: int) -> torch.Tensor:
+    """The chains of align-corners resizes ``sizes_h`` on H and ``sizes_w``
+    on the true columns of W, written into ``rows`` padded columns."""
+    dev = x.device
+    x = apply_matrix(x, matrix_on(dev, resize_chain, sizes_h), 2)
+    return apply_matrix(x, matrix_on(dev, _padded_chain, sizes_w, rows,
+                                     x.shape[3]), 3)
 
 
 def _upsample2x_chw(x: torch.Tensor, w: int) -> torch.Tensor:
-    _, _, h, wp = x.shape
-    m_w = _pad_matrix(interp_matrix(w, w * 2), _wp(w * 2), wp)
-    return _resize_chw(x, interp_matrix(h, h * 2), m_w)
+    h = x.shape[2]
+    return _resize_chw(x, (h, h * 2), (w, w * 2), _wp(w * 2))
 
 
 def _block_chw_plain(x, p, *, dtype, residual=None):
@@ -246,9 +252,7 @@ def chw_forward_entered(variables: dict, x: torch.Tensor, w: int, *,
     # head: composed up-2×-then-match-down align-corners pair, one matrix
     # per axis (exact fold of the reference's resize chain)
     hh, wp = x.shape[2], x.shape[3]
-    m_h, m_w = compose_resize_matrices((hh, hh * 2, hh),
-                                       (cur_w, cur_w * 2, cur_w))
-    x = _resize_chw(x, m_h, _pad_matrix(m_w, wp, wp))
+    x = _resize_chw(x, (hh, hh * 2, hh), (cur_w, cur_w * 2, cur_w), wp)
     x = any_block(x, "dec_final", cur_w)
     hk = _param(params["head"]["kernel"], x.device)[0, 0].to(dtype).float()
     x = torch.einsum("co,nchw->nohw", hk, x.float())

@@ -16,6 +16,14 @@ gates pick.  The engine runs on the card (``device="cuda"``, the default)
 or, with ``device="cpu"``, on the plain versions of the kernels, with the
 same routing.  The reference's ``use_pallas`` and ``pallas_interpret``
 switches have no counterpart: the device decides.
+
+``plain_model`` is the reference's plain graph: the (BN-folded) NHWC module
+without the deployment switches, whatever the layout; ``run_padded(...,
+plain=True)`` runs it after the plain scrub and standardization, so it
+reaches no kernel (``infer.export`` traces it).  On the card, nothing in
+the forward reads the device from the host, and ``render_u8`` (the serving
+path) sends host frames up through pinned buffers, so it returns as soon as
+its work is queued.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 
 from pcss_unet_tpu_torch.infer.chw_engine import (chw_forward,
                                                   chw_forward_entered)
+from pcss_unet_tpu_torch.infer.staging import PinnedRing
 from pcss_unet_tpu_torch.models.fold_bn import fold_batchnorm
 from pcss_unet_tpu_torch.models.torch_import import \
     load_variables as _load_reference
@@ -35,7 +44,8 @@ from pcss_unet_tpu_torch.models.unet import (UNet, unet_for_variables,
 from pcss_unet_tpu_torch.ops.kernels.fused import (fused_mask_to_u8,
                                                    fused_scrub_standardize)
 
-__all__ = ["InferenceEngine", "load_variables", "pad_to_multiple"]
+__all__ = ["InferenceEngine", "load_variables", "pad_to_multiple",
+           "preprocess_plain"]
 
 
 def load_variables(path: str, ema: bool = False) -> dict:
@@ -64,6 +74,17 @@ def pad_to_multiple(x: np.ndarray, multiple: int) -> tuple[np.ndarray, tuple]:
     return x, (h, w)
 
 
+def preprocess_plain(x: torch.Tensor, means: torch.Tensor | None,
+                     stds: torch.Tensor | None) -> torch.Tensor:
+    """The reference's plain scrub and standardization in float32:
+    ``nan_to_num`` (NaN→0, +Inf→1, −Inf→0), then ``(x − means) / (stds +
+    1e-8)`` where stats are given."""
+    x = torch.nan_to_num(x.float(), nan=0.0, posinf=1.0, neginf=0.0)
+    if means is not None:
+        x = (x - means) / (stds + 1e-8)
+    return x
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -77,9 +98,12 @@ class InferenceEngine:
 
     ``engine(frames)`` with frames [B, H, W, 4] float32 (numpy) → masks
     [B, H, W, 1] float32 in [0, 1].  ``model`` is the port's ``UNet`` or
-    None (architecture read from the variables); its ``normalization``
-    says whether ``variables`` (JAX layout, HWIO kernels) are already
-    BN-folded."""
+    None (architecture read from the variables, LeakyReLU without
+    dilation); its ``normalization`` says whether ``variables`` (JAX
+    layout, HWIO kernels) are already BN-folded, and the engine's forward
+    takes its ``activation``, ``normalization`` and ``apply_dilation``.
+    The channels-major layout computes LeakyReLU blocks without dilation
+    only and refuses other models."""
 
     def __init__(self, model: UNet | None, variables: dict, *, means=None,
                  stds=None, dtype: torch.dtype = torch.bfloat16,
@@ -98,9 +122,15 @@ class InferenceEngine:
         normalization = (model.normalization if model is not None else
                          "batch_norm" if "norm_a" in variables["params"]["enc_0"]
                          else "none")
+        opts = dict(activation=getattr(model, "activation", "leaky_relu"),
+                    apply_dilation=getattr(model, "apply_dilation", False))
         if layout == "chw" and not (fold_bn or normalization == "none"):
             raise ValueError("layout='chw' requires fold_bn=True or an "
                              "already-folded (normalization='none') model")
+        if layout == "chw" and opts != dict(activation="leaky_relu",
+                                            apply_dilation=False):
+            raise ValueError(f"layout='chw' computes LeakyReLU blocks without "
+                             f"dilation only; this model has {opts}")
         if fold_bn and normalization != "batch_norm":
             raise ValueError("fold_bn requires a batch_norm model")
         if quantize == "int8" and not fold_bn and layout != "chw":
@@ -112,35 +142,75 @@ class InferenceEngine:
                                "unless device='cpu' is passed")
         if fold_bn:
             variables = fold_batchnorm(variables)
+            normalization = "none"
         self.layout = layout
         self.taps = taps
         self.quantize = quantize
         self._chw_kw = dict(dtype=dtype, int8=quantize == "int8", taps=taps)
         self._dtype = dtype
+        self._staging = PinnedRing()
         self.variables = {"params": _tree_to(variables["params"], self.device)}
         self.means = (None if means is None else
                       torch.as_tensor(np.asarray(means, np.float32), device=self.device))
         self.stds = (None if stds is None else
                      torch.as_tensor(np.asarray(stds, np.float32), device=self.device))
+        plain_kw = dict(dtype=dtype, device=self.device,
+                        normalization=normalization, **opts)
+        self.plain_model = unet_for_variables(variables, **plain_kw)
         if layout == "chw":
             # chw_forward needs H, W divisible by 2^depth
             pad_multiple = max(pad_multiple, 2 ** len(widths))
             self.model = None
-        else:
+        elif fold_bn:
             self.model = unet_for_variables(
-                variables, dtype=dtype, device=self.device,
-                fused_inference=fold_bn,
-                int8_inference=fold_bn and quantize == "int8")
+                variables, fused_inference=True,
+                int8_inference=quantize == "int8", **plain_kw)
+        else:
+            self.model = self.plain_model
         self.pad_multiple = pad_multiple
 
-    def _forward(self, frames) -> torch.Tensor:
+    def _upload(self, frames, staged: bool = False) -> torch.Tensor:
+        """Frames (numpy or a tensor) on the engine's device.  ``staged``
+        (the serving path): host frames go to a card through a pinned
+        buffer and a copy that does not wait, since a copy from pageable
+        memory waits for all the work queued before it.  Otherwise a plain
+        copy: the caller reads the result at once, and pinning a buffer of
+        a new shape costs more than the wait."""
+        if torch.is_tensor(frames) and frames.device.type != "cpu":
+            return frames.to(self.device)
+        host = torch.as_tensor(frames)
+        if not staged or self.device.type != "cuda":
+            return host.to(self.device)
+        slot = self._staging.take(host.shape, host.dtype)
+        slot.buf.copy_(host)
+        x = slot.buf.to(self.device, non_blocking=True)
+        slot.fence()
+        self._staging.release(slot)
+        return x
+
+    def _preprocess(self, x: torch.Tensor, fused: bool) -> torch.Tensor:
+        """Input scrub + standardization in float32, [N, H, W, C]
+        (inference.py:171-173): K1 where ``fused`` and stats are given,
+        else the reference's plain graph, ``nan_to_num`` then
+        ``(x − means) / (stds + 1e-8)``, which reaches no kernel."""
+        if fused and self.means is not None:
+            return fused_scrub_standardize(x.float(), self.means, self.stds,
+                                           out_dtype=torch.float32)
+        return preprocess_plain(x, self.means, self.stds)
+
+    def _forward(self, frames, plain: bool = False,
+                 staged: bool = False) -> torch.Tensor:
         """Frames → the forward's float32 sigmoid mask, not yet scrubbed or
-        clipped.  With stats, one K1 pass scrubs and standardizes the frame
-        and writes it in the working dtype and the posture's entry layout,
-        the forward's first input; without, the frame is scrubbed and the
-        forward starts from it (as it does for an odd-size NHWC frame, which
-        the model resizes first)."""
-        x = torch.as_tensor(frames, device=self.device).float()
+        clipped.  ``plain``: the plain graph (``plain_model`` after the
+        plain preprocessing), which reaches no kernel.  Otherwise, with
+        stats, one K1 pass scrubs and standardizes the frame and writes it
+        in the working dtype and the posture's entry layout, the forward's
+        first input; without, the frame is scrubbed and the forward starts
+        from it (as it does for an odd-size NHWC frame, which the model
+        resizes first).  ``staged``: upload as ``_upload`` says."""
+        x = self._upload(frames, staged).float()
+        if plain:
+            return self.plain_model(self._preprocess(x, fused=False))
         _, h, w, _ = x.shape
         if self.means is not None and not (h % 2 or w % 2):
             xe = fused_scrub_standardize(x, self.means, self.stds,
@@ -148,11 +218,7 @@ class InferenceEngine:
             if self.layout == "chw":
                 return chw_forward_entered(self.variables, xe, w, **self._chw_kw)
             return self.model.forward_entered(xe)
-        if self.means is not None:
-            x = fused_scrub_standardize(x, self.means, self.stds,
-                                        out_dtype=torch.float32)
-        else:
-            x = torch.nan_to_num(x, nan=0.0, posinf=1.0, neginf=0.0)
+        x = self._preprocess(x, fused=True)
         if self.layout == "chw":
             return chw_forward(self.variables, x, **self._chw_kw)
         return self.model(x)
@@ -163,19 +229,21 @@ class InferenceEngine:
         return torch.clamp(out, 0.0, 1.0)
 
     @torch.inference_mode()
-    def run_padded(self, frames: torch.Tensor) -> torch.Tensor:
-        """Forward on already-aligned frames [B, H, W, C] (a tensor on any
-        device; moved to the engine's) → masks on the engine's device,
-        scrubbed and clipped to [0, 1]."""
-        return self._postprocess(self._forward(frames))
+    def run_padded(self, frames, plain: bool = False) -> torch.Tensor:
+        """Forward on already-aligned frames [B, H, W, C] (numpy, or a
+        tensor on any device; moved to the engine's) → masks on the
+        engine's device, scrubbed and clipped to [0, 1].  ``plain=True``
+        runs the plain graph, which reaches no kernel."""
+        return self._postprocess(self._forward(frames, plain))
 
     @torch.inference_mode()
-    def render_u8(self, frames: torch.Tensor) -> torch.Tensor:
+    def render_u8(self, frames) -> torch.Tensor:
         """Serving path: forward + ×255 uint8 quantization (K4) on the
         engine's device.  K4 scrubs and clips by itself, so it takes the
         forward's mask as it comes (the same codes as after
-        ``_postprocess``)."""
-        return fused_mask_to_u8(self._forward(frames))
+        ``_postprocess``).  On the card it returns once the work is
+        queued: host frames go up through pinned buffers."""
+        return fused_mask_to_u8(self._forward(frames, staged=True))
 
     def __call__(self, frames: np.ndarray) -> np.ndarray:
         frames = np.asarray(frames, np.float32)
@@ -183,6 +251,6 @@ class InferenceEngine:
         if squeeze:
             frames = frames[None]
         padded, (h, w) = pad_to_multiple(frames, self.pad_multiple)
-        out = self.run_padded(torch.from_numpy(padded))
+        out = self.run_padded(padded)
         out = out.cpu().numpy()[:, :h, :w, :]
         return out[0] if squeeze else out

@@ -128,9 +128,11 @@ def from_flax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
         for norm in ("norm_a", "norm_b"):
             if norm not in block:
                 continue
-            s = stats[name][norm]
             out[f"{name}.{norm}.weight"] = t(block[norm]["scale"])
             out[f"{name}.{norm}.bias"] = t(block[norm]["bias"])
+            s = stats.get(name, {}).get(norm)
+            if s is None:                  # GroupNorm: scale and bias only
+                continue
             out[f"{name}.{norm}.running_mean"] = t(s["mean"])
             out[f"{name}.{norm}.running_var"] = t(s["var"])
             out[f"{name}.{norm}.num_batches_tracked"] = torch.tensor(0)

@@ -5,12 +5,18 @@ Same architecture and parameter names as the reference:
 
 - pixel-unshuffle front end: [B,H,W,4] → 16 channels at half resolution
 - encoder of ``ConvBlock`` (3×3 conv keeping the channel count → norm →
-  LeakyReLU(0.2) → Dropout2d → 1×1 conv to the level width → norm → act)
-  with 2×2 average pools
+  act → Dropout2d → 1×1 conv to the level width → norm → act) with 2×2
+  average pools; ``apply_dilation`` dilates encoder level i's 3×3 by 2^i
 - decoder: align-corners 2× upsample, ConvBlock, additive skip
 - head: the up-2×-then-match-down resize pair folded into one matrix per
   axis, ``dec_final``, 1×1 conv to ``out_ch·4``, pixel shuffle, sigmoid
 - odd-size inputs resized to even first
+
+``activation`` is ``leaky_relu`` (slope 0.2, the reference's), ``relu`` or
+``gelu`` (flax's ``nn.gelu``: the tanh approximation); ``normalization`` is
+``batch_norm`` (running statistics), ``group_norm`` (groups of 16 channels),
+``instance_norm`` (groups of one) or ``none`` (a folded checkpoint), every
+norm in float32 with eps 1e-5.
 
 Frames are NHWC at the public interface, as in the reference; inside, the
 modules run NCHW.  This is the forward of ``layout="nhwc"`` and the tests'
@@ -22,9 +28,10 @@ BN-folded net at eval) routes each ConvBlock as the reference's gates do
 whole-block kernels (K3, or K5 where K3's weights would not fit) for the
 ≥256-channel inputs, the NHWC 128-channel kernel (K6), the channels-major
 kernel through its NHWC wrapper (K2′) for ≤64-channel inputs, plain
-convolutions otherwise.  The kernels take NHWC; the NCHW activations reach
-them as permuted views.  Training-only parts of the reference (remat,
-spatial windows) are not ported yet.
+convolutions otherwise.  As in the reference, only a LeakyReLU block
+without dilation takes a kernel.  The kernels take NHWC; the NCHW
+activations reach them as permuted views.  The reference's ``remat_bottleneck``
+(training) and ``spatial_window`` (sharded inference) are not ported yet.
 """
 
 from __future__ import annotations
@@ -40,56 +47,106 @@ from pcss_unet_tpu_torch.ops.kernels.convblock import fused_conv_block_nhwc
 from pcss_unet_tpu_torch.ops.kernels.deploy import block_kernel_nhwc
 from pcss_unet_tpu_torch.ops.pixelshuffle import (pixel_shuffle_nhwc,
                                                   pixel_unshuffle_nhwc)
-from pcss_unet_tpu_torch.ops.resize import (apply_matrix,
-                                            compose_resize_matrices,
-                                            interp_matrix,
-                                            resize_bilinear_align_corners)
+from pcss_unet_tpu_torch.ops.resize import (apply_matrix, interp_matrix,
+                                            matrix_on,
+                                            resize_bilinear_align_corners,
+                                            resize_chain)
+
+
+ACTIVATIONS = ("leaky_relu", "relu", "gelu")
+
+
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name == "leaky_relu":
+        return F.leaky_relu(x, 0.2)
+    if name == "relu":
+        return F.relu(x)
+    return F.gelu(x, approximate="tanh")
+
+
+class GroupNorm(nn.Module):
+    """flax's ``nn.GroupNorm(group_size=...)`` on NCHW in float32: per
+    sample and group, mean E[x] and variance E[x²] − E[x]² (clipped at 0),
+    then ``(x − mean) · (rsqrt(var + eps) · scale) + bias``.  The affine
+    parameters are ``weight`` (flax ``scale``) and ``bias``."""
+
+    def __init__(self, ch: int, group_size: int, eps: float = 1e-5):
+        super().__init__()
+        if ch % group_size:
+            raise ValueError(f"{ch} channels are not a multiple of the group "
+                             f"size {group_size}")
+        self.groups, self.eps = ch // group_size, eps
+        self.weight = nn.Parameter(torch.ones(ch))
+        self.bias = nn.Parameter(torch.zeros(ch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c = x.shape[:2]
+        g = x.float().reshape(n, self.groups, -1)
+        mean = g.mean(-1)
+        var = torch.clamp((g * g).mean(-1) - mean * mean, min=0.0)
+        per_ch = (n, self.groups, c // self.groups)
+
+        def expand(v):
+            return v[:, :, None].expand(per_ch).reshape(n, c, 1, 1)
+
+        mul = torch.rsqrt(expand(var) + self.eps) * self.weight.float()[:, None, None]
+        return (x.float() - expand(mean)) * mul + self.bias.float()[:, None, None]
 
 
 def _norm(normalization: str, ch: int) -> nn.Module:
     if normalization == "batch_norm":
         return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
+    if normalization == "group_norm":
+        return GroupNorm(ch, 16)
+    if normalization == "instance_norm":
+        return GroupNorm(ch, 1)
     if normalization == "none":
         return nn.Identity()
-    raise ValueError(f"unsupported normalization: {normalization}")
+    raise ValueError(f"unknown normalization: {normalization}")
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Conv in the working dtype (inputs, kernel and bias cast first)."""
     return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
-                    padding=conv.padding)
+                    padding=conv.padding, dilation=conv.dilation)
 
 
 class ConvBlock(nn.Module):
-    """3×3 conv → norm → LeakyReLU(0.2) → Dropout2d → 1×1 conv → norm →
-    LeakyReLU(0.2), on NCHW.  BatchNorm runs in float32; activations are
-    cast back to ``dtype``.  ``fused_inference`` / ``int8_inference`` turn
-    on the deployment kernels for folded (``normalization='none'``) blocks
-    at eval."""
+    """3×3 conv (dilated by ``dilation`` where ``apply_dilation``) → norm →
+    act → Dropout2d → 1×1 conv → norm → act, on NCHW.  Norms run in
+    float32; activations are cast back to ``dtype``.  ``fused_inference`` /
+    ``int8_inference`` turn on the deployment kernels for folded
+    (``normalization='none'``) LeakyReLU blocks without dilation at eval."""
 
     def __init__(self, in_ch: int, features: int, dropout_rate: float = 0.2,
                  normalization: str = "batch_norm",
                  dtype: torch.dtype = torch.float32,
-                 fused_inference: bool = False, int8_inference: bool = False):
+                 fused_inference: bool = False, int8_inference: bool = False,
+                 activation: str = "leaky_relu", dilation: int = 1,
+                 apply_dilation: bool = False):
         super().__init__()
-        self.bn = normalization == "batch_norm"
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"unknown activation: {activation}")
+        self.normalization = normalization
+        self.activation = activation
+        self.apply_dilation = apply_dilation
         self.dtype = dtype
         self.features = features
         self.fused_inference = fused_inference
         self.int8_inference = int8_inference
         self.route = None    # the path the last forward took (route log)
-        self.conv_a = nn.Conv2d(in_ch, in_ch, 3, padding=1)
+        dil = dilation if apply_dilation else 1
+        self.conv_a = nn.Conv2d(in_ch, in_ch, 3, padding=dil, dilation=dil)
         self.norm_a = _norm(normalization, in_ch)
         self.dropout = nn.Dropout2d(dropout_rate)    # inert at eval
         self.conv_b = nn.Conv2d(in_ch, features, 1)
         self.norm_b = _norm(normalization, features)
 
     # The reference's deployment gates (pcss_unet_tpu/models/unet.py:138-182)
-    # on the NCHW input's channel count.  The port's activation is always
-    # LeakyReLU(0.2) and it has no dilation, so those terms are constant;
-    # normalization is 'batch_norm' or 'none' (folded).
+    # on the NCHW input's channel count: eval, folded, LeakyReLU, no dilation.
     def _deployable(self) -> bool:
-        return not self.training and not self.bn
+        return (not self.training and self.normalization == "none"
+                and self.activation == "leaky_relu" and not self.apply_dilation)
 
     def _fusable128(self, x: torch.Tensor) -> bool:
         return (self.fused_inference and self._deployable()
@@ -107,6 +164,9 @@ class ConvBlock(nn.Module):
     def _kernel_block(self, x: torch.Tensor) -> torch.Tensor | None:
         """The block through a deployment kernel (named in ``self.route``),
         or None where the gates leave it to the plain convolutions."""
+        if not ((self.fused_inference or self.int8_inference)
+                and self._deployable()):
+            return None
         cin = x.shape[1]
         xh = x.to(self.dtype).permute(0, 2, 3, 1)              # NHWC view
         b1, b2 = self.conv_a.bias.float(), self.conv_b.bias.float()
@@ -134,9 +194,9 @@ class ConvBlock(nn.Module):
         for conv, norm in ((self.conv_a, self.norm_a),
                            (self.conv_b, self.norm_b)):
             x = _conv(conv, x, self.dtype)
-            if self.bn:
+            if self.normalization != "none":
                 x = norm(x.float())
-            x = F.leaky_relu(x, 0.2).to(self.dtype)
+            x = _act(self.activation, x).to(self.dtype)
             if conv is self.conv_a:
                 x = self.dropout(x)
         return x
@@ -152,9 +212,9 @@ def _pool2x(x: torch.Tensor) -> torch.Tensor:
 def _resize_nchw(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     h, w = x.shape[2:]
     if h != out_hw[0]:
-        x = apply_matrix(x, interp_matrix(h, out_hw[0]), 2)
+        x = apply_matrix(x, matrix_on(x.device, interp_matrix, h, out_hw[0]), 2)
     if w != out_hw[1]:
-        x = apply_matrix(x, interp_matrix(w, out_hw[1]), 3)
+        x = apply_matrix(x, matrix_on(x.device, interp_matrix, w, out_hw[1]), 3)
     return x
 
 
@@ -164,15 +224,17 @@ class UNet(nn.Module):
     and returns the sigmoid mask [B, H, W, out_ch] (float32 for float32
     input, else ``dtype``).  Call ``.eval()`` first: BatchNorm uses its
     running statistics and dropout is inert only in eval mode.
-    ``fused_inference`` / ``int8_inference`` are the reference's deployment
-    switches (see the module docstring)."""
+    ``activation``, ``normalization`` and ``apply_dilation`` are the
+    reference's model options; ``fused_inference`` / ``int8_inference`` its
+    deployment switches (see the module docstring)."""
 
     def __init__(self, in_ch: int = 4, out_ch: int = 1,
                  dropout_rate: float = 0.2,
                  encoder_widths: Sequence[int] = (64, 128, 512, 1024),
                  normalization: str = "batch_norm",
                  dtype: torch.dtype = torch.float32,
-                 fused_inference: bool = False, int8_inference: bool = False):
+                 fused_inference: bool = False, int8_inference: bool = False,
+                 activation: str = "leaky_relu", apply_dilation: bool = False):
         super().__init__()
         widths = tuple(encoder_widths)
         if len(widths) < 2:
@@ -180,14 +242,20 @@ class UNet(nn.Module):
         self.in_ch, self.out_ch = in_ch, out_ch
         self.encoder_widths = widths
         self.normalization = normalization
+        self.activation = activation
+        self.apply_dilation = apply_dilation
         self.dtype = dtype
         kw = dict(normalization=normalization, dtype=dtype,
                   fused_inference=fused_inference,
-                  int8_inference=int8_inference)
+                  int8_inference=int8_inference, activation=activation,
+                  apply_dilation=apply_dilation)
         prev = in_ch * 4
         for i, width in enumerate(widths):
+            # encoder level i dilates its 3×3 by 2^i where apply_dilation;
+            # the bottleneck (the last level) does not, as in the reference
+            dil = 2 ** i if i < len(widths) - 1 else 1
             self.add_module(f"enc_{i}",
-                            ConvBlock(prev, width, dropout_rate, **kw))
+                            ConvBlock(prev, width, dropout_rate, dilation=dil, **kw))
             prev = width
         for i, width in enumerate(reversed(widths[:-1])):
             self.add_module(f"dec_{i}",
@@ -232,11 +300,9 @@ class UNet(nn.Module):
         th, tw = skips[0].shape[2:]
         # the head's up-2×-then-match-down resize pair, folded into one
         # matrix per axis (exact: a composition of linear maps)
-        m_h, m_w = compose_resize_matrices((hh, hh * 2, th), (ww, ww * 2, tw))
-        if not np.array_equal(m_h, np.eye(hh, dtype=np.float32)):
-            x = apply_matrix(x, m_h, 2)
-        if not np.array_equal(m_w, np.eye(ww, dtype=np.float32)):
-            x = apply_matrix(x, m_w, 3)
+        for axis, sizes in ((2, (hh, hh * 2, th)), (3, (ww, ww * 2, tw))):
+            if not np.array_equal(resize_chain(sizes), np.eye(sizes[0], dtype=np.float32)):
+                x = apply_matrix(x, matrix_on(x.device, resize_chain, sizes), axis)
         x = self.dec_final(x)
         x = _conv(self.head, x, self.dtype)
         x = pixel_shuffle_nhwc(x.permute(0, 2, 3, 1), 2)
@@ -263,25 +329,51 @@ def widths_from_params(params) -> tuple[tuple[int, ...], int, int]:
     return widths, folded_in // 4, folded_out // 4
 
 
+DEPTH_WIDTHS = {3: (1, 2, 4), 4: (1, 2, 8, 16), 5: (1, 2, 4, 8, 16),
+                7: (1, 1, 2, 4, 8, 8, 16)}    # × base_width, per model_depth
+
+
+def unet_from_config(cfg, *, device: str | torch.device = "cuda") -> UNet:
+    """The UNet a ``pcss_unet_tpu_torch.config.Config`` describes (widths
+    ``base_width`` × ``DEPTH_WIDTHS[model_depth]``, channels, dropout,
+    activation, normalization, dilation, ``compute_dtype``), with torch's
+    initial weights, in eval mode on ``device``."""
+    mults = DEPTH_WIDTHS.get(cfg.model_depth)
+    if mults is None:
+        raise ValueError(f"unsupported model_depth: {cfg.model_depth}")
+    model = UNet(in_ch=cfg.input_channels, out_ch=cfg.output_channels,
+                 dropout_rate=cfg.dropout_rate,
+                 encoder_widths=tuple(cfg.base_width * m for m in mults),
+                 activation=cfg.activation, normalization=cfg.normalization,
+                 apply_dilation=cfg.apply_dilation,
+                 dtype=getattr(torch, cfg.compute_dtype))
+    return model.eval().to(device)
+
+
 def unet_for_variables(cfg_or_variables, variables: dict | None = None, *,
                        dtype: torch.dtype = torch.float32,
                        device: str | torch.device = "cuda",
                        fused_inference: bool = False,
-                       int8_inference: bool = False) -> UNet:
-    """Build the UNet a variables tree describes (widths, channels, and
-    ``normalization='none'`` when the tree is BN-folded), load its weights,
-    and return it in eval mode on ``device``, with the given deployment
-    switches.
+                       int8_inference: bool = False,
+                       activation: str | None = None,
+                       normalization: str | None = None,
+                       apply_dilation: bool | None = None) -> UNet:
+    """Build the UNet a variables tree describes (widths and channels),
+    load its weights, and return it in eval mode on ``device``, with the
+    given deployment switches.
 
     ``unet_for_variables(cfg, variables, ...)`` is the CLIs' form, as in the
     reference (``pcss_unet_tpu/models/unet.py::unet_for_variables``): the
     checkpoint is the authority on the architecture, and where its widths
     or channels disagree with the config's ``base_width``/``model_depth``
-    the model follows the checkpoint (logged).  A config whose
-    ``activation``, ``normalization`` or ``apply_dilation`` the port's UNet
-    does not carry raises ``ValueError``: those wait for ROADMAP Queue 1
-    item 9 and are never ignored."""
-    from pcss_unet_tpu_torch.config import unported_model_keys
+    the model follows the checkpoint (logged); the config gives the options
+    a checkpoint does not hold (``activation``, ``normalization``,
+    ``apply_dilation``).  The keyword options override it; without either,
+    LeakyReLU without dilation.  A BN-folded tree (no ``norm_*``) always
+    builds ``normalization='none'``; otherwise the default is
+    ``batch_norm``.  As in flax, parameters the model does not use (the
+    running statistics beside a ``group_norm``) are ignored, and missing
+    ones raise ``ValueError``."""
     from pcss_unet_tpu_torch.models.torch_import import from_flax_variables
 
     cfg = None if variables is None else cfg_or_variables
@@ -289,18 +381,18 @@ def unet_for_variables(cfg_or_variables, variables: dict | None = None, *,
         variables = cfg_or_variables
     params = variables["params"]
     widths, in_ch, out_ch = widths_from_params(params)
+    opts = {"activation": activation, "normalization": normalization,
+            "apply_dilation": apply_dilation}
+    defaults = {"activation": "leaky_relu", "normalization": "batch_norm",
+                "apply_dilation": False}
+    for k, v in opts.items():
+        if v is None:
+            opts[k] = getattr(cfg, k) if cfg is not None else defaults[k]
+    if "norm_a" not in params["enc_0"]:
+        opts["normalization"] = "none"
     if cfg is not None:
-        unported = unported_model_keys(cfg)
-        if unported:
-            raise ValueError(
-                f"config {unported}: the port's UNet carries only "
-                "activation='leaky_relu', normalization 'batch_norm' (or a "
-                "folded checkpoint) and apply_dilation=False; the other "
-                "options wait for ROADMAP Queue 1 item 9")
-        depth_widths = {
-            3: (1, 2, 4), 4: (1, 2, 8, 16), 5: (1, 2, 4, 8, 16),
-            7: (1, 1, 2, 4, 8, 8, 16)}.get(cfg.model_depth, ())
-        cfg_widths = tuple(cfg.base_width * m for m in depth_widths)
+        cfg_widths = tuple(cfg.base_width * m
+                           for m in DEPTH_WIDTHS.get(cfg.model_depth, ()))
         if (widths, in_ch, out_ch) != (cfg_widths, cfg.input_channels,
                                        cfg.output_channels):
             import logging
@@ -308,10 +400,13 @@ def unet_for_variables(cfg_or_variables, variables: dict | None = None, *,
                          "overrides config (base_width=%d, model_depth=%d)",
                          widths, in_ch, out_ch, cfg.base_width,
                          cfg.model_depth)
-    normalization = ("batch_norm" if "norm_a" in params["enc_0"]
-                     else "none")
-    model = UNet(in_ch=in_ch, out_ch=out_ch, encoder_widths=widths,
-                 normalization=normalization, dtype=dtype,
-                 fused_inference=fused_inference, int8_inference=int8_inference)
-    model.load_state_dict(from_flax_variables(variables))
+    model = UNet(in_ch=in_ch, out_ch=out_ch, encoder_widths=widths, dtype=dtype,
+                 fused_inference=fused_inference, int8_inference=int8_inference,
+                 **opts)
+    state = from_flax_variables(variables)
+    missing = sorted(set(model.state_dict()) - set(state))
+    if missing:
+        raise ValueError(f"variables lack {missing[:4]} for a "
+                         f"{opts['normalization']} model")
+    model.load_state_dict({k: state[k] for k in model.state_dict()})
     return model.eval().to(device)

@@ -14,8 +14,10 @@ import torch
 def div_ieee(a: torch.Tensor, b: float) -> torch.Tensor:
     """``a / b`` as a true division on every device.  PyTorch divides a CUDA
     tensor by a Python scalar as a multiply by the scalar's reciprocal,
-    which can differ in the last bit and move an int8 rounding tie."""
-    return a / torch.tensor(b, dtype=a.dtype, device=a.device)
+    which can differ in the last bit and move an int8 rounding tie.  The
+    divisor is filled on the device: a tensor made from a host number would
+    be a copy that makes the host wait for the device."""
+    return a / torch.full((), b, dtype=a.dtype, device=a.device)
 
 
 def quantize_tensor_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

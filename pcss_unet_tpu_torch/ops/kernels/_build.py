@@ -146,6 +146,20 @@ def check_device(x, *operands) -> None:
             raise ValueError(f"operand on {t.device}, expected {x.device}")
 
 
+MAX_ELEMENTS = 2 ** 31 - 1
+
+
+def check_extent(*tensors) -> None:
+    """Raise unless every tensor given (None skipped) has fewer than 2^31
+    elements: the kernels take their shapes as 32-bit ints, and a batch of
+    frames multiplies every extent.  The w64 serving batch of four peaks at
+    enc_0's [4, 64, 544, 960], 133.7 M elements."""
+    for t in tensors:
+        if t is not None and t.numel() > MAX_ELEMENTS:
+            raise ValueError(f"tensor of {t.numel()} elements {tuple(t.shape)}: "
+                             "the kernels index at most 2^31 - 1")
+
+
 def call(name: str, *args) -> None:
     """Launch the C entry point ``name`` and raise if it reports a CUDA
     error (a refused launch, or an invalid shape)."""

@@ -222,6 +222,7 @@ def _launch_block(x, w1q, s1, b1, w2q, s2, b2, k_rows, c_chunk,
     bandmax = torch.empty(n * (h // k_rows), dtype=torch.int32, device=x.device)
     hbuf = torch.empty((n, h, w, cmid), dtype=hidden_dtype, device=x.device)
     out = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
+    _build.check_extent(x, hbuf, out)
     _build.call("pcss_block_int8_nhwc", x.data_ptr(), w1p.data_ptr(),
                 f32[0].data_ptr(), f32[1].data_ptr(), w2p.data_ptr(),
                 f32[2].data_ptr(), f32[3].data_ptr(), out.data_ptr(),

@@ -89,6 +89,7 @@ def conv3x3_int8_nhwc(x: torch.Tensor, wq: torch.Tensor,
     b = bias.float().reshape(-1).contiguous()
     rowmax = torch.empty(n * h, dtype=torch.float32, device=x.device)
     out = torch.empty((n, h, w, co), dtype=out_dtype, device=x.device)
+    _build.check_extent(x, out)
     _build.call("pcss_conv3x3_int8_nhwc", x.data_ptr(), wp.data_ptr(),
                 ws.data_ptr(), b.data_ptr(), out.data_ptr(), rowmax.data_ptr(),
                 n, h, w, c, co, k_rows, co_tile,

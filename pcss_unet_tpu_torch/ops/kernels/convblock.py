@@ -125,6 +125,7 @@ def fused_conv_block_chw(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     b2f = b2.float().reshape(-1).contiguous()
     res = None if residual is None else _build.aligned(residual.to(x.dtype))
     out = torch.empty((n, cout, h, wp), dtype=x.dtype, device=x.device)
+    _build.check_extent(x, out, residual)
     _build.call("pcss_convblock_chw", x.data_ptr(), w1k.data_ptr(),
                 b1f.data_ptr(), w2k.data_ptr(), b2f.data_ptr(),
                 None if res is None else res.data_ptr(), out.data_ptr(),

@@ -153,6 +153,7 @@ def _launch(x, w1, b1, w2, b2, negative_slope: float, stream) -> torch.Tensor:
     else:
         out = torch.empty((n, cout, h, w), dtype=x.dtype,
                           device=x.device).permute(0, 2, 3, 1)
+    _build.check_extent(x, out)
     _build.call("pcss_block128_nhwc", x.data_ptr(), w1k.data_ptr(),
                 b1f.data_ptr(), w2k.data_ptr(), b2f.data_ptr(), out.data_ptr(),
                 n, c, cout, h, w, float(negative_slope),

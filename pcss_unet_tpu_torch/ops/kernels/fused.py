@@ -85,6 +85,7 @@ def fused_scrub_standardize(x: torch.Tensor, means: torch.Tensor,
                          f"{x.dtype} → {out_dtype}")
     _build.check_device(x, means, stds)
     out = torch.empty(entry_shape(x.shape, entry), dtype=out_dtype, device=x.device)
+    _build.check_extent(x, out)
     _launch(x.contiguous(), means.float().contiguous(), stds.float().contiguous(),
             out, entry, torch.cuda.current_stream(x.device).cuda_stream)
     fused_scrub_standardize.launches += 1
@@ -127,6 +128,7 @@ def fused_mask_to_u8(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"kernel takes a float32 mask, got {x.dtype}")
     x = x.contiguous()
     out = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    _build.check_extent(x)
     _launch_u8(x, out, torch.cuda.current_stream(x.device).cuda_stream)
     fused_mask_to_u8.launches += 1
     return out

@@ -40,24 +40,49 @@ def interp_matrix(in_size: int, out_size: int) -> np.ndarray:
     return m
 
 
+@functools.lru_cache(maxsize=256)
+def resize_chain(sizes: tuple[int, ...]) -> np.ndarray:
+    """One axis's chain of align-corners resizes folded into one matrix:
+    ``(544, 1088, 544)`` means 544→1088→544 (exact: a composition of linear
+    maps).  Cached by the sizes: the fold is a host matmul."""
+    m = None
+    for a, b in zip(sizes[:-1], sizes[1:]):
+        step = interp_matrix(a, b)
+        m = step if m is None else step @ m
+    return np.eye(sizes[0], dtype=np.float32) if m is None else m
+
+
 def compose_resize_matrices(sizes_h: tuple[int, ...],
                             sizes_w: tuple[int, ...]) -> tuple[np.ndarray, np.ndarray]:
-    """Fold a chain of align-corners resizes into one matrix per axis.
-    ``sizes_h=(544, 1088, 544)`` means 544→1088→544 (exact: a composition
-    of linear maps)."""
-    def chain(sizes):
-        m = None
-        for a, b in zip(sizes[:-1], sizes[1:]):
-            step = interp_matrix(a, b)
-            m = step if m is None else step @ m
-        return np.eye(sizes[0], dtype=np.float32) if m is None else m
-    return chain(sizes_h), chain(sizes_w)
+    """Fold a chain of align-corners resizes into one matrix per axis
+    (``resize_chain`` of each)."""
+    return resize_chain(tuple(sizes_h)), resize_chain(tuple(sizes_w))
 
 
-def apply_matrix(x: torch.Tensor, m: np.ndarray, axis: int) -> torch.Tensor:
+@functools.lru_cache(maxsize=256)
+def _matrix_cached(device: torch.device, build, args: tuple) -> torch.Tensor:
+    return torch.as_tensor(build(*args), device=device)
+
+
+def matrix_on(device: torch.device, build, *args) -> torch.Tensor:
+    """``build(*args)``, a host matrix that depends on its (hashable)
+    arguments alone, as a tensor on ``device``: copied to a card once per
+    arguments, because a copy from pageable host memory makes the host wait
+    for the device, and a forward that copied its matrices on every call
+    would wait on every one.  Not cached on the CPU (the tensor shares the
+    host array) nor while tracing (``torch.export``: the traced constant is
+    not a real tensor)."""
+    if device.type == "cpu" or torch.compiler.is_compiling():
+        return torch.as_tensor(build(*args), device=device)
+    return _matrix_cached(device, build, args)
+
+
+def apply_matrix(x: torch.Tensor, m: np.ndarray | torch.Tensor,
+                 axis: int) -> torch.Tensor:
     """out[..., o, ...] = Σ_i m[o, i]·x[..., i, ...] along ``axis``, with the
     reference's cast points: the matrix in x's dtype, float32 accumulation,
-    the result back in x's dtype."""
+    the result back in x's dtype.  ``m`` is a host array or a tensor on x's
+    device (``matrix_on``)."""
     dtype = x.dtype
     mt = torch.as_tensor(m, device=x.device).to(dtype).float()
     axis %= x.dim()
@@ -93,11 +118,11 @@ def resize_bilinear_align_corners(x: torch.Tensor,
     (``F.interpolate(..., mode='bilinear', align_corners=True)``)."""
     out_h, out_w = out_hw
     _, h, w, _ = x.shape
-    if (h, w) == (out_h, out_w):
-        return x
-    m_h = interp_matrix(h, out_h) if h != out_h else None
-    m_w = interp_matrix(w, out_w) if w != out_w else None
-    return resize_with_matrices(x, m_h, m_w)
+    if h != out_h:
+        x = apply_matrix(x, matrix_on(x.device, interp_matrix, h, out_h), 1)
+    if w != out_w:
+        x = apply_matrix(x, matrix_on(x.device, interp_matrix, w, out_w), 2)
+    return x
 
 
 def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:

@@ -70,8 +70,11 @@ def validate_train_infer_consistency(model, variables: dict,
         xs = ((xs - torch.as_tensor(means, dtype=torch.float32, device=xs.device))
               / (torch.as_tensor(stds, dtype=torch.float32, device=xs.device)
                  + 1e-8))
+    opts = {} if model is None else {
+        k: getattr(model, k) for k in ("activation", "normalization",
+                                       "apply_dilation")}
     plain = unet_for_variables(variables, dtype=torch.float32,
-                               device=engine.device)
+                               device=engine.device, **opts)
     with torch.inference_mode():
         out_a = plain(xs).cpu().numpy()[:, :h, :w, :][0]
 

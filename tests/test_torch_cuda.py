@@ -515,3 +515,156 @@ def test_infer_cli_on_card_writes_the_engines_codes(dev, gen, tmp_path, extra):
     with open(tmp_path / "m.png", "rb") as f:
         got = decode_png_l(f.read())
     assert np.array_equal(got, want)
+
+
+# ------------------------------- serving: batches of frames, the server
+
+
+@pytest.mark.parametrize("cin,cmid,cout,h,w", [
+    (16, 16, 64, 34, 60),      # w64 enc_0 (544×960 reduced)
+    (64, 64, 128, 17, 30),     # w64 enc_1
+    (64, 64, 16, 34, 60),      # w64 dec_final
+])
+def test_convblock_nhwc_kernel_batch_of_frames(dev, gen, cin, cmid, cout, h, w):
+    """K2′ on a batch of two frames at the w64 stages' channels, on the
+    NHWC view of channels-major storage the model hands it: ≡ its plain
+    version, and each image ≡ the kernel on that image alone."""
+    params = {
+        "conv_a": {"kernel": gen.standard_normal((3, 3, cin, cmid)) * 0.2,
+                   "bias": gen.standard_normal(cmid) * 0.1},
+        "conv_b": {"kernel": gen.standard_normal((1, 1, cmid, cout)) * 0.2,
+                   "bias": gen.standard_normal(cout) * 0.1},
+    }
+    ws = kcb.pack_convblock_params(params, dtype=torch.bfloat16, device=dev)
+    x = torch.from_numpy(gen.standard_normal((2, h, w, cin)).astype(np.float32))
+    x = _in_storage(x.to(dev, torch.bfloat16), "cmajor")
+    got = kcb.fused_conv_block_nhwc(x, *ws)
+    _close(got, kcb.conv_block_nhwc_plain(x, *ws), 2e-2)
+    for i in range(2):
+        assert torch.equal(got[i:i + 1], kcb.fused_conv_block_nhwc(x[i:i + 1], *ws))
+
+
+def test_block_int8_kchunked_kernel_batch_of_frames(dev, gen):
+    """K5 at w64 dec_0's channels (1024 → 512) on a batch of two frames ≡
+    its plain version exactly, and each image ≡ the kernel on it alone."""
+    x, ops = _int8_block_operands(gen, dev, torch.bfloat16, 2, 8, 40, 1024, 512)
+    kw = dict(k_rows=4, c_chunk=256)
+    got = kb8.fused_block_int8_kchunked(x, *ops, **kw)
+    assert torch.equal(got, kb8.block_int8_kchunked_plain(x, *ops, **kw))
+    for i in range(2):
+        assert torch.equal(got[i:i + 1],
+                           kb8.fused_block_int8_kchunked(x[i:i + 1], *ops, **kw))
+
+
+def test_block128_kernel_batch_of_frames(dev, gen):
+    """K6 at w64 dec_2's channels (128 → 64) on a batch of two frames in
+    the main path's channels-major storage ≡ its plain version within 2e-2,
+    and each image ≡ the kernel on it alone."""
+    params = {
+        "conv_a": {"kernel": gen.standard_normal((3, 3, 128, 128)) * 0.05,
+                   "bias": gen.standard_normal(128) * 0.1},
+        "conv_b": {"kernel": gen.standard_normal((1, 1, 128, 64)) * 0.1,
+                   "bias": gen.standard_normal(64) * 0.1},
+    }
+    ops = kc128.pack_block128_params(params, dtype=torch.bfloat16, device=dev)
+    x = torch.from_numpy(gen.standard_normal((2, 6, 960, 128)).astype(np.float32))
+    x = _in_storage(x.to(dev, torch.bfloat16), "cmajor")
+    got = kc128.fused_block128_nhwc(x, *ops)
+    _close(got, kc128.block128_nhwc_plain(x, *ops), 2e-2)
+    for i in range(2):
+        assert torch.equal(got[i:i + 1], kc128.fused_block128_nhwc(x[i:i + 1], *ops))
+
+
+def test_mask_to_u8_kernel_batch_of_frames(dev, gen):
+    """K4 on a batch of two masks ≡ its plain version, each image ≡ K4 on
+    it alone."""
+    x = torch.from_numpy((gen.random((2, 34, 60, 1)) * 1.4 - 0.2)
+                         .astype(np.float32)).to(dev)
+    got = kfu.fused_mask_to_u8(x)
+    assert torch.equal(got, kfu.mask_to_u8_plain(x))
+    for i in range(2):
+        assert torch.equal(got[i:i + 1], kfu.fused_mask_to_u8(x[i:i + 1]))
+
+
+def _serving_engine(layout="nhwc"):
+    import json
+    import os
+
+    from pcss_unet_tpu_torch.infer import InferenceEngine, load_variables
+
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+    with open(os.path.join(golden, "deploy_w16.json")) as f:
+        meta = json.load(f)
+    return InferenceEngine(None, load_variables(os.path.join(golden, "deploy_w16.npz")),
+                           fold_bn=True, quantize="int8", layout=layout,
+                           dtype=torch.bfloat16,
+                           means=np.asarray(meta["means"], np.float32),
+                           stds=np.asarray(meta["stds"], np.float32))
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_server_on_card_serves_each_batchs_codes(dev, gen, tmp_path, batch):
+    """The server on the card (NHWC fused+int8, bf16) over 7 distinct
+    frames: every mask ≡ ``render_u8`` of the same padded batch, cropped,
+    code for code.  A pinned buffer reused before its copy finished would
+    hand one frame's codes to another; at batch 1 the upload buffers are
+    reused."""
+    from pcss_unet_tpu_torch.infer import ShadowServer, pad_to_multiple
+    from pcss_unet_tpu_torch.io.exr import read_exr_stack, write_exr
+
+    paths = []
+    for i in range(7):
+        x = gen.random((100, 200, 4)).astype(np.float32)
+        x[..., 0] += i                                  # distinct frames
+        p = str(tmp_path / f"f{i}.exr")
+        write_exr(p, {c: x[..., k] for k, c in enumerate("RGBA")})
+        paths.append(p)
+    engine = _serving_engine()
+    got, order = {}, []
+
+    def sink(p, m):
+        got[p] = m
+        order.append(p)
+    stats = ShadowServer(engine, batch_size=batch, decode_workers=1).run(paths, sink)
+    assert stats.frames == 7 and order == paths
+    frames = [read_exr_stack(p) for p in paths]
+    for b in range(0, 7, batch):
+        padded, (h, w) = pad_to_multiple(np.stack(frames[b:b + batch]),
+                                         engine.pad_multiple)
+        want = engine.render_u8(padded).cpu().numpy()[:, :h, :w]
+        for k, p in enumerate(paths[b:b + batch]):
+            assert got[p].shape == (100, 200, 1)
+            assert np.array_equal(got[p], want[k]), p
+    assert len({got[p].tobytes() for p in paths}) == 7
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "chw"])
+def test_dispatch_does_not_wait_for_the_device(dev, gen, layout):
+    """With ~200 ms of work queued ahead on the stream (``torch.cuda._sleep``),
+    one batch's upload and ``render_u8`` return on the host in under half
+    of it: no copy from pageable memory, no host read of a device tensor,
+    nothing in the forward waits.  The result is still right."""
+    import time
+
+    engine = _serving_engine(layout)
+    frames = gen.random((2, 256, 384, 4)).astype(np.float32)
+    want = engine.render_u8(frames).cpu()       # warm: caches, pinned buffers
+    engine.render_u8(frames)
+    torch.cuda.synchronize()
+    # cycles per ms of this card's clock
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    stop.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 10_000_000 / start.elapsed_time(stop)
+    sleep_ms = 200.0
+    torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
+    t0 = time.perf_counter()
+    out = engine.render_u8(frames)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert busy, "the stream finished before the host returned"
+    assert host_ms < sleep_ms / 2, host_ms
+    assert torch.equal(out.cpu(), want)
