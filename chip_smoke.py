@@ -17,6 +17,42 @@ one JSON line:
    instructions in the library's SASS (``cuobjdump``); it fails if any of
    them spills, if a bf16 kernel has no ``HMMA`` or an int8 kernel no
    ``IMMA``, or if any function has an ``IDP4A``.
+Then the training phases (before the kernel phase, which also holds the
+trained net's kernel calls), each freeing what it used:
+
+- ``train``: 16 train and 8 val renderer-plausible 2048×1024 frames with
+  a learnable soft-shadow label, written from seed 0 as NHWC float32
+  packs with ``train_stats.npy``; ``cli.train.main`` in process with
+  ``--config config.ini --loss_type perturb --allow_random_vgg
+  --num_epochs 2`` (w64, batch 8, adamw, bf16: 2 epochs × 2 steps, at
+  the smallest ``--grad_accum_steps`` of 1, 2, 4 that fits, an
+  out-of-memory at a smaller one printed as ``train_oom``): every step's
+  loss terms finite and none skipped, validation in both epochs,
+  checkpoints ``ckpt_0.pt`` and ``ckpt_1000.pt`` (the save rules), the
+  last equal to the final parameters; per-step ms (CUDA-synchronised),
+  steps/s and samples/s after the first step, peak allocated and reserved
+  memory.  ``train_resume``: ``--num_epochs 3`` resumes at epoch 2, step
+  4, with the saved parameters bit for bit, and ends at step 6.
+- ``train_bench``: the JAX train bench's configs (``scripts/
+  bench_train.py:28-39``): 256² crops at batch 8, standard and perturb,
+  and 2048×1024 batch 8 (standard) at the smallest accumulation that
+  fits: the median of 10 CUDA-synchronised steps after 3, peak memory;
+  ``train_profile``: one more step of each under torch.profiler (device
+  busy against the step, launches, the largest device items).
+  ``train_overfit``: 30 steps on one 256² batch of 8, warmup 0, dropout 0,
+  and the loss must fall.
+- ``train_parity``: 3 train steps of the w64 net (batch 2, 128×128,
+  dropout 0, float32, TF32 off) on the card and on the CPU: losses within
+  1e-4, each parameter's change at cosine > 0.995 and norm within 2 %.
+- ``train_to_serve``: the trained net exported with
+  ``export_reference_checkpoint``, loaded with ``load_variables`` and run
+  through both int8 engines (bf16, 1920×1080 padded to 1088): launch
+  counts as the seeded w64 paths' (``train_to_serve_nhwc`` / ``_chw``),
+  ``w64_trained_vs_plain`` as ``w64_vs_plain``, and the masks against the
+  trained float32 net on the 8 val frames (reported).  The kernel phase
+  holds the kernel calls of one NHWC and one chw trained frame as path
+  ``w64_trained``.
+
 2. ``kernel``: each kernel against its plain PyTorch version on the card, on
    the inputs each main path really gives it (recorded from one forward of
    each of the three paths below, and of the tiled CLI's forward,
@@ -107,8 +143,8 @@ one JSON line:
     version.
 
 Then the ``{"kernels": [...]}`` line (``launches``: the sum over the three
-main-path runs, the two counted CLI runs, the four server runs and the
-serve CLI's run; ``ms``, ``plain_ms`` and ``bound_ms``: per frame of the
+main-path runs, the two trained-net runs, the two counted CLI runs, the
+four server runs and the serve CLI's run; ``ms``, ``plain_ms`` and ``bound_ms``: per frame of the
 kernel's headline path; ``max_abs_err``: over every path), the card's name and power limit as ``nvidia-smi`` prints
 them, and the result line.  Any failure raises and exits non-zero; with no
 CUDA device the script exits 2 and prints nothing.
@@ -117,6 +153,7 @@ CUDA device the script exits 2 and prints nothing.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -575,7 +612,7 @@ def block128_storage(kc128, build, call) -> None:
         raise AssertionError(f"K6 main-path storage: {line}")
 
 
-def vs_plain_phase(engine, frames, plain, kernels) -> None:
+def vs_plain_phase(engine, frames, plain, kernels, phase="w64_vs_plain") -> None:
     """One forward (TF32 off) through the kernels against the same forward
     with every kernel wrapper swapped for its plain version (``plain``:
     (module, name, fn)) on the card, held to the forward's own noise floor:
@@ -603,7 +640,7 @@ def vs_plain_phase(engine, frames, plain, kernels) -> None:
         raise AssertionError(f"{engine.layout}: kernel launches {launched} "
                              "before the plain swap, and none under it")
     d, floor = (got - want).abs(), (nudged - want).abs()
-    line = {"phase": "w64_vs_plain", "layout": engine.layout,
+    line = {"phase": phase, "layout": engine.layout,
             "dtype": str(engine._dtype).replace("torch.", ""),
             "quantize": engine.quantize,
             "max_abs_err": d.max().item(), "mean_abs_err": d.mean().item(),
@@ -859,6 +896,9 @@ W64_NHWC_WANT = {"fused_scrub_standardize": 1, "fused_conv_block_nhwc": 3,
                  "fused_conv_block_chw": 3, "fused_block_int8_nhwc": 1,
                  "fused_block_int8_kchunked": 1, "fused_block128_nhwc": 1,
                  "fused_mask_to_u8": 1}
+W64_CHW_WANT = {"fused_scrub_standardize": 1, "fused_conv_block_chw": 4,
+                "fused_block_int8_nhwc": 1, "fused_block_int8_kchunked": 1,
+                "fused_mask_to_u8": 1}
 
 
 def serve_files(root: str, codec: str):
@@ -1067,6 +1107,402 @@ def export_phase(variables, kw, frames, engine_bf16, card):
         raise AssertionError(f"export float32: {line}")
 
 
+# ------------------------------------------------------------------ training
+# synthetic 2048×1024 packs: 8 val frames, since the CLI validates in
+# batches of batch_size (8) and drops a remainder, as the JAX CLI does
+TRAIN_FRAMES, VAL_FRAMES = 16, 8
+DEVICE = "cuda"                        # the training phases' device
+BENCH_WARM, BENCH_STEPS = 3, 10
+BENCH_CONFIGS = (                      # scripts/bench_train.py:28-39
+    ("256crop_b8_standard", 8, 256, 256, "standard"),
+    ("256crop_b8_perturb", 8, 256, 256, "perturb"),
+    ("2k_b8_standard", 8, FRAME_H, FRAME_W, "standard"))
+
+
+def gbuffer(rng, i: int, h: int, w: int) -> tuple[np.ndarray, np.ndarray]:
+    """A renderer-plausible G-buffer frame [h, w, 4] (the serve phase's
+    content: smooth fields, a little noise) and a learnable soft shadow
+    [h, w, 1]: a sigmoid of a smooth function of the channels."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = np.sin(xx / (40 + i) + i) * np.cos(yy / (60 + i))
+    x = np.empty((h, w, 4), np.float32)
+    x[..., 0] = base + 0.05 * rng.standard_normal((h, w))
+    x[..., 1] = base * 0.5 + 0.3
+    x[..., 2] = xx / w + 0.02 * rng.standard_normal((h, w))
+    x[..., 3] = 1.0
+    y = 1.0 / (1.0 + np.exp(-6.0 * (x[..., 0] - x[..., 2] + 0.25)))
+    return x, y[..., None].astype(np.float32)
+
+
+def write_packs(root: str) -> dict:
+    """16 train and 8 val 2048×1024 frames as NHWC float32 ``.npy`` packs
+    and the train split's ``train_stats.npy``, from seed 0."""
+    os.makedirs(root)
+    rng = np.random.default_rng(0)
+    frames = [gbuffer(rng, i, FRAME_H, FRAME_W) for i in range(TRAIN_FRAMES + VAL_FRAMES)]
+    x = np.stack([f[0] for f in frames])
+    y = np.stack([f[1] for f in frames])
+    for split, sl in (("train", slice(0, TRAIN_FRAMES)), ("val", slice(TRAIN_FRAMES, None))):
+        np.save(os.path.join(root, f"{split}_inputs.npy"), x[sl])
+        np.save(os.path.join(root, f"{split}_labels.npy"), y[sl])
+    stats = {"means": x[:TRAIN_FRAMES].mean(axis=(0, 1, 2), dtype=np.float64).astype(np.float32),
+             "stds": x[:TRAIN_FRAMES].std(axis=(0, 1, 2), dtype=np.float64).astype(np.float32)}
+    np.save(os.path.join(root, "train_stats.npy"), stats)
+    return stats
+
+
+def timed_step_builder(loop_mod, records):
+    """``build_train_step`` whose steps are timed (CUDA-synchronised) and
+    whose metrics are read back, one record per step."""
+    import torch
+
+    real = loop_mod.build_train_step
+
+    def build(*a, **k):
+        step = real(*a, **k)
+
+        def timed(state, x, y, gen):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, x, y, gen)
+            torch.cuda.synchronize()
+            records.append({"ms": (time.perf_counter() - t0) * 1e3,
+                            **{k: float(v) for k, v in m.items()
+                               if not k.startswith("grad_norm/")}})
+            return m
+        return timed
+    return build
+
+
+def train_phase(work: str, card: str):
+    """``python -m pcss_unet_tpu_torch train`` in process at the reference
+    config (config.ini: w64, batch 8 of 2048×1024, adamw, bf16) with
+    ``--loss_type perturb --allow_random_vgg --num_epochs 2``, then
+    ``--num_epochs 3``, which resumes.  → (the export of the trained net,
+    the train stats)."""
+    import torch
+
+    from pcss_unet_tpu_torch.cli import train as cli_train
+    from pcss_unet_tpu_torch.train import checkpoint as ckm
+    from pcss_unet_tpu_torch.train import loop
+
+    t_start = time.perf_counter()
+    data, ck = os.path.join(work, "data"), os.path.join(work, "ckpt")
+    stats = write_packs(data)
+    pack_s = time.perf_counter() - t_start
+    argv = ["--config", os.path.join(REPO, "config.ini"), "--loss_type", "perturb",
+            "--allow_random_vgg", "--processed_data_dir", data, "--save_dir", ck,
+            "--device", DEVICE]
+    cwd = os.getcwd()
+    os.chdir(work)                 # config.ini's log_dir=./logs: the work dir's
+    try:
+        for accum in (1, 2, 4):
+            records = []
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                with swapped([(loop, "build_train_step", timed_step_builder(loop, records))]):
+                    r1 = cli_train.main(argv + ["--num_epochs", "2",
+                                                "--grad_accum_steps", str(accum)])
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                emit({"phase": "train_oom", "grad_accum_steps": accum,
+                      "error": str(e).splitlines()[0][:200]})
+            gc.collect()
+            torch.cuda.empty_cache()
+            shutil.rmtree(ck, ignore_errors=True)
+        else:
+            raise AssertionError("train: batch 8 at 2048x1024 does not fit at "
+                                 "grad_accum_steps 1, 2 or 4")
+        peak = (torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved())
+        ms = [r["ms"] for r in records[1:]]
+        bad = [r for r in records if r["skipped"] != 0 or not all(
+            math.isfinite(r[k]) for k in ("l1_loss", "vgg_loss", "perturbation_loss",
+                                          "total_loss", "grad_norm"))]
+        files = sorted(f for f in os.listdir(ck) if f.endswith(".pt"))
+        with open(os.path.join(ck, "checkpoints.json")) as f:
+            index = json.load(f)
+        saved = torch.load(os.path.join(ck, "ckpt_1000.pt"), weights_only=True)
+        model = r1.state.model
+        final_eq = all(torch.equal(p.detach().cpu(), saved["params"][n])
+                       for n, p in model.named_parameters())
+        line = {"phase": "train", "card": card, "config": "config.ini",
+                "loss_type": "perturb", "batch": 8, "frame_hw": [FRAME_H, FRAME_W],
+                "grad_accum_steps": accum, "steps": len(records),
+                "step_ms": [r["ms"] for r in records], "ms_per_step_median": float(np.median(ms)),
+                "steps_per_s": 1e3 / float(np.median(ms)),
+                "samples_per_s": 8e3 / float(np.median(ms)),
+                "peak_allocated_gb": peak[0] / 1e9, "peak_reserved_gb": peak[1] / 1e9,
+                "losses": [{k: r[k] for k in ("total_loss", "l1_loss", "vgg_loss",
+                                              "perturbation_loss", "grad_norm",
+                                              "clip_max_norm")} for r in records],
+                "history": r1.history, "checkpoints": files, "index": index,
+                "saved_equals_final": final_eq, "packs_s": pack_s}
+        del r1, model, saved
+        gc.collect()
+        emit(line)
+        if (len(records) != 4 or bad or files != ["ckpt_0.pt", "ckpt_1000.pt"]
+                or not all(h["val"] for h in line["history"]) or not final_eq
+                or any(v is None or "val_loss" not in v for v in index.values())):
+            raise AssertionError(f"train: steps {len(records)}, bad {bad}, "
+                                 f"checkpoints {files} {index}, saved==final {final_eq}")
+
+        # resume: epoch 2 from the epoch-1 checkpoint at step 4, bit for bit
+        restored = {}
+        real_restore = ckm.CheckpointManager.restore
+
+        def restore(self, state, epoch=None):
+            state, cursor = real_restore(self, state, epoch)
+            restored.update(step=int(state.step), cursor=cursor, params={
+                n: p.detach().cpu().clone() for n, p in state.model.named_parameters()})
+            return state, cursor
+
+        records2 = []
+        with swapped([(loop, "build_train_step", timed_step_builder(loop, records2)),
+                      (ckm.CheckpointManager, "restore", restore)]):
+            r2 = cli_train.main(argv + ["--num_epochs", "3",
+                                        "--grad_accum_steps", str(accum)])
+        saved = torch.load(os.path.join(ck, "ckpt_1000.pt"), weights_only=True)
+        exact = all(torch.equal(restored["params"][n], saved["params"][n])
+                    for n in saved["params"])
+        resume = {"phase": "train_resume", "restored_step": restored.get("step"),
+                  "cursor": restored.get("cursor"),
+                  "epochs": [h["epoch"] for h in r2.history],
+                  "final_step": int(r2.state.step), "restored_params_exact": exact,
+                  "steps": len(records2), "step_ms": [r["ms"] for r in records2],
+                  "skipped": int(r2.state.skipped_steps),
+                  "losses": [r["total_loss"] for r in records2]}
+        emit(resume)
+        if (resume["restored_step"] != 4 or resume["epochs"] != [2] or not exact
+                or resume["final_step"] != 6 or resume["skipped"] != 0):
+            raise AssertionError(f"train resume: {resume}")
+        from pcss_unet_tpu_torch.train.checkpoint import export_reference_checkpoint
+
+        npz = os.path.join(work, "trained_w64.npz")
+        export_reference_checkpoint(r2.state, npz)
+        del r2, saved, restored
+    finally:
+        os.chdir(cwd)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return npz, stats, time.perf_counter() - t_start
+
+
+def bench_state(cfg, hw_batch, loss_type, seed=0):
+    """A w64 bf16 train state, its step and a device batch."""
+    import torch
+
+    from pcss_unet_tpu_torch.losses import LossBundle, PerceptualLoss
+    from pcss_unet_tpu_torch.models.init import init_train_weights
+    from pcss_unet_tpu_torch.models.unet import unet_from_config
+    from pcss_unet_tpu_torch.train import build_train_step, create_train_state
+
+    model = init_train_weights(unet_from_config(cfg, device="cpu"),
+                               torch.Generator().manual_seed(seed)).to(DEVICE).train()
+    state = create_train_state(model, cfg, 100)
+    bundle = LossBundle(perceptual=PerceptualLoss(None, device=DEVICE),
+                        alpha=cfg.alpha, perturb_weight=cfg.perturb_weight,
+                        perturbation_count=cfg.perturbation_count)
+    step = build_train_step(cfg, bundle, np.zeros(4, np.float32),
+                            np.ones(4, np.float32), 100, per_block_norms=False)
+    b, h, w = hw_batch
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, h, w, 4)).astype(np.float32)
+    y = (x.mean(axis=-1, keepdims=True) > 0).astype(np.float32)
+    return state, step, torch.from_numpy(x).to(DEVICE), torch.from_numpy(y).to(DEVICE)
+
+
+def train_bench_phase(card: str) -> float:
+    """The JAX train bench's configs on the card (w64 bf16, adamw,
+    config.ini's settings): steps/s as the median of 10 CUDA-synchronised
+    steps after 3 warm ones, peak memory; 2048×1024 at the smallest
+    grad_accum_steps that fits.  Then the overfit check: 30 steps on one
+    fixed 256² batch of 8, warmup 0, dropout 0 — the loss must fall."""
+    import torch
+
+    from pcss_unet_tpu_torch.config import load_config
+
+    t0 = time.perf_counter()
+    base = load_config(os.path.join(REPO, "config.ini")).replace(num_epochs=100)
+    for tag, b, h, w, loss_type in BENCH_CONFIGS:
+        for accum in (1, 2, 4, 8):
+            cfg = base.replace(loss_type=loss_type, grad_accum_steps=accum)
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                state, step, x, y = bench_state(cfg, (b, h, w), loss_type)
+                gen = torch.Generator(DEVICE).manual_seed(0)
+                times = []
+                for i in range(BENCH_WARM + BENCH_STEPS):
+                    torch.cuda.synchronize()
+                    ts = time.perf_counter()
+                    m = step(state, x, y, gen)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - ts) * 1e3)
+                loss, skipped = float(m["total_loss"]), int(state.skipped_steps)
+                break
+            except torch.cuda.OutOfMemoryError:
+                emit({"phase": "train_bench_oom", "config": tag, "grad_accum_steps": accum})
+            finally:
+                state = step = x = y = None
+                gc.collect()
+                torch.cuda.empty_cache()
+        else:
+            raise AssertionError(f"train_bench {tag}: no grad_accum_steps fits")
+        med = float(np.median(times[BENCH_WARM:]))
+        if DEVICE == "cuda":
+            # one more step under torch.profiler: device busy time against
+            # the step's wall time, and the largest device items
+            state, step, x, y = bench_state(cfg, (b, h, w), loss_type)
+            step(state, x, y, gen)
+            summed, _ = device_events(lambda: step(state, x, y, gen))
+            busy = sum(dev_ms(e) for e in summed)
+            emit({"phase": "train_profile", "config": tag, "step_ms": med,
+                  "device_busy_ms": busy, "idle_share": 1.0 - busy / med,
+                  "device_launches": sum(e.count for e in summed),
+                  "top_device_ms": [[e.key[:70], dev_ms(e), e.count] for e in
+                                    sorted(summed, key=dev_ms, reverse=True)[:20]]})
+            state = step = x = y = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        line = {"phase": "train_bench", "config": tag, "card": card, "batch": b,
+                "hw": [h, w], "loss_type": loss_type, "grad_accum_steps": accum,
+                "ms_per_step_median": med, "steps_per_s": 1e3 / med,
+                "samples_per_s": b * 1e3 / med, "step_ms": times,
+                "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+                "last_loss": loss, "skipped": skipped}
+        emit(line)
+        if skipped or not math.isfinite(loss):
+            raise AssertionError(f"train_bench {tag}: {line}")
+
+    cfg = base.replace(loss_type="standard", warmup_epochs=0, dropout_rate=0.0)
+    state, step, x, y = bench_state(cfg, (8, 256, 256), "standard", seed=1)
+    losses = [float(step(state, x, y)["total_loss"]) for _ in range(30)]
+    emit({"phase": "train_overfit", "steps": 30, "first_loss": losses[0],
+          "last_loss": losses[-1], "losses": losses})
+    del state, step, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_overfit: loss {losses[0]} -> {losses[-1]}")
+    return time.perf_counter() - t0
+
+
+def train_parity_phase() -> float:
+    """The port's train step on the card and on the CPU, float32 with TF32
+    off, w64 widths, batch 2 at 128×128, dropout 0, adamw, 3 steps from the
+    same weights on the same batches: losses within 1e-4 relative, each
+    parameter's change along the same direction (cosine > 0.995, norm
+    within 2 %: tests/test_train_parity.py's criteria for Adam, whose first
+    steps are sign-like), and each BatchNorm running statistic's change by
+    the same criteria (it follows the parameters, so it diverges with
+    them).  The conv biases in front of a BatchNorm have a zero true
+    gradient: only their size is held (< 1e-3)."""
+    import torch
+
+    from pcss_unet_tpu_torch.config import Config
+    from pcss_unet_tpu_torch.losses import LossBundle, PerceptualLoss
+    from pcss_unet_tpu_torch.models.init import init_train_weights
+    from pcss_unet_tpu_torch.models.unet import UNet
+    from pcss_unet_tpu_torch.train import build_train_step, create_train_state
+
+    t0 = time.perf_counter()
+    cfg = Config(batch_size=2, num_epochs=4, warmup_epochs=1, dropout_rate=0.0,
+                 compute_dtype="float32")
+    rng = np.random.default_rng(0)
+    batches = [(rng.standard_normal((2, 128, 128, 4)).astype(np.float32),
+                rng.random((2, 128, 128, 1), dtype=np.float32)) for _ in range(3)]
+    runs = {}
+    with no_tf32():
+        for dev in (DEVICE, "cpu"):
+            model = init_train_weights(UNet(encoder_widths=W64, dropout_rate=0.0),
+                                       torch.Generator().manual_seed(0)).to(dev).train()
+            before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+            state = create_train_state(model, cfg, 4)
+            step = build_train_step(cfg, LossBundle(perceptual=PerceptualLoss(None, device=dev)),
+                                    np.zeros(4, np.float32), np.ones(4, np.float32), 4)
+            losses = [float(step(state, torch.from_numpy(x).to(dev),
+                                 torch.from_numpy(y).to(dev))["total_loss"])
+                      for x, y in batches]
+            runs[dev] = (losses, {n: (p.detach().cpu() - before[n]).double().numpy().ravel()
+                                  for n, p in model.named_parameters()},
+                         {n: (b.detach().cpu().double() - float("var" in n)).numpy().ravel()
+                          for n, b in model.named_buffers() if "running" in n})
+    (cl, cd, cs), (hl, hd, hs) = runs[DEVICE], runs["cpu"]
+    worst_cos, worst_ratio, bias_max = 1.0, 0.0, 0.0
+    for name in hd:
+        a, b = cd[name], hd[name]
+        if re.search(r"\.conv_[ab]\.bias$", name):
+            bias_max = max(bias_max, float(np.abs(a).max()), float(np.abs(b).max()))
+            continue
+        worst_cos = min(worst_cos, float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b))))
+        worst_ratio = max(worst_ratio, abs(float(np.linalg.norm(a) / np.linalg.norm(b)) - 1))
+    stat_cos = min(float(cs[n] @ hs[n] / (np.linalg.norm(cs[n]) * np.linalg.norm(hs[n])))
+                   for n in hs)
+    stat_ratio = max(abs(float(np.linalg.norm(cs[n]) / np.linalg.norm(hs[n])) - 1)
+                     for n in hs)
+    loss_rel = max(abs(a / b - 1) for a, b in zip(cl, hl))
+    line = {"phase": "train_parity", "widths": list(W64), "batch": 2, "hw": [128, 128],
+            "dtype": "float32", "tf32": False, "steps": 3, "loss_card": cl, "loss_cpu": hl,
+            "loss_max_rel": loss_rel, "delta_worst_cos": worst_cos,
+            "delta_worst_norm_ratio_err": worst_ratio,
+            "pre_bn_bias_delta_max": bias_max, "bn_stat_change_worst_cos": stat_cos,
+            "bn_stat_change_worst_norm_ratio_err": stat_ratio,
+            "tol": {"loss_rel": 1e-4, "cos": 0.995, "norm_ratio": 2e-2,
+                    "pre_bn_bias": 1e-3}}
+    emit(line)
+    if not (loss_rel <= 1e-4 and min(worst_cos, stat_cos) > 0.995
+            and max(worst_ratio, stat_ratio) < 2e-2 and bias_max < 1e-3):
+        raise AssertionError(f"train_parity: {line}")
+    return time.perf_counter() - t0
+
+
+def train_to_serve_phase(npz, stats, data, plain, card, own):
+    """The trained net (``export_reference_checkpoint``'s ``.npz``) through
+    ``load_variables`` and both deployment engines (fold_bn, int8, bf16) at
+    1920×1080 padded to 1088: main-path launch counts as the seeded w64
+    net's, the w64_vs_plain check, and the int8 mask against the trained
+    float32 net's plain forward on the 4 validation frames (reported).
+    → (the engines, the frames, the launch counts)."""
+    import torch
+
+    from pcss_unet_tpu_torch.infer import (InferenceEngine, load_variables,
+                                           pad_to_multiple)
+    from pcss_unet_tpu_torch.ops.kernels import KERNELS
+
+    t0 = time.perf_counter()
+    variables = load_variables(npz)
+    kw = dict(fold_bn=True, quantize="int8", dtype=torch.bfloat16, device=DEVICE,
+              means=stats["means"], stds=stats["stds"])
+    e_nhwc = InferenceEngine(None, variables, layout="nhwc", **kw)
+    e_chw = InferenceEngine(None, variables, layout="chw", **kw)
+    x, _ = gbuffer(np.random.default_rng(7), 3, W64_H, W64_W)
+    frames, _ = pad_to_multiple(x[None], e_nhwc.pad_multiple)
+    frames = torch.from_numpy(frames).to(DEVICE)
+    runs = [main_path("train_to_serve_nhwc", e_nhwc, frames, 2, W64_NHWC_WANT, card, own),
+            main_path("train_to_serve_chw", e_chw, frames, 2, W64_CHW_WANT, card, own)]
+    for engine in (e_nhwc, e_chw):
+        vs_plain_phase(engine, frames, plain, KERNELS, phase="w64_trained_vs_plain")
+    # the int8 postures against the trained net's own float32 forward
+    xv = np.load(os.path.join(data, "val_inputs.npy"))
+    yv = np.load(os.path.join(data, "val_labels.npy"))
+    with no_tf32():
+        e32 = InferenceEngine(None, variables, dtype=torch.float32, device=DEVICE,
+                              means=stats["means"], stds=stats["stds"])
+        refs = [e32(f[None])[0] for f in xv]
+    quality = {"float32": {"l1_vs_label": float(np.mean([np.abs(r - y).mean()
+                                                         for r, y in zip(refs, yv)]))}}
+    for name, eng in (("nhwc", e_nhwc), ("chw", e_chw)):
+        d = [(eng(f[None])[0], r, y) for f, r, y in zip(xv, refs, yv)]
+        quality[name] = {
+            "max_abs_vs_f32": max(float(np.abs(m - r).max()) for m, r, _ in d),
+            "psnr_db_vs_f32": float(np.mean([10 * math.log10(1.0 / max(
+                float(np.mean((m - r) ** 2)), 1e-12)) for m, r, _ in d])),
+            "l1_vs_label": float(np.mean([np.abs(m - y).mean() for m, _, y in d]))}
+    emit({"phase": "train_to_serve", "card": card, "val_frames": len(xv),
+          "quality_on_val": quality, "seconds": time.perf_counter() - t0})
+    return e_nhwc, e_chw, frames, runs
+
+
 def main() -> int:
     import torch
 
@@ -1135,6 +1571,41 @@ def main() -> int:
         raise AssertionError(f"tensor-core kernels spilling or without HMMA / IMMA: "
                              f"{bad}; functions with IDP4A: {dp4a}")
 
+    # every kernel wrapper the forwards call, by the name they call it
+    # under, and each one's plain version
+    wrappers = {"scrub": (frame, "fused_scrub_standardize"),
+                "u8": (frame, "fused_mask_to_u8"),
+                "convblock": (chw_engine, "fused_conv_block_chw"),
+                "nhwc": (unet_mod, "fused_conv_block_nhwc"),
+                "int8": (deploy, "fused_block_int8_nhwc"),
+                "kchunked": (deploy, "fused_block_int8_kchunked"),
+                "block128": (deploy, "fused_block128_nhwc")}
+    plain = [(*wrappers["scrub"], kfu.scrub_standardize_plain),
+             (*wrappers["u8"], kfu.mask_to_u8_plain),
+             (*wrappers["convblock"],
+              lambda *a, taps=None, **k: kcb.conv_block_chw_plain(*a, **k)),
+             (*wrappers["nhwc"], kcb.conv_block_nhwc_plain),
+             (*wrappers["int8"], kb8.block_int8_nhwc_plain),
+             (*wrappers["kchunked"], kb8.block_int8_kchunked_plain),
+             (*wrappers["block128"], kc128.block128_nhwc_plain)]
+
+    # ------------------------------------------------------------ training
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    train_work = tempfile.mkdtemp(dir=os.path.join(REPO, "build"))
+    try:
+        with torch.inference_mode(False):
+            npz, train_stats, train_s = train_phase(train_work, card)
+            bench_s = train_bench_phase(card)
+            parity_s = train_parity_phase()
+        t_serve = time.perf_counter()
+        e_trained_nhwc, e_trained_chw, trained_frames, trained_runs = \
+            train_to_serve_phase(npz, train_stats, os.path.join(train_work, "data"),
+                                 plain, card, own)
+        emit({"phase": "train_phases_seconds", "train": train_s, "train_bench": bench_s,
+              "train_parity": parity_s, "train_to_serve": time.perf_counter() - t_serve})
+    finally:
+        shutil.rmtree(train_work, ignore_errors=True)
+
     # ------------------------------------------------- engines and inputs
     meta, xv, yv = golden_frames()
     variables = load_variables(os.path.join(REPO, "tests", "golden",
@@ -1147,14 +1618,6 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     frames = torch.rand((1, FRAME_H, FRAME_W, 4), generator=gen,
                         device="cuda")
-    # every kernel wrapper the forwards call, by the name they call it under
-    wrappers = {"scrub": (frame, "fused_scrub_standardize"),
-                "u8": (frame, "fused_mask_to_u8"),
-                "convblock": (chw_engine, "fused_conv_block_chw"),
-                "nhwc": (unet_mod, "fused_conv_block_nhwc"),
-                "int8": (deploy, "fused_block_int8_nhwc"),
-                "kchunked": (deploy, "fused_block_int8_kchunked"),
-                "block128": (deploy, "fused_block128_nhwc")}
     calls = {"w16_chw": record_calls(lambda: engine.render_u8(frames), [
         (*wrappers[k], k) for k in ("scrub", "convblock", "int8", "u8")])}
     # the tiled CLI's forward: the same frame as 15 tiles of 512 in one batch
@@ -1188,6 +1651,14 @@ def main() -> int:
             (*wrappers[k], k) for k in ("scrub", "nhwc", "int8", "kchunked",
                                         "block128", "u8")])
     del f64_b4
+    # the trained w64 net's forwards (phase train_to_serve), one NHWC and
+    # one chw frame, as one path: K1, K2, K2', K3, K5, K6, K4
+    trained = [record_calls(lambda: e.render_u8(trained_frames), [
+        (*wrappers[k], k) for k in keys]) for e, keys in (
+            (e_trained_nhwc, ("scrub", "nhwc", "int8", "kchunked", "block128", "u8")),
+            (e_trained_chw, ("scrub", "convblock", "int8", "kchunked", "u8")))]
+    calls["w64_trained"] = {k: trained[0].get(k, []) + trained[1].get(k, [])
+                            for k in wrappers}
 
     def on(key, *paths):
         """The recorded calls of wrapper ``key`` on each path, headline
@@ -1205,6 +1676,7 @@ def main() -> int:
     all3 = ("w16_chw", "w64_nhwc", "w64_chw")
     all4 = all3 + ("w16_tiled",)
     b4 = "w64_serve_b4"
+    tr = "w64_trained"
     # K1 as each path calls it (entry "chw" / "nhwc", bf16 out), and the
     # reference's own layout (entry None) on the w16 frame; the float32
     # case is the w16 call with float32 out.  Exact: one rounding of the
@@ -1213,30 +1685,30 @@ def main() -> int:
     entries = [
         check_kernel("fused_scrub_standardize", kfu.fused_scrub_standardize,
                      kfu.scrub_standardize_plain,
-                     on("scrub", *all4, b4) + [("w16_entry_none", [
+                     on("scrub", *all4, b4, tr) + [("w16_entry_none", [
                          (scrub_args, dict(scrub_kw, entry=None))])],
                      lambda *_: 0.0, scrub_work,
                      (scrub_args, dict(scrub_kw, out_dtype=torch.float32)), own),
         check_kernel("fused_conv_block_chw", kcb.fused_conv_block_chw,
                      kcb.conv_block_chw_plain,
-                     on("convblock", "w16_chw", "w64_chw", "w16_tiled"), conv_tol,
+                     on("convblock", "w16_chw", "w64_chw", "w16_tiled", tr), conv_tol,
                      conv_work, f32(first("convblock", "w16_chw", -2)), own),
         # int8 x int8 -> int32 sums are exact in any order, and the kernel
         # takes every float32 step (dequantize, bias, leaky, rounding of h,
         # the band max) as the plain version does: equal, bit for bit
         check_kernel("fused_block_int8_nhwc", kb8.fused_block_int8_nhwc,
-                     kb8.block_int8_nhwc_plain, on("int8", *all4, b4),
+                     kb8.block_int8_nhwc_plain, on("int8", *all4, b4, tr),
                      lambda *_: 0.0, int8_work, f32(first("int8", "w16_chw")), own),
         check_kernel("fused_mask_to_u8", kfu.fused_mask_to_u8,
-                     kfu.mask_to_u8_plain, on("u8", *all3, b4), lambda *_: 0.0,
+                     kfu.mask_to_u8_plain, on("u8", *all3, b4, tr), lambda *_: 0.0,
                      u8_work, first("u8", "w16_chw"), own),
         # K5: exact as K3, the float32 chunk sums in the same order on both sides
         check_kernel("fused_block_int8_kchunked", kb8.fused_block_int8_kchunked,
                      kb8.block_int8_kchunked_plain,
-                     on("kchunked", "w64_nhwc", "w64_chw", b4), lambda *_: 0.0,
+                     on("kchunked", "w64_nhwc", "w64_chw", b4, tr), lambda *_: 0.0,
                      int8_work, f32(first("kchunked", "w64_nhwc")), own),
         check_kernel("fused_block128_nhwc", kc128.fused_block128_nhwc,
-                     kc128.block128_nhwc_plain, on("block128", "w64_nhwc", b4),
+                     kc128.block128_nhwc_plain, on("block128", "w64_nhwc", b4, tr),
                      conv_tol, block128_work, f32(first("block128", "w64_nhwc")), own),
     ]
     xk7 = torch.randn((1, 272, 480, 512), generator=gen, device="cuda").bfloat16()
@@ -1255,7 +1727,7 @@ def main() -> int:
                      conv3x3_int8_work,
                      (f32(k7_call)[0], dict(k7_call[1], out_dtype=torch.float32)), own),
         check_kernel("fused_conv_block_nhwc", kcb.fused_conv_block_nhwc,
-                     kcb.conv_block_nhwc_plain, on("nhwc", "w64_nhwc", b4), conv_tol,
+                     kcb.conv_block_nhwc_plain, on("nhwc", "w64_nhwc", b4, tr), conv_tol,
                      conv_nhwc_work, f32(first("nhwc", "w64_nhwc", 1)), own),
     ]
     block128_storage(kc128, _build, first("block128", "w64_nhwc"))
@@ -1276,14 +1748,6 @@ def main() -> int:
               b.conv_b.weight.permute(2, 3, 1, 0)) for b in int8_blocks])})
 
     # the w64 forward through the kernels against every kernel's plain version
-    plain = [(*wrappers["scrub"], kfu.scrub_standardize_plain),
-             (*wrappers["u8"], kfu.mask_to_u8_plain),
-             (*wrappers["convblock"],
-              lambda *a, taps=None, **k: kcb.conv_block_chw_plain(*a, **k)),
-             (*wrappers["nhwc"], kcb.conv_block_nhwc_plain),
-             (*wrappers["int8"], kb8.block_int8_nhwc_plain),
-             (*wrappers["kchunked"], kb8.block_int8_kchunked_plain),
-             (*wrappers["block128"], kc128.block128_nhwc_plain)]
     for engine64 in (e64_nhwc, e64_chw):
         vs_plain_phase(engine64, frames64, plain, KERNELS)
     for layout, quantize in (("nhwc", "int8"), ("chw", "int8"),
@@ -1320,13 +1784,12 @@ def main() -> int:
     golden_phase("golden_nhwc", variables, meta, xv, yv, "nhwc")
     runs.append(main_path("main_path_w64_nhwc", e64_nhwc, frames64, W64_FRAMES,
                           W64_NHWC_WANT, card, own))
-    runs.append(main_path("main_path_w64_chw", e64_chw, frames64, W64_FRAMES, {
-        "fused_scrub_standardize": 1, "fused_conv_block_chw": 4,
-        "fused_block_int8_nhwc": 1, "fused_block_int8_kchunked": 1,
-        "fused_mask_to_u8": 1}, card, own))
+    runs.append(main_path("main_path_w64_chw", e64_chw, frames64, W64_FRAMES,
+                          W64_CHW_WANT, card, own))
+
+    runs += trained_runs
 
     # the user's command: EXR in, PNG out, untiled and tiled; then validate
-    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     work = tempfile.mkdtemp(dir=os.path.join(REPO, "build"))
     try:
         launches, engine_cli, x_cli, mask_cli = cli_infer_phase(

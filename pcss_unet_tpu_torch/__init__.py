@@ -15,12 +15,16 @@ What it holds so far:
   Pallas kernel: K1 scrub+standardize, K2 and K2′ the fused ConvBlock,
   K3/K5 the int8 whole blocks, K4 the uint8 mask, K6 the 128-channel block,
   K7 the int8 3×3;
-- the user's entry point: ``python -m pcss_unet_tpu_torch infer|validate``
-  (``cli``), with the EXR/PNG IO stack (``io``: the pure-Python codec and
-  the native one built from ``native/exr``), halo-tiled inference
-  (``infer.tiled``, ``ops.blend``), the train-vs-infer consistency check
-  (``parity``), the config (``config``) and the train-set statistics
-  (``data.stats``).
+- the user's entry point: ``python -m pcss_unet_tpu_torch
+  train|infer|serve|validate`` (``cli``), with the EXR/PNG IO stack
+  (``io``: the pure-Python codec and the native one built from
+  ``native/exr``), halo-tiled inference (``infer.tiled``, ``ops.blend``),
+  the train-vs-infer consistency check (``parity``), the config
+  (``config``) and the train-set statistics (``data.stats``);
+- training on one card: the losses (``losses``, with the VGG tower of
+  ``models.vgg``), the UNet's train mode, the train step, loop, checkpoints
+  and metric writers (``train``), and the packed-dataset loader
+  (``data.pipeline``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``--device cpu`` on the command line); on the CPU each kernel wrapper runs

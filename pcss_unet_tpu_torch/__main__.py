@@ -9,7 +9,7 @@ import sys
 
 COMMANDS = ("organize", "prepare", "stats", "train", "infer", "serve",
             "validate", "temporal", "check", "inspect")
-PORTED = ("infer", "serve", "validate")
+PORTED = ("train", "infer", "serve", "validate")
 
 
 def main():

@@ -59,3 +59,24 @@ def seeded_variables(encoder_widths: Sequence[int] = (64, 128, 512, 1024), *,
     block("dec_final", prev, in_ch * 4)
     params["head"] = conv(1, in_ch * 4, out_ch * 4)
     return {"params": params, "batch_stats": stats}
+
+
+def init_train_weights(model: torch.nn.Module,
+                       generator: torch.Generator) -> torch.nn.Module:
+    """Fresh trainable weights for ``model``, drawn from ``generator`` (on
+    the CPU): each conv as torch's ``nn.Conv2d`` initializes it (Kaiming-
+    uniform kernels with a = √5, uniform biases in ±1/√fan_in, the
+    reference's own init), BatchNorm at identity (scale 1, bias 0, running
+    mean 0, variance 1).  The reference's flax init draws other numbers."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+                bound = 1.0 / math.sqrt(fan_in)     # kaiming_uniform(a=√5)
+                m.weight.copy_((torch.rand(m.weight.shape, generator=generator)
+                                * 2 - 1) * bound)
+                m.bias.copy_((torch.rand(m.bias.shape, generator=generator)
+                              * 2 - 1) * bound)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.reset_parameters()
+    return model

@@ -105,17 +105,19 @@ def export_to_torch_state_dict(variables: Mapping) -> dict:
     return out
 
 
-def from_flax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
+def from_flax_variables(variables: Mapping,
+                        dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
     """JAX-layout variables (numpy leaves) → state dict of this port's
-    ``UNet``: HWIO kernels become OIHW ``nn.Conv2d`` weights, BatchNorm
-    scale/bias/mean/var become ``BatchNorm2d`` weight/bias/running stats.
-    Works for folded (no ``norm_*``) and unfolded trees of any depth."""
+    ``UNet`` in ``dtype``: HWIO kernels become OIHW ``nn.Conv2d`` weights,
+    BatchNorm scale/bias/mean/var become ``BatchNorm2d`` weight/bias/running
+    stats.  Works for folded (no ``norm_*``) and unfolded trees of any
+    depth."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     out: dict[str, torch.Tensor] = {}
 
     def t(a):
-        return torch.from_numpy(np.array(a, np.float32))
+        return torch.from_numpy(np.array(a, np.float64)).to(dtype)
 
     for name, block in params.items():
         if "conv_a" not in block:          # a plain conv (the head)
@@ -137,6 +139,38 @@ def from_flax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
             out[f"{name}.{norm}.running_var"] = t(s["var"])
             out[f"{name}.{norm}.num_batches_tracked"] = torch.tensor(0)
     return out
+
+
+def to_flax_variables(model: torch.nn.Module) -> dict:
+    """The inverse of ``from_flax_variables``: this port's ``UNet`` →
+    JAX-layout variables (numpy leaves in the module's dtypes, HWIO
+    kernels, BatchNorm weight/bias → scale/bias, running statistics →
+    ``batch_stats`` mean/var)."""
+    params: dict = {}
+    stats: dict = {}
+    leaf = {"weight": "kernel", "bias": "bias"}
+    norm_leaf = {"weight": "scale", "bias": "bias",
+                 "running_mean": "mean", "running_var": "var"}
+    for key, t in model.state_dict().items():
+        a = t.detach().cpu().numpy()
+        parts = key.split(".")
+        if len(parts) == 2:                            # the head
+            params.setdefault(parts[0], {})[leaf[parts[1]]] = (
+                np.ascontiguousarray(np.transpose(a, (2, 3, 1, 0)))
+                if parts[1] == "weight" else a)
+            continue
+        block, layer, name = parts
+        if name == "num_batches_tracked":
+            continue
+        if layer.startswith("conv"):
+            params.setdefault(block, {}).setdefault(layer, {})[leaf[name]] = (
+                np.ascontiguousarray(np.transpose(a, (2, 3, 1, 0)))
+                if name == "weight" else a)
+        elif name.startswith("running_"):
+            stats.setdefault(block, {}).setdefault(layer, {})[norm_leaf[name]] = a
+        else:
+            params.setdefault(block, {}).setdefault(layer, {})[norm_leaf[name]] = a
+    return {"params": params, "batch_stats": stats}
 
 
 def load_torch_checkpoint(path: str) -> dict:

@@ -30,8 +30,19 @@ whole-block kernels (K3, or K5 where K3's weights would not fit) for the
 kernel through its NHWC wrapper (K2′) for ≤64-channel inputs, plain
 convolutions otherwise.  As in the reference, only a LeakyReLU block
 without dilation takes a kernel.  The kernels take NHWC; the NCHW
-activations reach them as permuted views.  The reference's ``remat_bottleneck``
-(training) and ``spatial_window`` (sharded inference) are not ported yet.
+activations reach them as permuted views.
+
+Training runs ``UNet.forward_train``, the reference's ``train=True``
+forward: BatchNorm normalizes with the batch's statistics (flax's: mean
+E[x], biased variance E[x²] − E[x]² clipped at 0, in float32 or wider) and
+returns the updated running statistics (flax momentum 0.9, the biased
+variance) instead of writing them, so the train step decides whether to
+keep them; Dropout2d takes its masks from the caller (``dropout_masks``:
+drawn from an explicit generator, at half the rate for ``dec_final``); the
+bottleneck runs under ``torch.utils.checkpoint`` (the reference's
+``remat_bottleneck``) with its mask drawn outside the checkpointed region,
+so the recompute applies the same mask.  The reference's
+``spatial_window`` (sharded inference) is not ported yet.
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pcss_unet_tpu_torch.ops.kernels.convblock import fused_conv_block_nhwc
 from pcss_unet_tpu_torch.ops.kernels.deploy import block_kernel_nhwc
@@ -103,6 +115,29 @@ def _norm(normalization: str, ch: int) -> nn.Module:
     if normalization == "none":
         return nn.Identity()
     raise ValueError(f"unknown normalization: {normalization}")
+
+
+BN_MOMENTUM = 0.9     # flax's momentum (torch's 0.1)
+
+
+def batch_norm_train(x: torch.Tensor, norm: nn.BatchNorm2d,
+                     running: tuple[torch.Tensor, torch.Tensor],
+                     dtype: torch.dtype) -> tuple[torch.Tensor, tuple]:
+    """flax ``nn.BatchNorm(use_running_average=False)`` on NCHW ``x`` in
+    ``dtype``: batch mean E[x] and biased variance max(0, E[x²] − E[x]²)
+    over (N, H, W), ``(x − mean) · (rsqrt(var + eps) · scale) + bias``.
+    Returns the output and the updated running (mean, var) computed from
+    ``running`` (detached; nothing is written)."""
+    xf = x.to(dtype)
+    mean = xf.mean(dim=(0, 2, 3))
+    var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + norm.eps) * norm.weight.to(dtype)
+    y = (xf - mean[:, None, None]) * mul[:, None, None] \
+        + norm.bias.to(dtype)[:, None, None]
+    with torch.no_grad():
+        new = tuple(BN_MOMENTUM * r + (1.0 - BN_MOMENTUM) * s.to(r.dtype)
+                    for r, s in zip(running, (mean, var)))
+    return y, new
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -201,6 +236,32 @@ class ConvBlock(nn.Module):
                 x = self.dropout(x)
         return x
 
+    def forward_train(self, x: torch.Tensor, mask: torch.Tensor | None,
+                      running: tuple | None) -> tuple[torch.Tensor, tuple]:
+        """Train-mode block on NCHW ``x``: BatchNorm on batch statistics,
+        Dropout2d as ``torch.where(mask, x / keep, 0)`` with ``mask`` a bool
+        [B, C, 1, 1] (None: no dropout), the reference's flax Dropout.
+        ``running``: (mean_a, var_a, mean_b, var_b), the running statistics
+        to update (batch_norm only).  → (output, updated running stats, or
+        () for other norms)."""
+        self.route = "plain"
+        bn_dtype = torch.promote_types(torch.float32, self.dtype)
+        new = []
+        for i, (conv, norm) in enumerate(((self.conv_a, self.norm_a),
+                                          (self.conv_b, self.norm_b))):
+            x = _conv(conv, x, self.dtype)
+            if self.normalization == "batch_norm":
+                x, stats = batch_norm_train(x, norm, running[2 * i:2 * i + 2],
+                                            bn_dtype)
+                new += stats
+            elif self.normalization != "none":
+                x = norm(x.float())
+            x = _act(self.activation, x).to(self.dtype)
+            if conv is self.conv_a and mask is not None:
+                keep = 1.0 - self.dropout.p
+                x = torch.where(mask, x / keep, torch.zeros_like(x))
+        return x, tuple(new)
+
 
 def _pool2x(x: torch.Tensor) -> torch.Tensor:
     """2×2 average pool on NCHW, floor semantics on odd sizes."""
@@ -234,7 +295,8 @@ class UNet(nn.Module):
                  normalization: str = "batch_norm",
                  dtype: torch.dtype = torch.float32,
                  fused_inference: bool = False, int8_inference: bool = False,
-                 activation: str = "leaky_relu", apply_dilation: bool = False):
+                 activation: str = "leaky_relu", apply_dilation: bool = False,
+                 remat_bottleneck: bool = True):
         super().__init__()
         widths = tuple(encoder_widths)
         if len(widths) < 2:
@@ -244,6 +306,7 @@ class UNet(nn.Module):
         self.normalization = normalization
         self.activation = activation
         self.apply_dilation = apply_dilation
+        self.remat_bottleneck = remat_bottleneck
         self.dtype = dtype
         kw = dict(normalization=normalization, dtype=dtype,
                   fused_inference=fused_inference,
@@ -283,19 +346,84 @@ class UNet(nn.Module):
         [B, H/2, W/2, in_ch·4] in ``dtype`` (``pixel_unshuffle_nhwc``, or
         K1 with ``entry="nhwc"`` in one pass).  Returns the float32 sigmoid
         mask [B, H, W, out_ch]."""
+        return self._trunk(x, lambda name, h: getattr(self, name)(h))
+
+    def blocks(self) -> list[str]:
+        """The ConvBlocks' names in forward order."""
+        return [name for name, m in self.named_children()
+                if isinstance(m, ConvBlock)]
+
+    def dropout_masks(self, batch: int, generator: torch.Generator | None,
+                      device: torch.device | str) -> dict[str, torch.Tensor]:
+        """One Dropout2d keep-mask per block with a non-zero rate: bool
+        [batch, C, 1, 1] (C: the block's input width), kept with
+        probability 1 − rate, drawn from ``generator`` in block order."""
+        masks = {}
+        for name in self.blocks():
+            block = getattr(self, name)
+            if block.dropout.p > 0:
+                u = torch.rand((batch, block.conv_a.in_channels, 1, 1),
+                               generator=generator, device=device)
+                masks[name] = u < 1.0 - block.dropout.p
+        return masks
+
+    def forward_train(self, x: torch.Tensor,
+                      masks: dict[str, torch.Tensor] | None = None,
+                      running: dict[str, torch.Tensor] | None = None
+                      ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """The reference's train-mode forward of NHWC frames [B, H, W,
+        in_ch]: BatchNorm on batch statistics, Dropout2d with ``masks``
+        (``dropout_masks``; None or a missing block: no dropout), the
+        bottleneck recomputed in the backward where ``remat_bottleneck``.
+        ``running``: buffer name → running statistic to update (the
+        module's buffers where absent).  → (float32 sigmoid mask [B, H, W,
+        out_ch], buffer name → updated running statistic); the module's
+        buffers are not written."""
+        masks = masks or {}
+        new: dict[str, torch.Tensor] = {}
+        bottleneck = f"enc_{len(self.encoder_widths) - 1}"
+
+        def block(name, h):
+            blk = getattr(self, name)
+            keys = [f"{name}.{n}.running_{s}" for n in ("norm_a", "norm_b")
+                    for s in ("mean", "var")]
+            stats = None
+            if self.normalization == "batch_norm":
+                buffers = dict(blk.named_buffers(prefix=name))
+                stats = tuple((running or {}).get(k, buffers[k]) for k in keys)
+            if (name == bottleneck and self.remat_bottleneck
+                    and torch.is_grad_enabled()):
+                # no randomness inside: the mask comes in as a tensor
+                out, st = checkpoint(blk.forward_train, h, masks.get(name),
+                                     stats, use_reentrant=False,
+                                     preserve_rng_state=False)
+            else:
+                out, st = blk.forward_train(h, masks.get(name), stats)
+            new.update(zip(keys, st))
+            return out
+
+        _, h, w, _ = x.shape
+        if h % 2 or w % 2:
+            x = resize_bilinear_align_corners(x, (h - h % 2, w - w % 2))
+        out = self._trunk(pixel_unshuffle_nhwc(x.to(self.dtype), 2), block)
+        return out, new
+
+    def _trunk(self, x: torch.Tensor, block) -> torch.Tensor:
+        """The network from its pixel-unshuffled NHWC input to the sigmoid
+        mask, ``block(name, h)`` running each ConvBlock on NCHW ``h``."""
         x = x.permute(0, 3, 1, 2)
         depth = len(self.encoder_widths)
         skips = []
         for i in range(depth - 1):
-            x = getattr(self, f"enc_{i}")(x)
+            x = block(f"enc_{i}", x)
             skips.append(x)
             x = _pool2x(x)
-        x = getattr(self, f"enc_{depth - 1}")(x)
+        x = block(f"enc_{depth - 1}", x)
         for i, skip in enumerate(reversed(skips)):
             hh, ww = x.shape[2:]
             x = _resize_nchw(x, (hh * 2, ww * 2))
             x = _resize_nchw(x, tuple(skip.shape[2:]))   # size re-match
-            x = getattr(self, f"dec_{i}")(x) + skip
+            x = block(f"dec_{i}", x) + skip
         hh, ww = x.shape[2:]
         th, tw = skips[0].shape[2:]
         # the head's up-2×-then-match-down resize pair, folded into one
@@ -303,7 +431,7 @@ class UNet(nn.Module):
         for axis, sizes in ((2, (hh, hh * 2, th)), (3, (ww, ww * 2, tw))):
             if not np.array_equal(resize_chain(sizes), np.eye(sizes[0], dtype=np.float32)):
                 x = apply_matrix(x, matrix_on(x.device, resize_chain, sizes), axis)
-        x = self.dec_final(x)
+        x = block("dec_final", x)
         x = _conv(self.head, x, self.dtype)
         x = pixel_shuffle_nhwc(x.permute(0, 2, 3, 1), 2)
         return torch.sigmoid(x.float())

@@ -9,7 +9,8 @@ exact against the dense product, so the port keeps the dense one.
 
 Numerics follow the reference: at a low-precision working dtype the matrix
 is cast to that dtype first, the product accumulates in float32 and the
-result is cast back; at float32 the product runs at full float32 precision.
+result is cast back; at float32 the product runs at full float32 precision;
+at float64 it accumulates in float64 and the result is rounded to float32.
 
 Public layout is NHWC (axes 1 and 2), like the reference.
 """
@@ -61,7 +62,10 @@ def compose_resize_matrices(sizes_h: tuple[int, ...],
 
 @functools.lru_cache(maxsize=256)
 def _matrix_cached(device: torch.device, build, args: tuple) -> torch.Tensor:
-    return torch.as_tensor(build(*args), device=device)
+    # a normal tensor even when first asked for under inference_mode, so a
+    # later training forward in the process can save it for backward
+    with torch.inference_mode(False):
+        return torch.as_tensor(build(*args), device=device)
 
 
 def matrix_on(device: torch.device, build, *args) -> torch.Tensor:
@@ -84,16 +88,20 @@ def apply_matrix(x: torch.Tensor, m: np.ndarray | torch.Tensor,
     the result back in x's dtype.  ``m`` is a host array or a tensor on x's
     device (``matrix_on``)."""
     dtype = x.dtype
-    mt = torch.as_tensor(m, device=x.device).to(dtype).float()
+    # float64 (the training-parity nets) accumulates in float64 and rounds
+    # the product to float32, as the reference's float32 result type does
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    mt = torch.as_tensor(m, device=x.device).to(dtype).to(acc)
+    xa = x.to(acc)
     axis %= x.dim()
     if axis == x.dim() - 1:
-        out = torch.matmul(x.float(), mt.T)
+        out = torch.matmul(xa, mt.T)
     elif axis == x.dim() - 2:
-        out = torch.matmul(mt, x.float())
+        out = torch.matmul(mt, xa)
     else:
-        out = torch.movedim(torch.matmul(torch.movedim(x.float(), axis, -1),
+        out = torch.movedim(torch.matmul(torch.movedim(xa, axis, -1),
                                          mt.T), -1, axis)
-    return out.to(dtype)
+    return out.float().to(dtype)
 
 
 def _is_identity(m: np.ndarray) -> bool:

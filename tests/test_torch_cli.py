@@ -180,11 +180,14 @@ def test_default_device_is_the_card(work, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,code", [
-    (["train"], 2), (["temporal"], 2), (["bogus"], 2), ([], 2), (["--help"], 0)])
+    (["train", "--help"], 0), (["temporal"], 2), (["bogus"], 2), ([], 2),
+    (["--help"], 0)])
 def test_dispatcher_exit_codes(monkeypatch, capsys, argv, code):
     with pytest.raises(SystemExit) as e:
         _run(pmain, argv, monkeypatch)
     assert e.value.code == code
     out = capsys.readouterr()
-    if argv[:1] in (["train"], ["temporal"]):
+    if argv[:1] == ["temporal"]:
         assert "not ported yet" in out.err
+    if argv[:1] == ["train"]:          # ported: its own parser's help
+        assert "--allow_random_vgg" in out.out and "--device" in out.out

@@ -668,3 +668,101 @@ def test_dispatch_does_not_wait_for_the_device(dev, gen, layout):
     assert busy, "the stream finished before the host returned"
     assert host_ms < sleep_ms / 2, host_ms
     assert torch.equal(out.cpu(), want)
+
+
+# ------------------------------------------------------------------ training
+def _train_run(device, steps=3, widths=(16, 32, 64, 128), hw=64):
+    """``steps`` port train steps in float32 (adamw, dropout 0) from the
+    same seeded weights on ``device`` → (losses, {name: change}, stats)."""
+    from pcss_unet_tpu_torch.config import Config
+    from pcss_unet_tpu_torch.losses import LossBundle, PerceptualLoss
+    from pcss_unet_tpu_torch.models.init import init_train_weights
+    from pcss_unet_tpu_torch.models.unet import UNet
+    from pcss_unet_tpu_torch.train import build_train_step, create_train_state
+
+    cfg = Config(batch_size=2, num_epochs=4, warmup_epochs=1, dropout_rate=0.0)
+    model = init_train_weights(UNet(encoder_widths=widths, dropout_rate=0.0),
+                               torch.Generator().manual_seed(0)).to(device).train()
+    before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    state = create_train_state(model, cfg, 4)
+    bundle = LossBundle(perceptual=PerceptualLoss(None, device=device))
+    step = build_train_step(cfg, bundle, np.zeros(4, np.float32),
+                            np.ones(4, np.float32), 4)
+    rng = np.random.default_rng(0)
+    losses = []
+    for _ in range(steps):
+        x = torch.from_numpy(rng.standard_normal((2, hw, hw, 4)).astype(np.float32))
+        y = torch.from_numpy(rng.random((2, hw, hw, 1)).astype(np.float32))
+        m = step(state, x.to(device), y.to(device))
+        assert int(m["skipped"]) == 0
+        losses.append(float(m["total_loss"]))
+    deltas = {n: (p.detach().cpu() - before[n]).double().numpy().ravel()
+              for n, p in model.named_parameters()}
+    stats = {n: b.detach().cpu() for n, b in model.named_buffers() if "running" in n}
+    return losses, deltas, stats
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """Three train steps on the card against the same steps on the CPU,
+    float32, TF32 off: losses within 1e-4 relative, each parameter's change
+    along the same direction (cosine > 0.995, norm within 2 %: the criteria
+    of tests/test_train_parity.py for Adam, whose first steps are
+    sign-like), BatchNorm statistics within 1e-4.  The conv biases in front
+    of a BatchNorm have a zero true gradient, so only their size is held."""
+    import re
+
+    cl, cd, cs = _train_run(dev)
+    hl, hd, hs = _train_run("cpu")
+    np.testing.assert_allclose(cl, hl, rtol=1e-4)
+    for name in hd:
+        a, b = cd[name], hd[name]
+        if re.search(r"\.conv_[ab]\.bias$", name):
+            assert np.abs(a).max() < 1e-3 and np.abs(b).max() < 1e-3, name
+            continue
+        cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+        assert cos > 0.995 and abs(np.linalg.norm(a) / np.linalg.norm(b) - 1) < 2e-2, \
+            (name, cos)
+    for name in hs:
+        torch.testing.assert_close(cs[name], hs[name], rtol=1e-4, atol=1e-5)
+
+
+def test_remat_on_the_card(dev):
+    """The bottleneck under torch.utils.checkpoint with dropout on, on the
+    card: the same gradients as without remat (the mask is drawn outside
+    the checkpointed region), with deterministic cuDNN."""
+    from pcss_unet_tpu_torch.models.unet import UNet
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.standard_normal((2, 64, 64, 4)).astype(np.float32)).to(dev)
+        y = torch.from_numpy(rng.random((2, 64, 64, 1)).astype(np.float32)).to(dev)
+        grads = {}
+        for remat in (False, True):
+            torch.manual_seed(3)
+            model = UNet(encoder_widths=(16, 32, 64), dropout_rate=0.5,
+                         dtype=torch.bfloat16, remat_bottleneck=remat).to(dev).train()
+            masks = model.dropout_masks(2, torch.Generator(dev).manual_seed(11), dev)
+            out, _ = model.forward_train(x, masks)
+            grads[remat] = torch.autograd.grad((out - y).abs().mean(),
+                                               list(model.parameters()))
+        for a, b in zip(grads[False], grads[True]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def test_prefetch_to_device_delivers_the_host_batches(dev):
+    """Batches come out on the card equal to the host loader's, in order,
+    through pinned buffers on a copy stream."""
+    from pcss_unet_tpu_torch.data.pipeline import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    host = [(rng.random((2, 64, 96, 4), dtype=np.float32),
+             rng.random((2, 64, 96, 1), dtype=np.float32)) for _ in range(5)]
+    got = list(prefetch_to_device(iter(host), dev))
+    assert len(got) == 5
+    for (x, y), (a, b) in zip(host, got):
+        assert a.device.type == "cuda"
+        assert np.array_equal(a.cpu().numpy(), x) and np.array_equal(b.cpu().numpy(), y)
