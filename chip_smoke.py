@@ -53,6 +53,41 @@ trained net's kernel calls), each freeing what it used:
   holds the kernel calls of one NHWC and one chw trained frame as path
   ``w64_trained``.
 
+Then the chain from renders to a trained net, every command through
+``python -m pcss_unet_tpu_torch`` in process:
+
+- ``data_cli``: 20 renderer-plausible 2048×1024 frames written by the
+  port's ``write_exr`` and ``encode_png`` as a raw scene, then
+  ``organize`` → ``prepare`` → ``stats`` → ``check channels`` → ``check
+  packs``: the split 16/4, every pack row equal to its file's decode in
+  ``discover_pairs`` order, the stats equal to numpy float64 over the pack
+  within 1e-12 relative, both checks exit 0; seconds of each step and
+  prepare's ms per frame.
+- ``train_governor``: ``train`` on those packs at config.ini's reference
+  settings (w64, batch 8, perturb, ``--allow_random_vgg``, governor = xla:
+  one real step per candidate, its peak allocated memory measured), 1
+  epoch of 2 steps, ``--grad_accum_steps 0``: accum 1 picked, the probe's
+  peak within ±10 % of the peak allocated during the run's ``fit``, the
+  model ``fit`` receives equal to a ``--grad_accum_steps 1`` run's (the
+  probe touched nothing); each probe, the card's budget and the analytic
+  answers beside them; then batch 16 (which accum, whether its first step
+  completes).
+- ``train_cache``: every train and val batch of ``DeviceCache.batches``
+  equal to the streamed one (``torch.equal``), full frames and 512² crops;
+  step ms of the reference config with ``device_data_cache`` on and off.
+- ``grain``: ``train --grain --grain_workers 4``, 2 finite steps at 256²
+  batch 8.
+- ``temporal``: the CLI on deploy_w16's golden sequence (``--fold_bn``, and
+  with ``--quantize int8``): the score under the JAX suite's gate and equal
+  within 1e-6 to the metric of the engine's masks, one PNG per frame; on
+  the seeded w64 net over 4 animated 1920×1080 frames with motion vectors,
+  int8, with the main paths' stats: the score and the launches per frame
+  (the ``main_path_w64_nhwc`` path's, without K4).
+- ``e2e_chain``: ``infer`` of a val EXR of the scene with the checkpoint
+  directory ``train_governor`` wrote and ``--stats_dir`` from ``stats``
+  (``--fold_bn --quantize int8``): the launches per frame, and the PNG's
+  codes ``trunc(255 · engine mask)``.
+
 2. ``kernel``: each kernel against its plain PyTorch version on the card, on
    the inputs each main path really gives it (recorded from one forward of
    each of the three paths below, and of the tiled CLI's forward,
@@ -143,8 +178,8 @@ trained net's kernel calls), each freeing what it used:
     version.
 
 Then the ``{"kernels": [...]}`` line (``launches``: the sum over the three
-main-path runs, the two trained-net runs, the two counted CLI runs, the
-four server runs and the serve CLI's run; ``ms``, ``plain_ms`` and ``bound_ms``: per frame of the
+main-path runs, the two trained-net runs, the temporal and e2e_chain runs,
+the two counted CLI runs, the four server runs and the serve CLI's run; ``ms``, ``plain_ms`` and ``bound_ms``: per frame of the
 kernel's headline path; ``max_abs_err``: over every path), the card's name and power limit as ``nvidia-smi`` prints
 them, and the result line.  Any failure raises and exits non-zero; with no
 CUDA device the script exits 2 and prints nothing.
@@ -153,6 +188,7 @@ CUDA device the script exits 2 and prints nothing.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -164,6 +200,8 @@ import sys
 import tempfile
 import threading
 import time
+import types
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -1503,6 +1541,505 @@ def train_to_serve_phase(npz, stats, data, plain, card, own):
     return e_nhwc, e_chw, frames, runs
 
 
+# ------------------------------------------- from renders to a trained net
+# The data CLIs, the memory governor, the device cache, the --grain loader,
+# temporal and the chain that ends in infer: every step through
+# ``python -m pcss_unet_tpu_torch`` in process.
+SCENE_TRAIN, SCENE_VAL = 16, 4
+CACHE_CROP = 512
+GRAIN_HW = 256
+TEMPORAL_GATE = 1.25 * 0.007692 + 1e-4      # tests/test_torch_deployment_golden.py
+W64_ENGINE_WANT = {k: v for k, v in W64_NHWC_WANT.items()
+                   if k != "fused_mask_to_u8"}   # engine(frame): no K4
+
+
+def dispatch(argv):
+    """``python -m pcss_unet_tpu_torch <argv>`` in process → (what the
+    command returned, its exit code)."""
+    import pcss_unet_tpu_torch.__main__ as pmain
+
+    saved, sys.argv = sys.argv, ["pcss_unet_tpu_torch", *argv]
+    try:
+        return pmain.main(), 0
+    except SystemExit as e:
+        return None, e.code
+    finally:
+        sys.argv = saved
+
+
+def derived_ini(work: str, name: str, **keys) -> str:
+    """config.ini with ``keys`` set in its [base] section."""
+    with open(os.path.join(REPO, "config.ini")) as f:
+        text = f.read()
+    extra = "".join(f"{k} = {v}\n" for k, v in keys.items())
+    path = os.path.join(work, name)
+    with open(path, "w") as f:
+        f.write(text.replace("[base]\n", "[base]\n" + extra, 1))
+    return path
+
+
+def data_cli_phase(work: str, card: str):
+    """A synthetic scene of 20 renderer-plausible 2048×1024 frames written
+    by the port's writers (float32 ZIP EXRs in ``conditioning_images/``,
+    8-bit PNG labels in ``images/``), then ``organize`` → ``prepare`` →
+    ``stats`` → ``check channels`` → ``check packs``.  Checks: the split
+    16/4; every pack row equal to ``read_exr_stack`` / ``read_label_png``
+    of its file in ``discover_pairs`` order; the stats equal numpy float64
+    over the pack within 1e-12 relative; both checks exit 0.  → (the
+    processed dir, the split dir)."""
+    from pcss_unet_tpu_torch.data.pipeline import discover_pairs
+    from pcss_unet_tpu_torch.io.exr import read_exr_stack, write_exr
+    from pcss_unet_tpu_torch.io.png import encode_png, read_label_png
+
+    scene, split, data = (os.path.join(work, d) for d in ("scene", "split", "data"))
+    for sub in ("conditioning_images", "images"):
+        os.makedirs(os.path.join(scene, sub))
+    def write(i, x, y):
+        write_exr(os.path.join(scene, "conditioning_images", f"frame{i:03d}.exr"),
+                  {c: x[..., k] for k, c in enumerate("RGBA")})
+        with open(os.path.join(scene, "images", f"frame{i:03d}.png"), "wb") as f:
+            f.write(encode_png(np.rint(y[..., 0] * 255).astype(np.uint8), "L"))
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    # the codecs release the GIL: the writes overlap on threads
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        jobs = [pool.submit(write, i, *gbuffer(rng, i, FRAME_H, FRAME_W))
+                for i in range(SCENE_TRAIN + SCENE_VAL)]
+        for job in jobs:
+            job.result()
+    seconds = {"scene_write": time.perf_counter() - t0}
+    results, codes = {}, {}
+    for name, argv in (
+            ("organize", ["organize", "--scene_dir", scene, "--out_dir", split]),
+            ("prepare", ["prepare", "--train_dir", os.path.join(split, "train"),
+                         "--val_dir", os.path.join(split, "val"), "--out_dir", data]),
+            ("stats", ["stats", "--dataset_path", data]),
+            ("check_channels", ["check", "channels", os.path.join(split, "train"),
+                                os.path.join(split, "val")]),
+            ("check_packs", ["check", "packs", "--dataset_path", data,
+                             "--report", os.path.join(work, "packs.json")])):
+        t0 = time.perf_counter()
+        results[name], codes[name] = dispatch(argv)
+        seconds[name] = time.perf_counter() - t0
+    rows_differing = 0
+    for part in ("train", "val"):
+        xs = np.load(os.path.join(data, f"{part}_inputs.npy"), mmap_mode="r")
+        ys = np.load(os.path.join(data, f"{part}_labels.npy"), mmap_mode="r")
+        pairs = discover_pairs(os.path.join(split, part))
+        rows_differing += abs(len(pairs) - len(xs))
+        for i, (exr, png) in enumerate(pairs):
+            x = read_exr_stack(exr)
+            y = read_label_png(png, target_hw=x.shape[:2])[..., None]
+            rows_differing += int(not (np.array_equal(xs[i], x) and np.array_equal(ys[i], y)))
+    x64 = np.load(os.path.join(data, "train_inputs.npy")).astype(np.float64)
+    rel = 0.0          # a constant channel's std is 0 on both sides, exactly
+    for k, ref in (("means", x64.mean(axis=(0, 1, 2))),
+                   ("stds", x64.std(axis=(0, 1, 2)))):
+        d = np.abs(results["stats"][k] - ref)
+        rel = max(rel, float(np.max(np.where(ref != 0, d / np.where(ref != 0, np.abs(ref), 1),
+                                             np.where(d == 0, 0.0, np.inf)))))
+    del x64
+    line = {"phase": "data_cli", "card": card, "frames": SCENE_TRAIN + SCENE_VAL,
+            "frame_hw": [FRAME_H, FRAME_W], "split": results["organize"],
+            "seconds": seconds,
+            "prepare_ms_per_frame": seconds["prepare"] / (SCENE_TRAIN + SCENE_VAL) * 1e3,
+            "pack_rows_differing": rows_differing, "stats_max_rel_vs_numpy": rel,
+            "exit_codes": codes}
+    emit(line)
+    if (results["organize"] != {"train": SCENE_TRAIN, "val": SCENE_VAL}
+            or rows_differing or not rel <= 1e-12 or any(codes.values())):
+        raise AssertionError(f"data_cli: {line}")
+    return data, split
+
+
+def snapshot(model) -> dict:
+    return {n: t.detach().cpu().clone() for n, t in model.state_dict().items()}
+
+
+def train_governor_phase(work: str, data: str, card: str) -> str:
+    """``train`` at config.ini's reference settings (w64, batch 8 of
+    2048×1024, perturb, ``--allow_random_vgg``, governor = xla: the measured
+    probe) on the data_cli packs, 1 epoch of 2 steps, with
+    ``--grad_accum_steps 0``.  Checks: accum 1 picked; the probe's peak at
+    accum 1 within ±10 % of the peak allocated during the run's ``fit``;
+    the model handed to ``fit`` equal, parameters and buffers, to a run's
+    with ``--grad_accum_steps 1`` (the probe touched nothing).  Then batch
+    16 with accum 0 (which accum, does its first step complete), and the
+    analytic answers on this card.  → the run's checkpoint directory."""
+    import torch
+
+    from pcss_unet_tpu_torch.cli import train as cli_train
+    from pcss_unet_tpu_torch.config import load_config
+    from pcss_unet_tpu_torch.models.unet import unet_from_config
+    from pcss_unet_tpu_torch.train import governor, loop
+    from pcss_unet_tpu_torch.utils import memory
+
+    t_start = time.perf_counter()
+    probes, fits = [], []
+    real_probe, real_fit = governor.probe_step_memory, loop.fit
+
+    def probe(cfg, *a, **k):
+        t0 = time.perf_counter()
+        plan = real_probe(cfg, *a, **k)
+        probes.append({"grad_accum_steps": cfg.grad_accum_steps, "batch": a[3],
+                       "total_gb": plan["total"] / 1e9, "state_gb": plan["args"] / 1e9,
+                       "oom": plan["oom"], "seconds": time.perf_counter() - t0})
+        return plan
+
+    def fit_spy(cfg, model, *a, stub=False, **k):
+        rec = {"grad_accum_steps": cfg.grad_accum_steps, "batch": cfg.batch_size,
+               "model": snapshot(model)}
+        fits.append(rec)
+        if stub:           # the model as fit receives it is all this run needs
+            return types.SimpleNamespace(best_val_loss=float("nan"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r = real_fit(cfg, model, *a, **k)
+        torch.cuda.synchronize()
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        return r
+
+    base = ["--config", os.path.join(REPO, "config.ini"), "--loss_type", "perturb",
+            "--allow_random_vgg", "--processed_data_dir", data, "--device", DEVICE,
+            "--num_epochs", "1"]
+    ck = os.path.join(work, "ckpt_governor")
+    cwd = os.getcwd()
+    os.chdir(work)
+    records, records16 = [], []
+    try:
+        with swapped([(governor, "probe_step_memory", probe), (loop, "fit", fit_spy),
+                      (loop, "build_train_step", timed_step_builder(loop, records))]):
+            cli_train.main(base + ["--save_dir", ck, "--grad_accum_steps", "0"])
+        run_probes = list(probes)
+        with swapped([(loop, "fit", functools.partial(fit_spy, stub=True))]):
+            cli_train.main(base + ["--save_dir", os.path.join(work, "ckpt_accum1"),
+                                   "--grad_accum_steps", "1"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        del probes[:]
+        with swapped([(governor, "probe_step_memory", probe), (loop, "fit", fit_spy),
+                      (loop, "build_train_step", timed_step_builder(loop, records16))]):
+            cli_train.main(base + ["--save_dir", os.path.join(work, "ckpt_b16"),
+                                   "--grad_accum_steps", "0", "--batch_size", "16"])
+    finally:
+        os.chdir(cwd)
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg = load_config(os.path.join(REPO, "config.ini"))
+    n = memory.param_count(unet_from_config(cfg, device="cpu"))
+    budget = memory.device_budget(DEVICE)
+    run, accum1, b16 = fits
+    picked = {p["grad_accum_steps"]: p for p in run_probes}
+    probe_at_pick = picked.get(run["grad_accum_steps"], {}).get("total_gb")
+    probe_vs_run = (probe_at_pick / run["peak_gb"] - 1) if probe_at_pick else None
+    same_start = all(torch.equal(run["model"][k], accum1["model"][k]) for k in run["model"])
+    line = {"phase": "train_governor", "card": card, "config": "config.ini",
+            "governor": cfg.governor, "batch": 8, "frame_hw": [FRAME_H, FRAME_W],
+            "card_budget_gb": budget / 1e9, "reserve_gb": None,
+            "probes": run_probes, "grad_accum_steps_picked": run["grad_accum_steps"],
+            "run_peak_allocated_gb": run["peak_gb"],
+            "probe_vs_run_peak": probe_vs_run,
+            "step_ms": [r["ms"] for r in records],
+            "losses": [r["total_loss"] for r in records],
+            "model_at_fit_equals_accum1_run": same_start,
+            "analytic": {"params": n,
+                         "estimate_gb_batch8": memory.estimate_memory_usage(
+                             n, 8, FRAME_H, FRAME_W, optimizer=cfg.optimizer_type)["total"] / 1e9,
+                         "grad_accum_steps": memory.find_accum_steps(
+                             n, 8, FRAME_H, FRAME_W, cfg.optimizer_type, hbm_bytes=budget),
+                         "batch_size_0_picks": min(memory.find_optimal_batch_size(
+                             n, FRAME_H, FRAME_W, cfg.optimizer_type, hbm_bytes=budget),
+                             SCENE_TRAIN)},
+            "batch16": {"probes": list(probes),
+                        "grad_accum_steps_picked": b16["grad_accum_steps"],
+                        "first_step_completed": len(records16) == 1 and all(
+                            math.isfinite(r["total_loss"]) and r["skipped"] == 0
+                            for r in records16),
+                        "step_ms": [r["ms"] for r in records16],
+                        "peak_allocated_gb": b16.get("peak_gb")},
+            "seconds": time.perf_counter() - t_start}
+    from pcss_unet_tpu_torch.data.device_cache import dataset_nbytes
+    from pcss_unet_tpu_torch.data.pipeline import PackedDataset
+
+    line["reserve_gb"] = dataset_nbytes(PackedDataset(data, "train")) / 1e9
+    emit(line)
+    bad = [r for r in records if not math.isfinite(r["total_loss"]) or r["skipped"]]
+    if (run["grad_accum_steps"] != 1 or probe_vs_run is None
+            or abs(probe_vs_run) > 0.10 or not same_start or len(records) != 2 or bad
+            or not line["batch16"]["first_step_completed"]):
+        raise AssertionError(f"train_governor: {line}")
+    return ck
+
+
+def train_cache_phase(work: str, data: str, card: str) -> None:
+    """The device cache on the card: every train and val batch of
+    ``DeviceCache.batches`` equal (``torch.equal``) to the streamed batch
+    (``prefetch_to_device``), full frames and 512² crops; then the
+    reference config's ``train`` (2 epochs of 2 steps, accum 1) with
+    ``device_data_cache = on`` and with ``off``: step ms of each path."""
+    import torch
+
+    from pcss_unet_tpu_torch.cli import train as cli_train
+    from pcss_unet_tpu_torch.data import device_cache
+    from pcss_unet_tpu_torch.data.pipeline import (Loader, PackedDataset,
+                                                   prefetch_to_device)
+    from pcss_unet_tpu_torch.train import loop
+
+    t_start = time.perf_counter()
+    ds, vds = PackedDataset(data, "train"), PackedDataset(data, "val")
+    compared, differing = 0, 0
+    for part, batch in ((ds, 8), (vds, 4)):
+        for crop in (None, (CACHE_CROP, CACHE_CROP)):
+            loader = Loader(part, batch, shuffle=part is ds, seed=42, crop_hw=crop)
+            cache = device_cache.DeviceCache(part, crop_hw=crop, device=DEVICE)
+            for epoch in (0, 1):
+                got = list(cache.batches(loader, epoch))
+                want = list(prefetch_to_device(loader.epoch(epoch), DEVICE))
+                differing += abs(len(got) - len(want))
+                for (x, y), (a, b) in zip(got, want):
+                    compared += 1
+                    differing += int(not (torch.equal(x, a) and torch.equal(y, b)))
+            del cache, got, want
+    runs = {}
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        for mode in ("on", "off"):
+            records, built = [], []
+            real = device_cache.DeviceCache
+
+            def spy(*a, **k):
+                built.append(1)
+                return real(*a, **k)
+
+            ini = derived_ini(work, f"cache_{mode}.ini", device_data_cache=mode)
+            with swapped([(loop, "build_train_step", timed_step_builder(loop, records)),
+                          (loop, "DeviceCache", spy)]):
+                cli_train.main(["--config", ini, "--loss_type", "perturb",
+                                "--allow_random_vgg", "--processed_data_dir", data,
+                                "--save_dir", os.path.join(work, f"ckpt_cache_{mode}"),
+                                "--device", DEVICE, "--num_epochs", "2",
+                                "--grad_accum_steps", "1"])
+            ms = [r["ms"] for r in records]
+            runs[mode] = {"caches_built": len(built), "step_ms": ms,
+                          "ms_per_step_median": float(np.median(ms[1:])),
+                          "losses": [r["total_loss"] for r in records]}
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        os.chdir(cwd)
+    line = {"phase": "train_cache", "card": card, "batches_compared": compared,
+            "batches_differing": differing,
+            "cache_mb": (device_cache.dataset_nbytes(ds) + device_cache.dataset_nbytes(vds)) / 1e6,
+            "runs": runs, "seconds": time.perf_counter() - t_start}
+    emit(line)
+    if (differing or compared != 2 * 2 * 2 + 1 * 2 * 2   # batches × crops × epochs
+            or runs["on"]["caches_built"] != 2 or runs["off"]["caches_built"] != 0
+            or any(len(r["step_ms"]) != 4 for r in runs.values())
+            or not all(math.isfinite(v) for r in runs.values() for v in r["losses"])):
+        raise AssertionError(f"train_cache: {line}")
+
+
+def grain_phase(work: str, card: str) -> None:
+    """``train --grain --grain_workers 4``: 16 frames of 256² (the cache off,
+    so the loader's read-ahead threads feed the steps), batch 8, 1 epoch of
+    2 steps; every step finite, the train loader a ``GrainLoader``."""
+    from pcss_unet_tpu_torch.cli import train as cli_train
+    from pcss_unet_tpu_torch.data.grain_pipeline import GrainLoader
+    from pcss_unet_tpu_torch.train import loop
+
+    t_start = time.perf_counter()
+    data = os.path.join(work, "grain_data")
+    os.makedirs(data)
+    rng = np.random.default_rng(5)
+    frames = [gbuffer(rng, i, GRAIN_HW, GRAIN_HW) for i in range(16)]
+    x = np.stack([f[0] for f in frames])
+    np.save(os.path.join(data, "train_inputs.npy"), x)
+    np.save(os.path.join(data, "train_labels.npy"), np.stack([f[1] for f in frames]))
+    np.save(os.path.join(data, "train_stats.npy"),
+            {"means": x.mean(axis=(0, 1, 2)), "stds": x.std(axis=(0, 1, 2))})
+    records, loaders = [], []
+    real_fit = loop.fit
+
+    def fit_spy(cfg, model, train_loader, *a, **k):
+        loaders.append(type(train_loader).__name__)
+        return real_fit(cfg, model, train_loader, *a, **k)
+
+    ini = derived_ini(work, "grain.ini", device_data_cache="off")
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        with swapped([(loop, "build_train_step", timed_step_builder(loop, records)),
+                      (loop, "fit", fit_spy)]):
+            cli_train.main(["--config", ini, "--loss_type", "perturb",
+                            "--allow_random_vgg", "--processed_data_dir", data,
+                            "--save_dir", os.path.join(work, "ckpt_grain"),
+                            "--device", DEVICE, "--num_epochs", "1", "--batch_size", "8",
+                            "--grad_accum_steps", "1", "--grain", "--grain_workers", "4"])
+    finally:
+        os.chdir(cwd)
+    line = {"phase": "grain", "card": card, "frame_hw": [GRAIN_HW, GRAIN_HW], "batch": 8,
+            "loader": loaders, "steps": len(records),
+            "step_ms": [r["ms"] for r in records],
+            "losses": [r["total_loss"] for r in records],
+            "seconds": time.perf_counter() - t_start}
+    emit(line)
+    if (loaders != [GrainLoader.__name__] or len(records) != 2 or any(
+            not math.isfinite(r["total_loss"]) or r["skipped"] for r in records)):
+        raise AssertionError(f"grain: {line}")
+
+
+def temporal_phase(work: str, card: str) -> dict:
+    """``python -m pcss_unet_tpu_torch temporal`` in process.  The
+    committed deploy_w16 net on its golden sequence (8 frames of 192×256
+    and their motion vectors: the frames behind its pinned instability
+    0.007692, measured at the metric's default alpha 5), ``--fold_bn`` and
+    ``--fold_bn --quantize int8`` (bf16): the score within the JAX suite's
+    gate, equal within 1e-6 to ``measure_temporal_instability`` of the
+    masks ``engine(frame)`` gives, one PNG per frame.  Then the seeded w64
+    net on 4 animated 1920×1080 frames with their motion vectors, int8,
+    with the main paths' stats (so K1 runs): the score, and the launches
+    per frame by kernel, which must be the
+    ``main_path_w64_nhwc`` path's without K4 (``engine(frame)`` returns the
+    float mask).  → the launch counts of the runs."""
+    import torch
+
+    from pcss_unet_tpu_torch.infer import InferenceEngine, load_variables
+    from pcss_unet_tpu_torch.io.exr import read_exr_stack, write_exr
+    from pcss_unet_tpu_torch.losses import measure_temporal_instability
+    from pcss_unet_tpu_torch.models.init import seeded_variables
+    from pcss_unet_tpu_torch.models.torch_import import export_to_torch_state_dict
+    from pcss_unet_tpu_torch.ops.kernels import reset_launch_counts
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from make_deployment_golden import make_sequence
+    from make_synthetic_scene import render_sequence
+
+    t_start = time.perf_counter()
+    with open(os.path.join(REPO, "tests", "golden", "deploy_w16.json")) as f:
+        meta = json.load(f)
+
+    def write_sequence(root, seq, mv):
+        os.makedirs(os.path.join(root, "frames"))
+        for t, fr in enumerate(seq):
+            write_exr(os.path.join(root, "frames", f"t{t:03d}.exr"),
+                      {c: fr[..., k] for k, c in enumerate("RGBA")})
+        np.save(os.path.join(root, "motion.npy"), mv)
+
+    def run(root, weights, posture, extra=()):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res, code = dispatch(["temporal", "--frames_dir", os.path.join(root, "frames"),
+                              "--weights", weights, "--motion_vectors",
+                              os.path.join(root, "motion.npy"), "--device", DEVICE,
+                              *posture, *extra])
+        return res, code, launch_counts(), time.perf_counter() - t0
+
+    total = {}
+    golden = os.path.join(work, "temporal_w16")
+    seq, mv = make_sequence(meta["seed_seq"], meta["n_seq"])
+    write_sequence(golden, seq, mv)
+    np.save(os.path.join(golden, "train_stats.npy"),
+            {"means": meta["means"], "stds": meta["stds"]})
+    variables = load_variables(WEIGHTS)
+    lines, bad = [], []
+    for posture in (["--fold_bn"], ["--fold_bn", "--quantize", "int8"]):
+        masks_dir = os.path.join(golden, "masks" + "_".join(posture))
+        res, code, launches, secs = run(golden, WEIGHTS, posture, [
+            "--stats_dir", golden, "--alpha", "5", "--save_masks_dir", masks_dir])
+        engine = InferenceEngine(None, variables, means=np.asarray(meta["means"], np.float32),
+                                 stds=np.asarray(meta["stds"], np.float32), fold_bn=True,
+                                 quantize="int8" if "int8" in posture else "none",
+                                 device=DEVICE)
+        frames = sorted(os.listdir(os.path.join(golden, "frames")))
+        masks = np.stack([engine(read_exr_stack(os.path.join(golden, "frames", f)))
+                          for f in frames])
+        ref = float(measure_temporal_instability(
+            torch.from_numpy(masks)[:, None].to(DEVICE),
+            torch.from_numpy(mv)[:, None].to(DEVICE), alpha=5.0))
+        line = {"phase": "temporal", "card": card, "net": "deploy_w16",
+                "posture": " ".join(posture), "frames": len(frames),
+                "frame_hw": list(seq.shape[1:3]), "alpha": 5.0,
+                "score": res and res["score"], "gate": TEMPORAL_GATE,
+                "score_from_engine_masks": ref, "pngs": len(os.listdir(masks_dir)),
+                "launches": launches, "seconds": secs}
+        lines.append(line)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if (code or res["score"] > TEMPORAL_GATE or abs(res["score"] - ref) > 1e-6
+                or line["pngs"] != len(frames)
+                or launches["fused_scrub_standardize"] != len(frames)):
+            bad.append(line)
+    # the seeded w64 net, 4 animated 1080p frames, int8
+    w64 = os.path.join(work, "temporal_w64")
+    seq64, mv64 = render_sequence(np.random.default_rng(0), W64_H, W64_W, 4)
+    write_sequence(w64, np.stack([g for g, _ in seq64]).astype(np.float32), mv64)
+    weights = os.path.join(w64, "w64.npz")
+    np.savez(weights, **export_to_torch_state_dict(seeded_variables(W64, seed=0)))
+    np.save(os.path.join(w64, "train_stats.npy"),      # the main paths' stats
+            {"means": meta["means"], "stds": meta["stds"]})
+    res, code, launches, secs = run(w64, weights, ["--fold_bn", "--quantize", "int8"],
+                                    ["--stats_dir", w64])
+    want = {k: v * 4 for k, v in W64_ENGINE_WANT.items()}
+    line = {"phase": "temporal", "card": card, "net": "w64 seeded",
+            "posture": "--fold_bn --quantize int8", "frames": 4,
+            "frame_hw": [W64_H, W64_W], "alpha": 3.0, "score": res and res["score"],
+            "launches": launches, "launches_want": want, "seconds": secs}
+    lines.append(line)
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    if code or not math.isfinite(res["score"]) or {
+            k: v for k, v in launches.items() if v} != want:
+        bad.append(line)
+    for ln in lines:
+        emit(ln)
+    emit({"phase": "temporal_seconds", "card": card, "seconds": time.perf_counter() - t_start})
+    if bad:
+        raise AssertionError(f"temporal: {bad}")
+    return total
+
+
+def e2e_chain_phase(work: str, data: str, split: str, ckpt: str, card: str) -> dict:
+    """``infer`` of the first val EXR of the data_cli scene with the
+    checkpoint directory ``train_governor`` wrote (its best checkpoint)
+    and ``--stats_dir`` from ``stats``, in the deployment posture
+    (``--fold_bn --quantize int8``, bf16): the launches per frame the w64
+    NHWC path's without K4, and the PNG's codes ``trunc(255 · engine
+    mask)`` of an engine built from the same checkpoint.  → the launch
+    counts."""
+    import torch
+
+    from pcss_unet_tpu_torch.data.pipeline import discover_pairs
+    from pcss_unet_tpu_torch.data.stats import load_channel_stats
+    from pcss_unet_tpu_torch.infer import InferenceEngine, load_variables
+    from pcss_unet_tpu_torch.io.exr import read_exr_stack
+    from pcss_unet_tpu_torch.ops.kernels import reset_launch_counts
+
+    exr = discover_pairs(os.path.join(split, "val"))[0][0]
+    png = os.path.join(work, "e2e_mask.png")
+    reset_launch_counts()
+    times, code = dispatch(["infer", "--input", exr, "--output", png, "--weights", ckpt,
+                            "--stats_dir", data, "--fold_bn", "--quantize", "int8",
+                            "--device", DEVICE])
+    launches = launch_counts()
+    means, stds = load_channel_stats(data)
+    engine = InferenceEngine(None, load_variables(ckpt), means=means, stds=stds,
+                             fold_bn=True, quantize="int8", dtype=torch.bfloat16,
+                             device=DEVICE)
+    want_codes = png_codes(engine(read_exr_stack(exr)))
+    got = read_png(png) if os.path.exists(png) else None
+    line = {"phase": "e2e_chain", "card": card, "weights": "train --save_dir (best)",
+            "input": os.path.basename(exr), "frame_hw": list(want_codes.shape),
+            "times": times, "launches": launches,
+            "png_codes_differing": None if got is None else int((got != want_codes).sum())}
+    emit(line)
+    if (code or got is None or got.shape != want_codes.shape or line["png_codes_differing"]
+            or {k: v for k, v in launches.items() if v} != W64_ENGINE_WANT):
+        raise AssertionError(f"e2e_chain: {line}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1605,6 +2142,30 @@ def main() -> int:
               "train_parity": parity_s, "train_to_serve": time.perf_counter() - t_serve})
     finally:
         shutil.rmtree(train_work, ignore_errors=True)
+
+    # ------------------------------------- from renders to a trained net
+    chain_work = tempfile.mkdtemp(dir=os.path.join(REPO, "build"))
+    try:
+        chain_s, t0 = {}, time.perf_counter()
+        with torch.inference_mode(False):
+            data_dir, split_dir = data_cli_phase(chain_work, card)
+            chain_s["data_cli"] = time.perf_counter() - t0
+            ckpt = train_governor_phase(chain_work, data_dir, card)
+            chain_s["train_governor"] = time.perf_counter() - t0 - sum(chain_s.values())
+            train_cache_phase(chain_work, data_dir, card)
+            chain_s["train_cache"] = time.perf_counter() - t0 - sum(chain_s.values())
+            grain_phase(chain_work, card)
+            chain_s["grain"] = time.perf_counter() - t0 - sum(chain_s.values())
+        chain_runs = [temporal_phase(chain_work, card)]
+        chain_s["temporal"] = time.perf_counter() - t0 - sum(chain_s.values())
+        chain_runs.append(e2e_chain_phase(chain_work, data_dir, split_dir, ckpt, card))
+        chain_s["e2e_chain"] = time.perf_counter() - t0 - sum(chain_s.values())
+        emit({"phase": "chain_phases_seconds", "card": card, **chain_s,
+              "total": time.perf_counter() - t0})
+    finally:
+        shutil.rmtree(chain_work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # ------------------------------------------------- engines and inputs
     meta, xv, yv = golden_frames()
@@ -1787,7 +2348,7 @@ def main() -> int:
     runs.append(main_path("main_path_w64_chw", e64_chw, frames64, W64_FRAMES,
                           W64_CHW_WANT, card, own))
 
-    runs += trained_runs
+    runs += trained_runs + chain_runs
 
     # the user's command: EXR in, PNG out, untiled and tiled; then validate
     work = tempfile.mkdtemp(dir=os.path.join(REPO, "build"))

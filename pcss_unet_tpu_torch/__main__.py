@@ -1,15 +1,16 @@
 """Top-level dispatcher: ``python -m pcss_unet_tpu_torch <command> [args...]``.
 
 The commands of ``python -m pcss_unet_tpu`` that the port has so far
-(``PORTED``) run; the others exit 2 with a message that says they are not
-ported yet.
+(``PORTED``) run; ``inspect`` (ROADMAP Queue 1 item 15) exits 2 with a
+message that says it is not ported yet.
 """
 
 import sys
 
 COMMANDS = ("organize", "prepare", "stats", "train", "infer", "serve",
             "validate", "temporal", "check", "inspect")
-PORTED = ("train", "infer", "serve", "validate")
+PORTED = ("organize", "prepare", "stats", "train", "infer", "serve",
+          "validate", "temporal", "check")
 
 
 def main():

@@ -1,13 +1,18 @@
 """Command-line entry points (port of ``pcss_unet_tpu/cli``), mirroring the
 reference's script UX:
 
+    python -m pcss_unet_tpu_torch organize   ≙ organize_data.py
+    python -m pcss_unet_tpu_torch prepare    ≙ prepare_dataset.py
+    python -m pcss_unet_tpu_torch stats      ≙ calculate_dataset_stats.py
+    python -m pcss_unet_tpu_torch check      ≙ check.py, check_channel_stats.py,
+                                               test.py
     python -m pcss_unet_tpu_torch train      ≙ main.py
     python -m pcss_unet_tpu_torch infer      ≙ infer.py / inference.py
     python -m pcss_unet_tpu_torch serve      (streaming batch inference)
     python -m pcss_unet_tpu_torch validate   ≙ validate_consistency.py
+    python -m pcss_unet_tpu_torch temporal   (pert_loss.py:170-199 over a sequence)
 
-(also ``python -m pcss_unet_tpu_torch.cli.train``, ``.cli.infer``,
-``.cli.serve`` and ``.cli.validate``).
-The other commands of ``python -m pcss_unet_tpu`` are not ported yet.
-Nothing here builds or parses anything at import.
+(also ``python -m pcss_unet_tpu_torch.cli.<command>``).  ``inspect`` is not
+ported yet (ROADMAP Queue 1 item 15).  Nothing here builds or parses
+anything at import.
 """

@@ -2,9 +2,10 @@
 infer.py + inference.py roles).
 
 Reference flags preserved: ``--input x.exr --output y.png --weights ckpt``
-(infer.py:13-18).  Accepts ``.npz`` exports and reference ``.pth`` files
-(both formats, infer.py:36-41); Orbax directories are refused with the
-converter's name.  ``--save_format`` L/RGB/RGBA mirrors
+(infer.py:13-18).  Accepts ``.npz`` exports, reference ``.pth`` files
+(both formats, infer.py:36-41) and this package's ``train --save_dir``
+(its best checkpoint); Orbax directories are refused with the converter's
+name.  ``--save_format`` L/RGB/RGBA mirrors
 inference.py:111-128; ``--tile``/``--halo`` engage the halo-tiled path;
 ``--stats_dir`` applies train-set standardization like the training
 pipeline.  ``--device`` (default ``cuda``) picks where the engine runs;
@@ -32,7 +33,7 @@ def main(argv=None) -> dict:
     p.add_argument("--input", required=True, help="input .exr")
     p.add_argument("--output", required=True, help="output .png")
     p.add_argument("--weights", required=True,
-                   help=".npz export | reference .pth")
+                   help=".npz export | reference .pth | train --save_dir")
     p.add_argument("--config", default=None)
     p.add_argument("--stats_dir", default=None,
                    help="directory with train_stats.npy for standardization")
@@ -53,8 +54,8 @@ def main(argv=None) -> dict:
                    help="chw: channels-major end-to-end forward (requires "
                         "--fold_bn)")
     p.add_argument("--ema", action="store_true",
-                   help="deploy the EMA parameters (only Orbax checkpoints "
-                        "carry them, and the port cannot read those)")
+                   help="deploy the EMA parameters (only checkpoint "
+                        "directories of ema_decay > 0 runs carry them)")
     p.add_argument("--decode_threads", type=int, default=0,
                    help="EXR chunk-decode threads (0 = hardware count)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",

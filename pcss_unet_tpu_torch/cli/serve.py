@@ -30,8 +30,8 @@ def main(argv=None) -> dict:
     p.add_argument("--stats_dir", default=None)
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--ema", action="store_true",
-                   help="deploy the EMA parameters (only Orbax checkpoints "
-                        "carry them, and the port cannot read those)")
+                   help="deploy the EMA parameters (only checkpoint "
+                        "directories of ema_decay > 0 runs carry them)")
     p.add_argument("--decode_workers", type=int, default=4)
     p.add_argument("--fold_bn", action="store_true", default=True)
     p.add_argument("--no_fold_bn", dest="fold_bn", action="store_false")

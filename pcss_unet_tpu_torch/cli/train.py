@@ -7,13 +7,15 @@ main.py role).
 Every flag of the JAX CLI, plus ``--device`` (default ``cuda``: the card,
 or raise where there is none; ``cpu`` for the tests).  Reference flags:
 ``--loss_type {standard,perturb}``, ``--perturb_weight`` (main.py:870-873),
-config via INI (main.py:875-885).  What this package cannot do yet exits 2
-with a message that names the JAX package and the ROADMAP item:
-``--multihost``, ``--grain``, ``data_parallel`` or ``spatial_parallel``
-above 1 (Queue 1 items 13–14; ``data_parallel = -1`` is one card here),
-``batch_size 0`` / ``grad_accum_steps 0`` (the memory governor) and
-``device_data_cache = on`` (the device cache; ``auto`` streams from the
-host)."""
+config via INI (main.py:875-885).  ``--batch_size 0`` engages the memory
+governor's doubling search (main.py:766-780 role — and unlike the
+reference, the result is used); ``--grad_accum_steps 0`` picks the
+smallest accumulation split that fits, with the measured probe
+(``train/governor.py``) when ``governor = xla``.  ``--grain`` takes the
+port's ``data/grain_pipeline.py::GrainLoader``.  What this package cannot
+do yet exits 2 with a message that names the JAX package and the ROADMAP
+item: ``--multihost`` and ``data_parallel`` or ``spatial_parallel`` above 1
+(Queue 1 items 13–14; ``data_parallel = -1`` is one card here)."""
 
 import argparse
 import logging
@@ -38,7 +40,7 @@ def main(argv=None):
     p.add_argument("--perturb_weight", type=float, default=None)
     # framework overrides
     p.add_argument("--batch_size", type=int, default=None,
-                   help="0 → auto (the memory governor; not ported yet)")
+                   help="0 → auto (memory-governor doubling search)")
     p.add_argument("--num_epochs", type=int, default=None)
     p.add_argument("--ema_decay", type=float, default=None,
                    help="exponential-moving-average decay for a parallel "
@@ -46,7 +48,8 @@ def main(argv=None):
     p.add_argument("--grad_accum_steps", type=int, default=None,
                    help="split each batch into N sequential microbatches "
                         "(float32 gradient accumulation, one optimizer "
-                        "update); batch_size must divide by it")
+                        "update); batch_size must divide by it; 0 → auto "
+                        "(the memory governor)")
     p.add_argument("--learning_rate", type=float, default=None)
     p.add_argument("--processed_data_dir", default=None)
     p.add_argument("--save_dir", default=None)
@@ -62,7 +65,8 @@ def main(argv=None):
     p.add_argument("--multihost", action="store_true",
                    help="multi-host training (not ported yet)")
     p.add_argument("--grain", action="store_true",
-                   help="the Grain-backed input pipeline (not ported yet)")
+                   help="the Grain-interface input pipeline "
+                        "(data/grain_pipeline.py)")
     p.add_argument("--grain_workers", type=int, default=0)
     # distillation (paper.md:143 deployment trimming)
     p.add_argument("--distill_teacher", default=None,
@@ -83,8 +87,6 @@ def main(argv=None):
 
     if args.multihost:
         _not_ported("--multihost", "ROADMAP Queue 1 item 13")
-    if args.grain:
-        _not_ported("--grain", "ROADMAP Queue 1 item 12")
     overrides = {k: v for k, v in vars(args).items()
                  if k not in ("config", "no_shuffle", "no_resume",
                               "profile_dir", "multihost", "grain",
@@ -94,13 +96,6 @@ def main(argv=None):
     if cfg.data_parallel > 1 or cfg.spatial_parallel > 1:
         _not_ported(f"data_parallel={cfg.data_parallel}, spatial_parallel="
                     f"{cfg.spatial_parallel}", "ROADMAP Queue 1 items 13-14")
-    if cfg.batch_size == 0 or cfg.grad_accum_steps == 0:
-        _not_ported("batch_size 0 / grad_accum_steps 0 (the memory "
-                    "governor, train/governor.py + utils/memory.py)",
-                    "ROADMAP Queue 1 item 12")
-    if cfg.device_data_cache == "on":
-        _not_ported("device_data_cache = on (data/device_cache.py)",
-                    "ROADMAP Queue 1 item 12")
 
     # The reference trains its perceptual term on ImageNet VGG-19 features
     # (customLoss.py:20).  Without the converted artifact only seeded-random
@@ -153,16 +148,85 @@ def main(argv=None):
                         "main.py:548-561 behavior)")
         val_ds = None
 
+    if cfg.batch_size == 0 or cfg.grad_accum_steps == 0:
+        # memory-governor prologue shared by both auto modes: parameter
+        # count and the shape the step will actually train on (crops when
+        # configured, else the full pack frames); the budget is the card's
+        # memory (the CPU: utils/memory.py's default)
+        from pcss_unet_tpu_torch.utils.memory import device_budget, param_count
+
+        n = param_count(model)
+        h, w = train_ds.sample_hw
+        if cfg.crop_height and cfg.crop_width:
+            h, w = cfg.crop_height, cfg.crop_width
+        hbm = device_budget(args.device)
+
+    if cfg.batch_size == 0:
+        from pcss_unet_tpu_torch.utils.memory import find_optimal_batch_size
+
+        cfg = cfg.replace(batch_size=min(
+            find_optimal_batch_size(n, h, w, cfg.optimizer_type,
+                                    hbm_bytes=hbm),
+            max(1, len(train_ds))))  # no point exceeding the dataset
+        logging.info("auto-selected batch_size=%d", cfg.batch_size)
+
+    if cfg.grad_accum_steps == 0:
+        # auto: smallest microbatch split whose activations fit the
+        # device.  The analytic model gives a first answer; with
+        # governor=xla the authority is one real step per candidate,
+        # measured (train/governor.py).  The walk starts at 1: the
+        # analytic model over-estimates the port's steps on a card (its
+        # factor was fitted to XLA plans), so its answer bounds nothing
+        # from below here.
+        from pcss_unet_tpu_torch.utils.memory import (check_memory,
+                                                      find_accum_steps)
+
+        dp = cfg.data_parallel if cfg.data_parallel > 0 else 1
+        per_chip = max(1, cfg.batch_size // dp)
+        a = find_accum_steps(n, per_chip, h, w, cfg.optimizer_type,
+                             hbm_bytes=hbm)
+        picked_by = "analytic"
+        if cfg.governor == "xla":
+            from pcss_unet_tpu_torch.data.device_cache import (cache_eligible,
+                                                               dataset_nbytes)
+            from pcss_unet_tpu_torch.train.governor import \
+                find_accum_steps_compiled
+
+            reserve = (dataset_nbytes(train_ds)
+                       if cache_eligible(cfg, train_ds) else 0)
+            a_measured = find_accum_steps_compiled(
+                cfg, model, train_ds.means, train_ds.stds, per_chip, h, w,
+                hbm_bytes=hbm, reserve_bytes=reserve, start=1)
+            if a_measured is not None:
+                a, picked_by = a_measured, "measured step"
+        if a == per_chip and not check_memory(n, 1, h, w,
+                                              cfg.optimizer_type,
+                                              hbm_bytes=hbm):
+            logging.warning("even microbatch 1 exceeds the memory estimate; "
+                            "proceeding with grad_accum_steps=%d and "
+                            "letting the run decide", a)
+        cfg = cfg.replace(grad_accum_steps=a)
+        logging.info("auto-selected grad_accum_steps=%d (per-chip "
+                     "microbatch %d over dp=%d, %s)", a, per_chip // a, dp,
+                     picked_by)
+
     if cfg.resume:
         # before resolved_config.json is overwritten below: refuse to
         # auto-resume into checkpoints from a structurally different run
         check_resume_compat(cfg, cfg.save_dir)
     save_config(cfg, f"{cfg.save_dir}/resolved_config.json",
                 extra={"vgg_weights": vgg_prov})
-    crop = ((cfg.crop_height, cfg.crop_width)
-            if cfg.crop_height and cfg.crop_width else None)
-    train_loader = Loader(train_ds, cfg.batch_size, shuffle=cfg.shuffle,
-                          seed=cfg.seed, crop_hw=crop)
+    if args.grain:
+        from pcss_unet_tpu_torch.data.grain_pipeline import GrainLoader
+
+        train_loader = GrainLoader(train_ds, cfg.batch_size,
+                                   shuffle=cfg.shuffle, seed=cfg.seed,
+                                   read_workers=args.grain_workers)
+    else:
+        crop = ((cfg.crop_height, cfg.crop_width)
+                if cfg.crop_height and cfg.crop_width else None)
+        train_loader = Loader(train_ds, cfg.batch_size, shuffle=cfg.shuffle,
+                              seed=cfg.seed, crop_hw=crop)
     val_loader = (Loader(val_ds, cfg.batch_size, shuffle=False)
                   if val_ds is not None else None)
     result = fit(cfg, model, train_loader, val_loader,

@@ -23,9 +23,8 @@ def main(argv=None) -> dict:
     p.add_argument("--config", default=None)
     p.add_argument("--stats_dir", default=None)
     p.add_argument("--ema", action="store_true",
-                   help="validate the EMA parameters (only Orbax "
-                        "checkpoints carry them, and the port cannot read "
-                        "those)")
+                   help="validate the EMA parameters (only checkpoint "
+                        "directories of ema_decay > 0 runs carry them)")
     p.add_argument("--fold_bn", action="store_true",
                    help="inference pathway in the deployment posture "
                         "(folded BN + fused kernels)")

@@ -129,10 +129,11 @@ class Config:
     ema_decay: float = 0.0
 
     # Memory-governor oracle for the auto modes (batch_size=0 /
-    # grad_accum_steps=0).  'xla': compile-probe the real train step and
-    # read the compiler's static memory plan (train/governor.py) — ground
-    # truth, costs one or two extra compiles at startup whose executables
-    # the jit cache then reuses.  'analytic': the calibrated closed-form
+    # grad_accum_steps=0).  'xla' (the name config.ini shares with the JAX
+    # package, which reads XLA's static plan there): in the port, one real
+    # train step per candidate on the card, its peak allocated memory
+    # measured (train/governor.py); the CPU has no allocator statistics and
+    # keeps the analytic answer.  'analytic': the calibrated closed-form
     # estimate only (utils/memory.py) — instant, conservative.
     governor: str = "xla"                   # xla | analytic
 

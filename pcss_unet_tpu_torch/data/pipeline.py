@@ -1,11 +1,16 @@
-"""Host input pipeline: the packed dataset and the shuffling / sharding /
+"""Host input pipeline: the datasets and the shuffling / sharding /
 cropping Loader (port of ``pcss_unet_tpu/data/pipeline.py``).
 
+- ``discover_pairs`` — the sorted ``*_input.exr`` / ``*_gt.png`` pairs of a
+  split directory (make_dataset role, setdata.py:112-136).
 - ``PackedDataset`` — ``MmapLiverDataset`` (setdata.py:207-331): mmap'd
   ``.npy`` packs; the TRAIN split's stats standardize every split
   (setdata.py:262-263 — they ride along as ``.means``/``.stds`` and the
   train step standardizes on the device).  Accepts NHWC and NCHW
   (reference prepare_dataset.py:67-68) packs; batches always come out NHWC.
+- ``PairDataset`` — ``LiverDataset`` (setdata.py:138-205): lazy EXR+PNG
+  decode with the label ``convert('L')`` + NEAREST-resize + /255 contract
+  (setdata.py:164-168), threaded (the native EXR codec releases the GIL).
 - ``Loader`` — the ``DataLoader`` role (main.py:847-865): seeded shuffle
   (on by default; the reference trains with shuffle=False, main.py:850),
   per-host sharding and seeded random crops.  Its sampling plan is a copy
@@ -15,7 +20,9 @@ cropping Loader (port of ``pcss_unet_tpu/data/pipeline.py``).
   ahead of the step, through pinned host buffers on a copy stream, so the
   host→device copies overlap compute and nothing waits on the host.
 
-The lazy EXR-pair dataset (``PairDataset``) is not ported yet.
+The Loader's sampling decisions live in ``epoch_indices``/``crop_offsets``,
+so the device cache (``data/device_cache.py``) replays the same batch
+stream on the card.
 """
 
 from __future__ import annotations
@@ -25,9 +32,27 @@ import logging
 import os
 import queue
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+
+def discover_pairs(pair_dir: str) -> list[tuple[str, str]]:
+    """Sorted ``(*_input.exr, *_gt.png)`` pairs (make_dataset role,
+    setdata.py:112-136).  Inputs with no label are warned about and
+    skipped."""
+    pairs = []
+    for fname in sorted(os.listdir(pair_dir)):
+        if not fname.endswith("_input.exr"):
+            continue
+        stem = fname[: -len("_input.exr")]
+        png = os.path.join(pair_dir, f"{stem}_gt.png")
+        if not os.path.exists(png):
+            logging.warning("input without label skipped: %s", fname)
+            continue
+        pairs.append((os.path.join(pair_dir, fname), png))
+    return pairs
 
 
 def _load_train_stats(dataset_path: str, n_ch: int):
@@ -95,6 +120,43 @@ class PackedDataset:
     def __getitem__(self, i: int) -> tuple[np.ndarray, np.ndarray]:
         x, y = self.gather(np.asarray([i]))
         return x[0], y[0]
+
+
+class PairDataset:
+    """Lazy on-the-fly EXR+PNG pairs (LiverDataset role, setdata.py:138-205).
+
+    Decode happens at gather time, threaded; the label is NEAREST-resized to
+    the input resolution (setdata.py:164-168)."""
+
+    def __init__(self, pair_dir: str, num_workers: int = 8):
+        self.pairs = discover_pairs(pair_dir)
+        if not self.pairs:
+            raise FileNotFoundError(f"no pairs in {pair_dir}")
+        self._pool = ThreadPoolExecutor(max_workers=max(1, num_workers))
+        x, _ = self[0]
+        self.sample_hw = tuple(x.shape[:2])
+        self.means, self.stds = _load_train_stats(pair_dir, x.shape[-1])
+        self.layout = "nhwc"
+
+    def __len__(self) -> int:
+        return len(self.pairs)
+
+    def _decode(self, i: int) -> tuple[np.ndarray, np.ndarray]:
+        from pcss_unet_tpu_torch.io.exr import read_exr_stack
+        from pcss_unet_tpu_torch.io.png import read_label_png
+
+        exr, png = self.pairs[i]
+        x = read_exr_stack(exr)
+        y = read_label_png(png, target_hw=x.shape[:2])[..., None]
+        return x, y
+
+    def __getitem__(self, i: int) -> tuple[np.ndarray, np.ndarray]:
+        return self._decode(int(i))
+
+    def gather(self, idx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        items = list(self._pool.map(self._decode, [int(i) for i in idx]))
+        return (np.stack([x for x, _ in items]),
+                np.stack([y for _, y in items]))
 
 
 class Loader:

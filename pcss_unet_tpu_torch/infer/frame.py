@@ -49,16 +49,37 @@ __all__ = ["InferenceEngine", "load_variables", "pad_to_multiple",
 
 
 def load_variables(path: str, ema: bool = False) -> dict:
-    """Load model variables from a reference ``.pth`` (both formats) or a
-    reference-named ``.npz`` export (infer.py:36-41).  Orbax checkpoint
-    directories need JAX to read and are refused with a ``ValueError`` that
-    names the converter.  ``ema=True`` asks for the EMA parameters, which
-    only Orbax checkpoints carry: on a ``.pth`` or ``.npz`` it raises the
-    reference's ``ValueError``."""
+    """Load model variables from a reference ``.pth`` (both formats), a
+    reference-named ``.npz`` export (infer.py:36-41), or this package's own
+    checkpoint directory (``train --save_dir``: the best checkpoint by its
+    saved metric, else the latest, as the JAX package resolves its Orbax
+    directories).  Orbax checkpoint directories need JAX to read and are
+    refused with a ``ValueError`` that names the converter.  ``ema=True``
+    asks for the EMA parameters, which only checkpoint directories carry
+    (and only from ``ema_decay > 0`` runs); on a ``.pth`` or ``.npz`` it
+    raises the reference's ``ValueError``."""
+    if os.path.isfile(os.path.join(path, "checkpoints.json")):
+        return _load_own_checkpoint(path, ema)
     if ema and not os.path.isdir(path):
         raise ValueError("--ema requires an Orbax checkpoint directory "
                          "(reference .pth/.npz exports carry no EMA)")
     return _load_reference(path)
+
+
+def _load_own_checkpoint(directory: str, ema: bool) -> dict:
+    from pcss_unet_tpu_torch.models.torch_import import to_flax_variables
+    from pcss_unet_tpu_torch.train.checkpoint import CheckpointManager
+
+    manager = CheckpointManager(directory)
+    epoch = manager.best_epoch()
+    payload = manager.load(epoch)        # None: the latest epoch
+    params = payload["params"]
+    if ema:
+        if payload.get("ema_params") is None:
+            raise ValueError(f"--ema: the checkpoint in {directory} has no "
+                             "EMA parameters (train with ema_decay > 0)")
+        params = dict(zip(params, payload["ema_params"]))
+    return to_flax_variables({**params, **payload["batch_stats"]})
 
 
 def pad_to_multiple(x: np.ndarray, multiple: int) -> tuple[np.ndarray, tuple]:

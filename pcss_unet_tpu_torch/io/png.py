@@ -94,8 +94,8 @@ def _luma(rgb: np.ndarray) -> np.ndarray:
     return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(np.uint8)
 
 
-def decode_png_l(data: bytes) -> np.ndarray:
-    """PNG bytes → [H, W] uint8 luma, as PIL's ``convert('L')`` gives it
+def _decode_png(data: bytes) -> tuple[np.ndarray, int, np.ndarray | None]:
+    """PNG bytes → ([H, W, samples] uint8, color type, palette or None)
     for 8-bit non-interlaced files."""
     if data[:8] != _SIGNATURE:
         raise ValueError("not a PNG file")
@@ -119,14 +119,32 @@ def decode_png_l(data: bytes) -> np.ndarray:
         raise ValueError(f"unsupported PNG: bit depth {depth}, color type "
                          f"{ctype}, interlace {interlace} (8-bit, "
                          "non-interlaced files only)")
+    if ctype == 3 and palette is None:
+        raise ValueError("palette PNG without PLTE")
     bpp = _CHANNELS[ctype]
     px = _unfilter(zlib.decompress(b"".join(idat)), h, w * bpp, bpp)
-    px = px.reshape(h, w, bpp)
+    return px.reshape(h, w, bpp), ctype, palette
+
+
+def decode_png_rgb(data: bytes) -> np.ndarray:
+    """PNG bytes → [H, W, 3] uint8, as PIL's ``convert('RGB')`` gives it for
+    8-bit non-interlaced files (gray replicated, alpha dropped, palette
+    looked up)."""
+    px, ctype, palette = _decode_png(data)
+    if ctype in (0, 4):
+        return np.repeat(px[..., :1], 3, axis=-1)
+    if ctype == 3:
+        return palette[px[..., 0]]
+    return px[..., :3].copy()
+
+
+def decode_png_l(data: bytes) -> np.ndarray:
+    """PNG bytes → [H, W] uint8 luma, as PIL's ``convert('L')`` gives it
+    for 8-bit non-interlaced files."""
+    px, ctype, palette = _decode_png(data)
     if ctype in (0, 4):
         return px[..., 0].copy()
     if ctype == 3:
-        if palette is None:
-            raise ValueError("palette PNG without PLTE")
         return _luma(palette)[px[..., 0]]
     return _luma(px)
 

@@ -141,17 +141,18 @@ def from_flax_variables(variables: Mapping,
     return out
 
 
-def to_flax_variables(model: torch.nn.Module) -> dict:
-    """The inverse of ``from_flax_variables``: this port's ``UNet`` →
-    JAX-layout variables (numpy leaves in the module's dtypes, HWIO
-    kernels, BatchNorm weight/bias → scale/bias, running statistics →
-    ``batch_stats`` mean/var)."""
+def to_flax_variables(model: torch.nn.Module | dict) -> dict:
+    """The inverse of ``from_flax_variables``: this port's ``UNet`` (or its
+    state dict) → JAX-layout variables (numpy leaves in the module's
+    dtypes, HWIO kernels, BatchNorm weight/bias → scale/bias, running
+    statistics → ``batch_stats`` mean/var)."""
     params: dict = {}
     stats: dict = {}
     leaf = {"weight": "kernel", "bias": "bias"}
     norm_leaf = {"weight": "scale", "bias": "bias",
                  "running_mean": "mean", "running_var": "var"}
-    for key, t in model.state_dict().items():
+    state = model if isinstance(model, dict) else model.state_dict()
+    for key, t in state.items():
         a = t.detach().cpu().numpy()
         parts = key.split(".")
         if len(parts) == 2:                            # the head

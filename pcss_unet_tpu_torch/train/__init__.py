@@ -1,7 +1,8 @@
 """Training (port of ``pcss_unet_tpu/train``): schedules, the train state
 and optimizers, the train and eval steps, checkpoints, metric writers and
-the ``fit`` loop.  One device; data and spatial parallelism and the memory
-governor are not ported yet."""
+the ``fit`` loop, and the measured memory governor (``governor.py``).  One
+device; data and spatial parallelism are not ported yet (ROADMAP Queue 1
+items 13–14)."""
 
 from pcss_unet_tpu_torch.train.loop import FitResult, fit
 from pcss_unet_tpu_torch.train.state import (TrainState, create_train_state,

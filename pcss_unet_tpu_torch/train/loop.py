@@ -10,10 +10,11 @@ of ``pcss_unet_tpu/train/loop.py``.
 - TB scalars/images (main.py:435-467) through ``train/metrics.py``.
 
 One card (or the CPU): data and spatial parallelism are ROADMAP Queue 1
-items 13–14.  Batches stream from the host loader through
-``prefetch_to_device``; the JAX package's device-resident dataset cache
-(``data/device_cache.py``) is not ported yet, and it only replays the same
-stream.
+items 13–14.  When ``device_data_cache`` allows it (``data/device_cache.py::
+cache_eligible``: on, or auto within ``device_cache_budget_mb``), the
+dataset is uploaded once and batches are gathered and cropped on the
+device, the same stream bit for bit; otherwise they stream from the host
+loader through ``prefetch_to_device``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from pcss_unet_tpu_torch.data.device_cache import DeviceCache, cache_eligible
 from pcss_unet_tpu_torch.data.pipeline import Loader, prefetch_to_device
 from pcss_unet_tpu_torch.losses import LossBundle, PerceptualLoss
 from pcss_unet_tpu_torch.train.checkpoint import (CheckpointManager,
@@ -168,7 +170,30 @@ def fit(cfg, model, train_loader: Loader, val_loader: Loader | None = None,
     best_val = float("inf")
     history = []
 
+    # Device-resident dataset cache: upload the packs once, gather/crop
+    # batches on the device — no per-step host→device copies.  Falls back
+    # to the streaming host path when the dataset exceeds the budget.
+    train_cache = val_cache = None
+    if cache_eligible(cfg, ds):
+        train_cache = DeviceCache(ds, crop_hw=train_loader.crop_hw,
+                                  device=device)
+    if (val_loader is not None and val_loader.ds is not ds
+            and cache_eligible(cfg, val_loader.ds)):
+        val_cache = DeviceCache(val_loader.ds, crop_hw=val_loader.crop_hw,
+                                device=device)
+    elif val_loader is not None and val_loader.ds is ds:
+        val_cache = train_cache
+
+    def train_batches(epoch, skip=0):
+        if train_cache is not None:
+            return train_cache.batches(train_loader, epoch, start_batch=skip)
+        return prefetch_to_device(train_loader.epoch(epoch, start_batch=skip),
+                                  device)
+
     def val_batches():
+        if val_cache is not None:
+            yield from val_cache.batches(val_loader, 0)
+            return
         for x, y in val_loader.epoch(0):
             yield torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
 
@@ -196,8 +221,7 @@ def fit(cfg, model, train_loader: Loader, val_loader: Loader | None = None,
         n_batches = 0
         skip = start_batch if epoch == start_epoch else 0
         batches_done = skip   # data-order cursor within this epoch
-        batches = prefetch_to_device(train_loader.epoch(epoch, start_batch=skip),
-                                     device)
+        batches = train_batches(epoch, skip)
         for x, y in batches:
             generator.manual_seed(step_seed(cfg.seed, host_step))
             metrics = train_step(state, x, y, generator)

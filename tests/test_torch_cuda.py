@@ -766,3 +766,136 @@ def test_prefetch_to_device_delivers_the_host_batches(dev):
     for (x, y), (a, b) in zip(host, got):
         assert a.device.type == "cuda"
         assert np.array_equal(a.cpu().numpy(), x) and np.array_equal(b.cpu().numpy(), y)
+
+
+def test_batchnorm_stats_after_one_w64_step_match_the_cpu(dev):
+    """The w64 net (64, 128, 512, 1024): BatchNorm running statistics after
+    ONE train step on the card against the CPU, float32, TF32 off, within
+    the 1e-4 of ``test_train_step_on_the_card_matches_the_cpu``.  Step 1's
+    statistics come from the initial parameters, before any update."""
+    _, _, cs = _train_run(dev, steps=1, widths=(64, 128, 512, 1024))
+    _, _, hs = _train_run("cpu", steps=1, widths=(64, 128, 512, 1024))
+    for name in hs:
+        torch.testing.assert_close(cs[name], hs[name], rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------------ governor and cache
+def _probe_net(dev, **kw):
+    from pcss_unet_tpu_torch.config import Config
+    from pcss_unet_tpu_torch.models.unet import UNet
+
+    cfg = Config(num_epochs=4, warmup_epochs=1, dropout_rate=0.0, alpha=0.9,
+                 **kw)
+    torch.manual_seed(0)
+    return cfg, UNet(encoder_widths=(16, 32, 64, 128), dropout_rate=0.0).to(dev).train()
+
+
+def test_probe_on_the_card_grows_with_the_microbatch_and_reports_oom(dev):
+    """The measured probe: its peak grows with the microbatch, an oversized
+    one (batch 64 of 2048², several hundred GB) reports "does not fit"
+    (inf), what it allocated is freed, and the run's model is untouched."""
+    from pcss_unet_tpu_torch.train.governor import probe_step_memory
+
+    cfg, model = _probe_net(dev)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    base = torch.cuda.memory_allocated(dev)
+    zeros = np.zeros(4, np.float32), np.ones(4, np.float32)
+    small = probe_step_memory(cfg.replace(grad_accum_steps=4), model, *zeros,
+                              8, 256, 256)
+    big = probe_step_memory(cfg.replace(grad_accum_steps=1), model, *zeros,
+                            8, 256, 256)
+    assert not small["oom"] and not big["oom"]
+    assert 0 < small["args"] <= small["total"] < big["total"]
+    assert big["temp"] > 2 * small["temp"]
+    huge = probe_step_memory(cfg.replace(grad_accum_steps=1), model, *zeros,
+                             64, 2048, 2048)
+    assert huge["oom"] and huge["total"] == float("inf")
+    # all freed but the resize matrices the forward caches per shape
+    assert torch.cuda.memory_allocated(dev) - base < 256 << 20
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+
+
+def test_governor_walk_on_the_card_skips_a_microbatch_that_does_not_fit(dev):
+    """The walk with the real probe: a budget between the two measured
+    peaks picks the split that fits."""
+    from pcss_unet_tpu_torch.train.governor import (find_accum_steps_compiled,
+                                                    probe_step_memory)
+
+    cfg, model = _probe_net(dev, grad_accum_steps=0)
+    zeros = np.zeros(4, np.float32), np.ones(4, np.float32)
+    p1 = probe_step_memory(cfg.replace(grad_accum_steps=1), model, *zeros,
+                           8, 256, 256)["total"]
+    p2 = probe_step_memory(cfg.replace(grad_accum_steps=2), model, *zeros,
+                           8, 256, 256)["total"]
+    budget = int((p1 + p2) / 2 * 1.15)
+    assert find_accum_steps_compiled(cfg, model, *zeros, 8, 256, 256,
+                                     hbm_bytes=budget) == 2
+
+
+def test_device_cache_batches_equal_the_streamed_ones(dev, tmp_path):
+    """DeviceCache on the card against the host loader through
+    prefetch_to_device: every batch equal, with and without crops."""
+    from pcss_unet_tpu_torch.data.device_cache import DeviceCache
+    from pcss_unet_tpu_torch.data.pipeline import (Loader, PackedDataset,
+                                                   prefetch_to_device)
+
+    rng = np.random.default_rng(0)
+    np.save(tmp_path / "train_inputs.npy",
+            rng.standard_normal((10, 4, 64, 96)).astype(np.float32))   # NCHW
+    np.save(tmp_path / "train_labels.npy",
+            rng.random((10, 1, 64, 96)).astype(np.float32))
+    ds = PackedDataset(str(tmp_path), "train")
+    assert ds.layout == "nchw"
+    for crop in (None, (32, 48)):
+        loader = Loader(ds, 4, shuffle=True, seed=5, crop_hw=crop)
+        cache = DeviceCache(ds, crop_hw=crop, upload_chunk=3, device=dev)
+        for epoch in (0, 1):
+            got = list(cache.batches(loader, epoch))
+            want = list(prefetch_to_device(loader.epoch(epoch), dev))
+            assert len(got) == len(want) == 2
+            for (x, y), (a, b) in zip(got, want):
+                assert x.device.type == "cuda"
+                assert torch.equal(x, a) and torch.equal(y, b)
+
+
+@pytest.mark.parametrize("posture", [[], ["--fold_bn"],
+                                     ["--fold_bn", "--quantize", "int8"]],
+                         ids=["plain", "fold_bn", "fold_bn_int8"])
+def test_temporal_score_on_the_card_matches_the_cpu(dev, tmp_path, monkeypatch,
+                                                    posture):
+    """``temporal`` on deploy_w16's golden sequence with its motion
+    vectors, float32 engines: the card's score within 1e-5 of the CPU's."""
+    import functools
+    import json
+    import os
+    import sys
+
+    import pcss_unet_tpu_torch.infer as pinfer
+    from pcss_unet_tpu_torch.cli import temporal
+    from pcss_unet_tpu_torch.io.exr import write_exr
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(os.path.dirname(here), "scripts"))
+    import make_deployment_golden as g
+
+    with open(os.path.join(here, "golden", "deploy_w16.json")) as f:
+        meta = json.load(f)
+    seq, motion = g.make_sequence(meta["seed_seq"], meta["n_seq"])
+    (tmp_path / "f").mkdir()
+    for t, frame in enumerate(seq):
+        write_exr(str(tmp_path / "f" / f"t{t:03d}.exr"),
+                  {n: frame[..., i] for i, n in enumerate("RGBA")})
+    np.save(tmp_path / "mv.npy", motion)
+    np.save(tmp_path / "train_stats.npy", {"means": meta["means"],
+                                           "stds": meta["stds"]})
+    monkeypatch.setattr(pinfer, "InferenceEngine", functools.partial(
+        pinfer.InferenceEngine, dtype=torch.float32))
+    argv = ["--frames_dir", str(tmp_path / "f"), "--weights",
+            os.path.join(here, "golden", "deploy_w16.npz"), "--stats_dir",
+            str(tmp_path), "--motion_vectors", str(tmp_path / "mv.npy"),
+            "--alpha", "5", *posture]
+    card = temporal.main(argv + ["--device", "cuda"])["score"]
+    host = temporal.main(argv + ["--device", "cpu"])["score"]
+    assert abs(card - host) <= 1e-5, (card, host)
+    assert card <= meta["temporal_instability"] * 1.25 + 1e-4

@@ -173,9 +173,11 @@ class RecordingDataset(PackedDataset):
 
 def test_no_replayed_or_skipped_batches(packs, tmp_path):
     """The mid-epoch cursor: run 1 trains on plan[:2] of epoch 0, run 2
-    on plan[2:], then epoch 1's whole plan (test_midepoch_resume.py)."""
+    on plan[2:], then epoch 1's whole plan (test_midepoch_resume.py).  The
+    device cache is off, as in the JAX test: its one-time upload gathers
+    every sample, which the recording dataset would count as batches."""
     cfg = Config(batch_size=2, num_epochs=2, warmup_epochs=1, save_frequency=1000,
-                 log_dir="", save_dir="", alpha=1.0)
+                 log_dir="", save_dir="", alpha=1.0, device_data_cache="off")
     ds1 = RecordingDataset(packs, "train")
     loader1 = Loader(ds1, 2, shuffle=True, seed=7)
     r1 = fit(cfg, _model(), loader1, None, checkpoint_dir=str(tmp_path / "ck"),

@@ -1,7 +1,8 @@
 """``python -m pcss_unet_tpu_torch train`` (``cli/train.py``) on the CPU:
 it trains on a tiny pack and writes the resolved config the JAX CLI
-writes; what the port cannot do yet exits 2; without a card the default
-device raises."""
+writes, with the memory governor's auto modes, the ``--grain`` loader and
+the device cache too; what the port cannot do yet exits 2; without a card
+the default device raises."""
 
 import json
 import os
@@ -73,19 +74,68 @@ def test_resolved_config_matches_the_jax_cli(work, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--multihost"], ["--grain"], ["--data_parallel", "2"],
-    ["--spatial_parallel", "2"], ["--batch_size", "0"],
-    ["--grad_accum_steps", "0"], ["cache_on"]])
+    ["--multihost"], ["--data_parallel", "2"], ["--spatial_parallel", "2"]])
 def test_unported_flags_exit_2(work, capsys, flags):
-    if flags == ["cache_on"]:
-        with open(work / "cfg.ini", "a") as f:
-            f.write("device_data_cache=on\n")
-        flags = []
     with pytest.raises(SystemExit) as e:
         main(["--config", "cfg.ini", "--allow_random_vgg", "--device", "cpu", *flags])
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and "ROADMAP" in err and "pcss_unet_tpu train" in err
+    assert "items 13" in err or "item 13" in err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--grain", "--grain_workers", "2"], ["--batch_size", "0"],
+    ["--grad_accum_steps", "0", "--data_parallel", "1"], ["cache_on"]],
+    ids=["grain", "batch_size_0", "grad_accum_steps_0", "cache_on"])
+def test_governor_grain_and_cache_options_match_the_jax_cli(work, monkeypatch,
+                                                            flags):
+    """Each option the port used to refuse now trains on the CPU, and the
+    resolved config (the picked batch and accumulation included) is the
+    JAX CLI's, key for key (the JAX CLI's ``fit`` is stubbed: it writes the
+    config before it trains)."""
+    import pcss_unet_tpu.cli.train as jcli
+    import pcss_unet_tpu_torch.train.loop as loop
+    from pcss_unet_tpu_torch.data import device_cache
+    from pcss_unet_tpu_torch.data.grain_pipeline import GrainLoader
+
+    class Done:
+        best_val_loss = 0.0
+
+    if flags == ["cache_on"]:
+        with open(work / "cfg.ini", "a") as f:
+            f.write("device_data_cache=on\ndevice_cache_budget_mb=0\n")
+        flags = []
+    seen = {"caches": 0}
+    real_fit, real_cache = loop.fit, device_cache.DeviceCache
+
+    def spy_fit(cfg, model, train_loader, *a, **k):
+        seen["loader"] = train_loader
+        return real_fit(cfg, model, train_loader, *a, **k)
+
+    def spy_cache(*a, **k):
+        seen["caches"] += 1
+        return real_cache(*a, **k)
+
+    monkeypatch.setattr(loop, "fit", spy_fit)
+    monkeypatch.setattr(loop, "DeviceCache", spy_cache)
+    monkeypatch.setattr(jcli, "fit", lambda *a, **k: Done())
+    monkeypatch.setenv("PCSS_COMPILE_CACHE", "0")
+    common = ["--config", "cfg.ini", "--allow_random_vgg", "--num_epochs", "1",
+              *flags]
+    result = main(common + ["--save_dir", "p", "--device", "cpu"])
+    jcli.main(common + ["--save_dir", "j"])
+    mine = json.loads((work / "p" / "resolved_config.json").read_text())
+    theirs = json.loads((work / "j" / "resolved_config.json").read_text())
+    assert mine.pop("save_dir") == "p" and theirs.pop("save_dir") == "j"
+    assert mine == theirs
+    assert mine["batch_size"] > 0 and mine["grad_accum_steps"] > 0
+    assert len(result.history) == 1
+    assert np.isfinite(result.history[0]["train"]["total_loss"])
+    assert isinstance(seen["loader"], GrainLoader) == ("--grain" in flags)
+    # config.ini's default (auto, 6144 MB) caches the tiny pack too; a
+    # budget of 0 MB with "on" still caches (train and val packs)
+    assert seen["caches"] == 2
 
 
 def test_data_parallel_auto_is_one_device(work):
@@ -104,3 +154,49 @@ def test_default_device_is_the_card(work):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--config", "cfg.ini", "--allow_random_vgg"])
+
+
+def _leaves(tree, prefix=""):
+    """A nested dict of arrays → {path: array}."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    return {k: v for name, sub in tree.items()
+            for k, v in _leaves(sub, f"{prefix}/{name}").items()}
+
+
+def test_save_dir_loads_as_weights(work):
+    """``load_variables`` (what ``infer --weights`` calls) reads a run's
+    checkpoint directory: its best checkpoint's parameters and statistics
+    as JAX-layout variables, the EMA parameters with ``ema=True``; a run
+    without EMA raises there."""
+    from pcss_unet_tpu_torch.config import Config
+    from pcss_unet_tpu_torch.infer import load_variables
+    from pcss_unet_tpu_torch.models.torch_import import to_flax_variables
+    from pcss_unet_tpu_torch.models.unet import UNet
+    from pcss_unet_tpu_torch.train import create_train_state
+    from pcss_unet_tpu_torch.train.checkpoint import CheckpointManager
+
+    torch.manual_seed(0)
+    model = UNet(encoder_widths=(4, 8))
+    state = create_train_state(model, Config(ema_decay=0.5), 1)
+    with torch.no_grad():
+        for e in state.ema_params:
+            e.mul_(0.5)
+    manager = CheckpointManager(str(work / "ck"))
+    manager.save(state, {"val_loss": 1.0}, 0)
+    manager.save(state, {"val_loss": 2.0}, 1)
+    w = {k: v.copy() for k, v in _leaves(to_flax_variables(model)).items()}
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(1.0)
+    manager.save(state, {"val_loss": 3.0}, 2)     # the latest, not the best
+    g = _leaves(load_variables(str(work / "ck")))
+    assert g.keys() == w.keys() and len(g) > 10
+    for k in g:
+        assert np.array_equal(g[k], w[k]), k
+    ema = _leaves(load_variables(str(work / "ck"), ema=True))
+    assert any(not np.array_equal(ema[k], w[k]) for k in ema if "/params/" in k)
+    state.ema_params = None
+    manager.save(state, {"val_loss": 0.5}, 3)
+    with pytest.raises(ValueError, match="EMA"):
+        load_variables(str(work / "ck"), ema=True)
