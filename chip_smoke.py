@@ -97,8 +97,9 @@ Then the chain from renders to a trained net, every command through
    in each of its layouts, the int8 kernels and K4), kernel and plain times
    from CUDA events, per path.  Each kernel also prints one ``kernel_call``
    line per recorded call (each tensor argument's shape and strides, ms,
-   bound, its share of the kernel's time, plain ms, max and signed mean of
-   the difference), with ``device_ms``: the device time of the library's
+   ``ms_cold``: the mean of 10 calls each after a 128 MiB write that
+   flushes the L2, CUDA events around the call alone, bound, its share of
+   the kernel's time, plain ms, max and signed mean of the difference), with ``device_ms``: the device time of the library's
    kernels in the call, from torch.profiler over 20 more calls, and its
    ``device_bound_share`` (``device_total_ms`` adds the wrapper's own
    device copies and casts).  K1 is checked as each path calls it (entry
@@ -177,9 +178,30 @@ Then the chain from renders to a trained net, every command through
     kernel path (max |d| and ms per frame of each); blob size, torch
     version.
 
+14. ``bench``: ``python -m pcss_unet_tpu_torch.bench`` in process
+    (streams of 4 and 20 forwards, fastest of 4 dispatches, 3 repeats): one
+    line per configuration (the root bench's postures ``plain``, ``fused``,
+    ``fused_int8``, ``chw``, ``chw_int8`` of the seeded w64 net at
+    1920×1088, ``fused_int8`` at batch 2 and 4, the w16 net at 2048×1024 in
+    ``chw_int8``, ``chw``, ``fused_int8`` and ``chw`` at batch 2 and 4):
+    median, min, max, spread, scan lengths, repeats, and the launches per
+    forward read from the counters around every measurement, held to
+    ``BENCH_WANT``; one profiled stream of 8 forwards (the host's enqueue,
+    the device's busy share inside it); then the bench's own JSON line.
+15. ``inspect``: ``python -m pcss_unet_tpu_torch inspect --config
+    config.ini --memory --latency --dot …`` in process (the w64 net at
+    2048×1024): its rows ``enc_0`` … ``dec_final``, ``full_model``, and a DOT
+    graph.
+16. ``parity_ref``: the reference's torch U-Net (``parity/unet_torch.py``,
+    w64, seeded BatchNorm statistics) at 1088×1920 in float32 with TF32 off
+    against the port's plain ``UNet`` loaded from its state dict (PSNR > 50
+    dB and max |d| ≤ 1e-4), and the two bf16 int8 engines' PSNR and max |d|
+    against it (reported).
+
 Then the ``{"kernels": [...]}`` line (``launches``: the sum over the three
 main-path runs, the two trained-net runs, the temporal and e2e_chain runs,
-the two counted CLI runs, the four server runs and the serve CLI's run; ``ms``, ``plain_ms`` and ``bound_ms``: per frame of the
+the two counted CLI runs, the four server runs, the serve CLI's run and the
+bench; ``ms``, ``plain_ms`` and ``bound_ms``: per frame of the
 kernel's headline path; ``max_abs_err``: over every path), the card's name and power limit as ``nvidia-smi`` prints
 them, and the result line.  Any failure raises and exits non-zero; with no
 CUDA device the script exits 2 and prints nothing.
@@ -205,11 +227,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from pcss_unet_tpu_torch.utils.benchlib import (PEAK_BF16_FLOPS,
+                                                PEAK_BYTES_PER_S,
+                                                PEAK_F32_FLOPS, PEAK_INT8_OPS,
+                                                card_line)
+
 REPO = os.path.dirname(os.path.abspath(__file__))
-PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-PEAK_BF16_FLOPS = 989e12        # dense tensor-core rates (on-chip guide)
-PEAK_INT8_OPS = 1979e12
-PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
 FRAME_H, FRAME_W = 1024, 2048
 MAIN_FRAMES = 10
 W64 = (64, 128, 512, 1024)
@@ -229,12 +252,14 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def card_line() -> str:
+def card_state() -> str:
+    """The card's SM clock and its maximum, power draw and temperature, as
+    ``nvidia-smi`` prints them (what it says on a failure)."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, timeout=60)
+    return (out.stdout or out.stderr).strip()
 
 
 def ptxas_entries(log: str, kernel: str) -> list[dict]:
@@ -297,6 +322,34 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+L2_FLUSH_BYTES = 128 * 2 ** 20      # written before each cold call (L2: 50 MB)
+
+
+@functools.cache
+def l2_flush_buffer():
+    import torch
+
+    return torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+
+
+def cuda_ms_cold(fn, iters: int = 10) -> float:
+    """Mean time of ``fn`` on the card with a cold L2: a 128 MiB buffer is
+    written before each call, and CUDA events bracket the call alone."""
+    import torch
+
+    flush = l2_flush_buffer()
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, stop in events:
+        flush.zero_()
+        start.record()
+        fn()
+        stop.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / iters
 
 
 @contextlib.contextmanager
@@ -471,7 +524,7 @@ def check_kernel(name, kernel, plain, paths, tol_fn, work_fn, f32_case, own):
     per_path = {}
     for path, calls in paths:
         worst, ms, plain_ms, t_bound, by_ops = 0.0, 0.0, 0.0, 0.0, 0.0
-        dev = 0.0
+        dev, ms_cold = 0.0, 0.0
         for i, (args, kw) in enumerate(calls):
             # the tap strategy only orders the kernel's sum; the plain
             # version has one order
@@ -488,6 +541,8 @@ def check_kernel(name, kernel, plain, paths, tol_fn, work_fn, f32_case, own):
                                      f"{shapes}")
             worst = max(worst, d)
             t = cuda_ms(lambda: kernel(*args, **kw))
+            tc = cuda_ms_cold(lambda: kernel(*args, **kw))
+            ms_cold += tc
             td, td_all = kernel_device_ms(lambda: kernel(*args, **kw), own)
             tp = cuda_ms(lambda: plain(*args, **pkw), iters=5, warmup=1)
             b, kind = work_fn(args, kw)
@@ -503,12 +558,14 @@ def check_kernel(name, kernel, plain, paths, tol_fn, work_fn, f32_case, own):
                   "options": {k: list(v.shape) if torch.is_tensor(v) else
                               v if isinstance(v, (int, float, str)) else str(v)
                               for k, v in kw.items()},
-                  "ms": t, "plain_ms": tp, "bound_ms": b, "bound_by": kind,
+                  "ms": t, "ms_cold": tc, "plain_ms": tp, "bound_ms": b,
+                  "bound_by": kind,
                   "max_abs_err": d, "mean_signed_err": diff.mean().item(),
                   "tol": tol})
         per_path[path] = {
             "calls_per_frame": len(calls), "max_abs_err": worst, "ms": ms,
-            "device_ms": dev, "plain_ms": plain_ms, "bound_ms": t_bound,
+            "ms_cold": ms_cold, "device_ms": dev, "plain_ms": plain_ms,
+            "bound_ms": t_bound,
             "bound_by": "operations" if by_ops > t_bound / 2 else "bytes",
             "shapes": [[tuple(a.shape) for a in args if hasattr(a, "shape")][:1]
                        for args, _ in calls]}
@@ -1143,6 +1200,207 @@ def export_phase(variables, kw, frames, engine_bf16, card):
     emit(line)
     if not d32 <= 1e-6:
         raise AssertionError(f"export float32: {line}")
+
+
+# -------------------------------------------------- bench, inspect, parity
+K2, K2N, K3, K5, K6 = ("fused_conv_block_chw", "fused_conv_block_nhwc",
+                       "fused_block_int8_nhwc", "fused_block_int8_kchunked",
+                       "fused_block128_nhwc")
+# per forward, (net, posture) -> kernel -> launches (0 where absent); K2′
+# launches K2 and counts on K2's counter too.  w16 fused_int8's K2′ and K6
+# counts, which the reference's gates leave to the kernels' shape picks,
+# are those the first card run recorded (dec_1 at 128 -> 32 takes no K6)
+BENCH_WANT = {
+    ("w64", "plain"): {},
+    ("w64", "fused"): {K2N: 3, K2: 3, K6: 1},
+    ("w64", "fused_int8"): {K2N: 3, K2: 3, K3: 1, K5: 1, K6: 1},
+    ("w64", "chw"): {K2: 4},
+    ("w64", "chw_int8"): {K2: 4, K3: 1, K5: 1},
+    ("w16", "chw"): {K2: 6},
+    ("w16", "chw_int8"): {K2: 6, K3: 1},
+    ("w16", "fused_int8"): {K2N: 5, K2: 5, K3: 1},
+}
+
+
+PROFILED_STREAM = 8     # forwards in the bench phase's profiled stream
+
+
+def stream_profile(apply_fn, params, x, n: int) -> dict:
+    """One bench stream of ``n`` forwards (``benchlib.make_stream``, after
+    one warm stream), per forward: the host's time to enqueue it (the
+    stream's call, before the synchronisation), its CUDA-event time, and
+    its device busy time under torch.profiler (a second dispatch).  A
+    stream is host-bound where the device idles inside it: busy share
+    (busy / event time) well below 1.  Enqueue ≈ event time alone says
+    nothing where the launch queue fills and the host waits on it."""
+    import torch
+
+    from pcss_unet_tpu_torch.utils import benchlib
+
+    stream = benchlib.make_stream(apply_fn, params, {}, n)
+    stream(x)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    stream(x)
+    enqueue = (time.perf_counter() - t) * 1e3
+    stop.record()
+    stop.synchronize()
+    elapsed = start.elapsed_time(stop)
+    summed, _ = device_events(lambda: stream(x))
+    busy = sum(dev_ms(e) for e in summed)
+    return {"stream_forwards": n, "stream_enqueue_ms_per_forward": enqueue / n,
+            "stream_event_ms_per_forward": elapsed / n,
+            "stream_busy_ms_per_forward": busy / n, "stream_busy_share": busy / elapsed}
+
+
+def bench_phase(card: str) -> dict:
+    """``python -m pcss_unet_tpu_torch.bench`` in process (its ``REPEATS``
+    measurements of each configuration at ``SCAN`` and ``REPS``): one line
+    per configuration, then the bench's own JSON line.  The bench reads
+    the kernels' counters around each measurement; every configuration's
+    launches per forward must be ``BENCH_WANT``'s.  Then one stream of
+    ``PROFILED_STREAM`` forwards per configuration, profiled
+    (``stream_profile``: whether the device idles inside a stream).  → the launches of the
+    bench's run (counters zeroed just before it)."""
+    import torch
+
+    from pcss_unet_tpu_torch import bench
+    from pcss_unet_tpu_torch.ops.kernels import reset_launch_counts
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    state_before = card_state()
+    t0 = time.perf_counter()
+    result = bench.main([])
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    state_after = card_state()
+    built = bench.build("cuda")
+    bad = []
+    for cfg in bench.CONFIGS:
+        row = result["postures"][cfg.name]
+        want = {k: float(v) for k, v in BENCH_WANT[cfg.net, cfg.impl].items()}
+        if row["launches_per_forward"] != want:
+            bad.append((cfg.name, row["launches_per_forward"]))
+        emit({"phase": "bench", "configuration": cfg.name,
+              **{k: row[k] for k in ("impl", "frame", "batch", "median_ms", "min_ms",
+                                     "max_ms", "spread", "runs_ms", "scan_lo",
+                                     "scan_hi", "reps", "forwards",
+                                     "launches_per_forward")},
+              "repeats": result["repeats"], "launches_per_forward_want": want,
+              **stream_profile(*built[cfg.name], PROFILED_STREAM),
+              "card": card})
+    emit({"phase": "bench_seconds", "seconds": seconds, "launches": launches,
+          "card_state_before_after": [state_before, state_after],
+          "card_state_fields": "clocks.sm, clocks.max.sm, power.draw, "
+                               "temperature.gpu"})
+    if bad:
+        raise AssertionError(f"bench: launches per forward other than "
+                             f"BENCH_WANT's: {bad[:4]}")
+    return launches
+
+
+INSPECT_STAGES = ["enc_0", "enc_1", "enc_2", "enc_3", "dec_0", "dec_1", "dec_2",
+                  "dec_final", "full_model"]
+
+
+def inspect_phase(card: str) -> None:
+    """``python -m pcss_unet_tpu_torch inspect --config config.ini --memory
+    --latency --dot …`` in process: the w64 net at 2048×1024 on the card;
+    its rows ``enc_0`` … ``dec_final``, ``full_model``, and a DOT graph."""
+    import torch
+
+    fd, dot = tempfile.mkstemp(suffix=".dot", dir=os.path.join(REPO, "build"))
+    os.close(fd)
+    try:
+        t0 = time.perf_counter()
+        with torch.inference_mode(False):
+            report, code = dispatch(["inspect", "--config",
+                                     os.path.join(REPO, "config.ini"), "--memory",
+                                     "--latency", "--dot", dot])
+        seconds = time.perf_counter() - t0
+        with open(dot) as f:
+            text = f.read()
+    finally:
+        os.remove(dot)
+    rows = [{"stage": r["stage"], "ms": r["seconds"] * 1e3,
+             **{k: list(r[k]) if k == "shape" else r[k]
+                for k in ("shape", "out_ch", "flops", "tf32") if k in r}}
+            for r in report or []]
+    line = {"phase": "inspect", "exit_code": code, "rows": rows,
+            "dot_bytes": len(text), "dot_nodes": text.count("label="),
+            "seconds": seconds, "card": card}
+    emit(line)
+    if (code != 0 or [r["stage"] for r in rows] != INSPECT_STAGES
+            or not text.startswith("digraph")):
+        raise AssertionError(f"inspect: {line}")
+
+
+PARITY_HW = (1088, 1920)
+PARITY_TOL = 1e-4   # max |d| of the float32 plain UNet (1.49e-6 measured); the
+                    # bf16 int8 engines' RMS error is ~1e-4 at their 80-82 dB
+
+
+def psnr_db(a, b) -> float:
+    mse = float(((a.float() - b.float()) ** 2).mean())
+    return 10 * math.log10(1.0 / max(mse, 1e-12))
+
+
+def parity_ref_phase(card: str) -> None:
+    """The reference's torch U-Net (``parity.make_torch_reference``, w64,
+    torch seed 0, non-trivial BatchNorm statistics as
+    ``tests/test_model_parity.py`` seeds them) on the card in float32 with
+    TF32 off at 1088×1920: the port's plain ``UNet`` loaded from its state
+    dict through ``models.torch_import`` must reach PSNR > 50 dB (the JAX
+    test's bar) and max |d| ≤ ``PARITY_TOL``: the seeded mask sits near
+    0.5, where PSNR alone passes a bf16 net.  Each error is also given
+    against the reference mask's own spread (max |d| / its max deviation
+    from its mean).  The two bf16 int8 engines are reported against it
+    (not gated: the seeded int8 postures are not continuous in their
+    input)."""
+    import torch
+
+    from pcss_unet_tpu_torch.infer import InferenceEngine
+    from pcss_unet_tpu_torch.models.torch_import import convert_torch_state_dict
+    from pcss_unet_tpu_torch.models.unet import unet_for_variables
+    from pcss_unet_tpu_torch.parity import make_torch_reference
+
+    torch.manual_seed(0)
+    ref = make_torch_reference()
+    with torch.no_grad():
+        for mod in ref.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                mod.running_mean.normal_(0, 0.05)
+                mod.running_var.uniform_(0.8, 1.2)
+    ref = ref.eval().cuda()
+    variables = convert_torch_state_dict(
+        {k: v.cpu().numpy() for k, v in ref.state_dict().items()})
+    x = np.random.default_rng(0).standard_normal((1, *PARITY_HW, 4))
+    xt = torch.from_numpy(x.astype(np.float32)).cuda()
+    with no_tf32():
+        want = ref(xt.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        outs = {"plain_f32": unet_for_variables(variables, device="cuda")(xt)}
+    for layout in ("nhwc", "chw"):
+        engine = InferenceEngine(None, variables, layout=layout, fold_bn=True,
+                                 quantize="int8", dtype=torch.bfloat16, device="cuda")
+        outs[f"{layout}_int8_bf16"] = engine.run_padded(xt)
+    spread = (want - want.mean()).abs().max().item()
+    line = {"phase": "parity_ref", "frame_hw": list(xt.shape[1:3]),
+            "min_psnr_db": 50.0, "max_abs_err_tol_plain_f32": PARITY_TOL,
+            "ref_mean": want.mean().item(), "ref_max_dev_from_mean": spread}
+    for name, got in outs.items():
+        err = (got.float() - want).abs().max().item()
+        line.update({f"psnr_db_{name}": psnr_db(got, want), f"max_abs_err_{name}": err,
+                     f"rel_err_{name}": err / spread})
+    line["card"] = card
+    emit(line)
+    if not (line["psnr_db_plain_f32"] > 50.0
+            and line["max_abs_err_plain_f32"] <= PARITY_TOL):
+        raise AssertionError(f"parity_ref: {line}")
 
 
 # ------------------------------------------------------------------ training
@@ -2366,6 +2624,13 @@ def main() -> int:
         export_phase(v64, kw, frames64, e64_nhwc, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    # the bench of the postures, inspect, the reference's torch ground truth
+    t0 = time.perf_counter()
+    runs.append(bench_phase(card))
+    inspect_phase(card)
+    parity_ref_phase(card)
+    emit({"phase": "bench_inspect_parity_seconds", "seconds": time.perf_counter() - t0})
 
     for e in entries:
         e["route"] = "cuda"

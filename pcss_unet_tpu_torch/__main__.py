@@ -1,8 +1,8 @@
 """Top-level dispatcher: ``python -m pcss_unet_tpu_torch <command> [args...]``.
 
-The commands of ``python -m pcss_unet_tpu`` that the port has so far
-(``PORTED``) run; ``inspect`` (ROADMAP Queue 1 item 15) exits 2 with a
-message that says it is not ported yet.
+Every command of ``python -m pcss_unet_tpu`` runs (``PORTED``); a command
+outside ``PORTED`` would exit 2 with a message that says it is not ported
+yet.
 """
 
 import sys
@@ -10,7 +10,7 @@ import sys
 COMMANDS = ("organize", "prepare", "stats", "train", "infer", "serve",
             "validate", "temporal", "check", "inspect")
 PORTED = ("organize", "prepare", "stats", "train", "infer", "serve",
-          "validate", "temporal", "check")
+          "validate", "temporal", "check", "inspect")
 
 
 def main():
@@ -18,8 +18,9 @@ def main():
     if len(sys.argv) < 2 or sys.argv[1] in ("-h", "--help") or \
             sys.argv[1] not in COMMANDS:
         print("usage: python -m pcss_unet_tpu_torch <command> [args...]")
-        print(f"commands: {', '.join(PORTED)} (not ported yet: "
-              f"{', '.join(c for c in COMMANDS if c not in PORTED)})")
+        missing = [c for c in COMMANDS if c not in PORTED]
+        print(f"commands: {', '.join(PORTED)}"
+              + (f" (not ported yet: {', '.join(missing)})" if missing else ""))
         raise SystemExit(0 if len(sys.argv) >= 2 and
                          sys.argv[1] in ("-h", "--help") else 2)
     if sys.argv[1] not in PORTED:

@@ -11,8 +11,8 @@ reference's script UX:
     python -m pcss_unet_tpu_torch serve      (streaming batch inference)
     python -m pcss_unet_tpu_torch validate   ≙ validate_consistency.py
     python -m pcss_unet_tpu_torch temporal   (pert_loss.py:170-199 over a sequence)
+    python -m pcss_unet_tpu_torch inspect    ≙ inference.py:285-297, visualize.py
 
-(also ``python -m pcss_unet_tpu_torch.cli.<command>``).  ``inspect`` is not
-ported yet (ROADMAP Queue 1 item 15).  Nothing here builds or parses
-anything at import.
+(also ``python -m pcss_unet_tpu_torch.cli.<command>``).  Nothing here
+builds or parses anything at import.
 """

@@ -180,7 +180,7 @@ def test_default_device_is_the_card(work, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,code", [
-    (["train", "--help"], 0), (["inspect"], 2), (["bogus"], 2), ([], 2),
+    (["train", "--help"], 0), (["inspect", "--help"], 0), (["bogus"], 2), ([], 2),
     (["--help"], 0), (["organize", "--help"], 0), (["prepare", "--help"], 0),
     (["stats", "--help"], 0), (["check", "--help"], 0),
     (["temporal", "--help"], 0)])
@@ -189,8 +189,8 @@ def test_dispatcher_exit_codes(monkeypatch, capsys, argv, code):
         _run(pmain, argv, monkeypatch)
     assert e.value.code == code
     out = capsys.readouterr()
-    if argv[:1] == ["inspect"]:
-        assert "not ported yet" in out.err
+    if argv[:1] == ["inspect"]:        # ported: its own parser's help
+        assert "--latency" in out.out and "--device" in out.out
     if argv[:1] == ["train"]:          # ported: its own parser's help
         assert "--allow_random_vgg" in out.out and "--device" in out.out
     if argv[:1] == ["temporal"]:
