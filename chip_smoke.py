@@ -44,6 +44,14 @@ trained net's kernel calls), each freeing what it used:
 - ``train_parity``: 3 train steps of the w64 net (batch 2, 128×128,
   dropout 0, float32, TF32 off) on the card and on the CPU: losses within
   1e-4, each parameter's change at cosine > 0.995 and norm within 2 %.
+- ``dp_train``: two gloo ranks on cuda:0 (each ``python3 chip_smoke.py
+  --dp-rank R WORK``, joined from the environment as ``--multihost`` joins)
+  at w64 on a global batch of 8 512×1024 frames, float32 with TF32 off: the
+  group step, standard and perturbed, against the one-process batch-8 step
+  (train_parity's bars, the BatchNorm statistics within 1e-4), ZeRO-1 against
+  the explicit step (rtol 1e-4, atol 1e-5), bf16 ms per step of the two
+  ranks beside one process's; then ``train --data_parallel 2 --device
+  cuda:0`` for one epoch: one set of checkpoints, written by rank 0.
 - ``train_to_serve``: the trained net exported with
   ``export_reference_checkpoint``, loaded with ``load_variables`` and run
   through both int8 engines (bf16, 1920×1080 padded to 1088): launch
@@ -138,6 +146,17 @@ Then the chain from renders to a trained net, every command through
    K5 ×1, K6 ×1, K4 ×1; the stage routing is printed), then a profile.
 7. ``main_path_w64_chw``: the same frames through the chw+int8 engine (per
    frame: K1 ×1, K2 ×4, K3 ×1, K5 ×1, K4 ×1), then a profile.
+   ``sharded_infer``: the spatially sharded forward (``infer_sharded``) on
+   1×2 and 1×4 meshes of this card (the windows run one after another: not
+   a faster path on one card) for the w64 1080p frame in four postures (plain
+   float32 with TF32 off, NHWC fused+int8, chw+int8 through the NHWC kernel
+   model, NHWC fused bf16 without int8) and the w16 2048×1024 frame in
+   chw+int8: launches per sharded frame (per window: K1 ×1, K2′ ×3, K3 ×1,
+   K5 ×1, K6 ×1 in the int8 postures), max |d| and uint8 codes changed
+   against the unsharded forward of the same padded frame (gated: plain
+   float32 ≤ 5e-7, fused bf16 without int8 exact), sharded and unsharded ms.
+   The kernel phase holds the 1×2 NHWC fused+int8 windows' calls as path
+   ``w64_sharded``: K1 (float32 out), K3, K5 exact, K2′ and K6 within 2e-2.
 
 8. ``cli_infer``: the user's command, in process: the w16 main-path frame
    written as a float32 ZIP EXR by the port's ``write_exr``, a
@@ -199,7 +218,7 @@ Then the chain from renders to a trained net, every command through
     against it (reported).
 
 Then the ``{"kernels": [...]}`` line (``launches``: the sum over the three
-main-path runs, the two trained-net runs, the temporal and e2e_chain runs,
+main-path runs, the ten sharded frames, the two trained-net runs, the temporal and e2e_chain runs,
 the two counted CLI runs, the four server runs, the serve CLI's run and the
 bench; ``ms``, ``plain_ms`` and ``bound_ms``: per frame of the
 kernel's headline path; ``max_abs_err``: over every path), the card's name and power limit as ``nvidia-smi`` prints
@@ -365,6 +384,15 @@ def no_tf32():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms: one process's runs of a step then
+    agree bit for bit, and two runs differ only by what they compute."""
+    import torch
+
+    return torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                      allow_tf32=False)
 
 
 def nbytes(*ts) -> int:
@@ -2298,6 +2326,420 @@ def e2e_chain_phase(work: str, data: str, split: str, ckpt: str, card: str) -> d
     return launches
 
 
+# ------------------------------------------ sharded inference, data parallel
+SHARD_MESHES = (2, 4)              # 1×n meshes of cuda:0
+SHARD_REPS = 5
+W64_SHARDED_WANT = {k: v for k, v in W64_NHWC_WANT.items()
+                    if k != "fused_mask_to_u8"}   # per window; masks stay float32
+W64_FUSED_SHARDED_WANT = {"fused_scrub_standardize": 1, "fused_conv_block_nhwc": 3,
+                          "fused_conv_block_chw": 3, "fused_block128_nhwc": 1}
+
+
+def window_block_diffs(eng, x, n, plain):
+    """Per ConvBlock of the model the windows run, the max |d| between each
+    window's own rows of the block's output and the same rows of the
+    unsharded forward's (every block's rows there lie inside the window's
+    receptive field, so they must agree where each op computes a window as
+    it computes the frame).  → ({block: max |d|}, the first block that
+    differs or None, that block's route)."""
+    from pcss_unet_tpu_torch.models.unet import ConvBlock, spatial_halo
+    from pcss_unet_tpu_torch.parallel import make_mesh
+
+    model = eng.plain_model if plain else eng.sharding_model()
+    halo = spatial_halo(model)
+    fwd = eng.build_sharded_forward(make_mesh(1, n, devices=["cuda:0"] * n), halo,
+                                    False, plain)
+    # the windows run the engine's own model on its card: one set of hooks,
+    # one dict of outputs per forward
+    windows, frame = {}, {}
+    outs = windows
+    hooks = [m.register_forward_hook(
+        lambda mod, a, o, name=name: outs.setdefault(name, []).append(o.float()))
+        for name, m in model.named_children() if isinstance(m, ConvBlock)]
+    try:
+        fwd(x)
+        outs = frame
+        model(eng._preprocess(x, fused=not plain))
+    finally:
+        for h in hooks:
+            h.remove()
+    h = x.shape[1]
+    shard = h // n
+    ext = min(h, shard + 2 * halo)
+    diffs = {}
+    for name in model.blocks():
+        full = frame[name][0]
+        f = h // full.shape[2]                    # the block's row scale
+        worst = 0.0
+        for i, win in enumerate(windows[name]):
+            start = i * shard
+            s = min(max(start - halo, 0), h - ext)
+            a = win[:, :, (start - s) // f:(start - s + shard) // f]
+            worst = max(worst, float((a - full[:, :, start // f:(start + shard) // f])
+                                     .abs().max()))
+        diffs[name] = worst
+    first = next((b for b, d in diffs.items() if d > 0), None)
+    return diffs, first, None if first is None else getattr(model, first).route
+
+
+def sharded_infer_phase(postures, card):
+    """Each posture ``(name, engine, frames, gate, want)`` through
+    ``infer_sharded`` on 1×n meshes of cuda:0 (the frames unpadded, numpy;
+    the path pads them): launches per sharded frame from counters zeroed
+    just before and read just after (``want`` per window, if given), the
+    sharded masks against the unsharded forward of the same padded frame
+    through the model the windows run (max |d|, codes changed; ``gate``:
+    the largest max |d| allowed, None to report only; and against the
+    engine's own forward, which for a chw engine is its channels-major
+    forward, reported), and the sharded frame's ms beside the unsharded one's
+    (the device-side forward on the padded frame already on the card,
+    CUDA-synchronised, median of ``SHARD_REPS`` after one warm).  Where
+    the sharded masks differ, ``window_block_diffs`` names the first block
+    whose rows differ; where a gate applies and that block runs cuDNN's
+    convolutions (``plain``), the comparison is made again with cuDNN off.  A gate
+    holds where no cuDNN block differs, and otherwise requires the windows
+    to agree with cuDNN off (so the difference is cuDNN's algorithm choice
+    for the window's height, not the port's).  On one card the windows run
+    one after another: this is not a faster path on one card.  → the
+    launch counts of each sharded frame."""
+    import torch
+
+    from pcss_unet_tpu_torch.infer import infer_sharded
+    from pcss_unet_tpu_torch.models.unet import spatial_halo
+    from pcss_unet_tpu_torch.ops.kernels import reset_launch_counts
+    from pcss_unet_tpu_torch.parallel import make_mesh
+
+    def median_ms(fn):
+        fn()
+        times = []
+        for _ in range(SHARD_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    runs = []
+    for name, eng, frames, gate, want in postures:
+        h, w = frames.shape[1:3]
+        for n in SHARD_MESHES:
+            mesh = make_mesh(1, n, devices=["cuda:0"] * n)
+            infer_sharded(eng, frames, mesh)                       # warm
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            got = infer_sharded(eng, frames, mesh)
+            launches = launch_counts()
+            if want is not None:
+                bad = {k: v for k, v in launches.items() if v != want.get(k, 0) * n}
+                if bad:
+                    raise AssertionError(f"sharded_infer {name} 1x{n}: launches "
+                                         f"{launches}, want {want} per window")
+            plain = eng.sharding_model() is eng.plain_model
+            model = eng.plain_model if plain else eng.sharding_model()
+            hp = -(-h // (16 * n)) * 16 * n
+            wp = -(-w // 16) * 16
+            padded = np.pad(frames, ((0, 0), (0, hp - h), (0, wp - w), (0, 0)),
+                            mode="reflect")
+            x = torch.from_numpy(padded).cuda()
+            # the unsharded forward of the model the windows run (for a chw
+            # engine, its NHWC kernel model; its own forward is reported too)
+            ref = eng._postprocess(model(eng._preprocess(x, fused=not plain)))
+            ref = ref.cpu().numpy()[:, :h, :w]
+            d = float(np.abs(got - ref).max())
+            codes = int((np.round(got * 255) != np.round(ref * 255)).sum())
+            own = eng.run_padded(x, plain=plain).cpu().numpy()[:, :h, :w]
+            fwd = eng.build_sharded_forward(mesh, spatial_halo(model), False, plain)
+            line = {"phase": "sharded_infer", "posture": name, "mesh": [1, n],
+                    "frame_hw": [h, w], "padded_hw": [hp, wp],
+                    "halo": spatial_halo(model),
+                    "window_rows": min(hp, hp // n + 2 * spatial_halo(model)),
+                    "launches": launches, "launches_per_window_want": want,
+                    "max_abs_vs_unsharded": d, "codes_changed": codes,
+                    "max_abs_vs_engine_forward": float(np.abs(got - own).max()),
+                    "gate": gate,
+                    "sharded_ms": median_ms(lambda: fwd(x)),
+                    "unsharded_ms": median_ms(lambda: eng.run_padded(x, plain=plain)),
+                    "card": card}
+            line["sharded_over_unsharded"] = line["sharded_ms"] / line["unsharded_ms"]
+            cudnn_off_exact = None
+            if d > 0:
+                diffs, first, route = window_block_diffs(eng, x, n, plain)
+                line.update(block_max_abs=diffs, first_block_that_differs=first,
+                            its_route=route)
+                if route == "plain" and gate is not None:
+                    with torch.backends.cudnn.flags(
+                            enabled=False, allow_tf32=torch.backends.cudnn.allow_tf32):
+                        off, _, _ = window_block_diffs(eng, x, n, plain)
+                    line["block_max_abs_cudnn_off"] = off
+                    cudnn_off_exact = not any(off.values())
+            emit(line)
+            if not (np.isfinite(got).all() and got.shape == (1, h, w, 1)):
+                raise AssertionError(f"sharded_infer {name}: bad output")
+            if gate is not None and not (d <= gate or cudnn_off_exact):
+                raise AssertionError(f"sharded_infer {name} 1x{n}: max |d| {d} "
+                                     f"against the unsharded forward > {gate}")
+            runs.append(launches)
+    return runs
+
+
+DP_HW = (512, 1024)               # the data-parallel phase's frames (h, w)
+DP_BATCH, DP_STEPS, DP_TIMED = 8, 2, 4
+
+
+def dp_rank_main(rank: int, work: str) -> int:
+    """One of the two ranks of ``dp_train`` (``python3 chip_smoke.py
+    --dp-rank R WORK``; the launcher's environment joins them over gloo on
+    cuda:0): the group step, standard and perturbed, on this rank's rows
+    of the batch; the explicit step and ZeRO-1; then timed
+    steps in the reference dtype and the gradient bucket's all-reduce alone.
+    Writes ``rank<R>.pkl`` in ``work``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from pcss_unet_tpu_torch.train.step import rank_rows
+    from pcss_unet_tpu_torch.utils.distributed import initialize_multihost
+
+    initialize_multihost()
+    group = dist.group.WORLD
+    rows = torch.from_numpy(rank_rows(DP_BATCH, rank, dist.get_world_size()))
+    out = {}
+    with no_tf32(), deterministic_cudnn():
+        for loss_type in ("standard", "perturb"):
+            out[loss_type] = dp_run(loss_type, group, rows, dtype="float64")
+        # two runs of one step take the same gradients, so ZeRO-1 and the
+        # explicit step differ only by ZeRO-1
+        for builder in ("explicit", "zero1"):
+            out[builder] = dp_run("standard", group, rows, builder=builder)
+    out["timed"] = dp_run("standard", group, rows, dtype="bfloat16",
+                          steps=DP_TIMED)["ms"]
+    # the step's one collective alone: the gradient bucket's all-reduce
+    bucket = torch.zeros(sum(v.size for v in out["standard"]["delta"].values()),
+                         device=DEVICE)
+    ms = []
+    for _ in range(DP_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(bucket)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["allreduce_ms"], out["bucket_floats"] = ms, bucket.numel()
+    with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_run(loss_type, group, rows, builder=None, steps=DP_STEPS,
+           dtype="float32"):
+    """``steps`` w64 train steps (config.ini's settings, adamw included,
+    with ``loss_type`` and ``dtype``, 4 steps an epoch, no warmup; float64
+    makes the parameters float64 too) from seed 0 on ``rows`` of a seeded
+    batch of ``DP_BATCH`` renderer-plausible ``DP_HW`` frames on cuda:0,
+    through the group step (``group``; None: one process), or through
+    ``parallel/dp.py``'s ``builder`` ("explicit" or "zero1").  → losses,
+    per-step ms, the parameters' changes and the BatchNorm statistics (host
+    numpy)."""
+    import torch
+
+    from pcss_unet_tpu_torch.config import load_config
+    from pcss_unet_tpu_torch.parallel.dp import (build_explicit_dp_train_step,
+                                                 build_zero1_dp_train_step,
+                                                 create_zero1_state)
+    from pcss_unet_tpu_torch.losses import LossBundle, PerceptualLoss
+    from pcss_unet_tpu_torch.models.init import init_train_weights
+    from pcss_unet_tpu_torch.models.unet import unet_from_config
+    from pcss_unet_tpu_torch.train import build_train_step, create_train_state
+
+    cfg = load_config(os.path.join(REPO, "config.ini"), {
+        "loss_type": loss_type, "compute_dtype": dtype, "batch_size": DP_BATCH,
+        "num_epochs": 2, "warmup_epochs": 0})
+    model = init_train_weights(unet_from_config(cfg, device="cpu"),
+                               torch.Generator().manual_seed(0)).to(DEVICE).train()
+    if dtype == "float64":
+        model.double()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    bundle = LossBundle(perceptual=PerceptualLoss(None, device=DEVICE), alpha=cfg.alpha,
+                        perturb_weight=cfg.perturb_weight,
+                        perturbation_count=cfg.perturbation_count)
+    args = (cfg, bundle, np.zeros(4, np.float32), np.ones(4, np.float32), 4)
+    state = create_train_state(model, cfg, 4)
+    if builder == "explicit":
+        step = build_explicit_dp_train_step(*args, group)
+    elif builder == "zero1":
+        state = create_zero1_state(model, cfg, 4, group)
+        step = build_zero1_dp_train_step(*args, group)
+    else:
+        step = build_train_step(*args, per_block_norms=False, group=group)
+    rng = np.random.default_rng(0)
+    pairs = [gbuffer(rng, i, *DP_HW) for i in range(DP_BATCH)]
+    x = torch.from_numpy(np.stack([p[0] for p in pairs])).to(DEVICE)[rows.to(DEVICE)]
+    y = torch.from_numpy(np.stack([p[1] for p in pairs])).to(DEVICE)[rows.to(DEVICE)]
+    losses, ms = [], []
+    for i in range(steps):
+        gen = torch.Generator(device=DEVICE).manual_seed(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, x, y, gen)
+        losses.append(float(m["total_loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if int(m["skipped"]):
+            raise AssertionError(f"dp_run {loss_type}: step {i} skipped")
+    return {"losses": losses, "ms": ms,
+            "delta": {n: (p.detach() - before[n]).double().cpu().numpy().ravel()
+                      for n, p in model.named_parameters()},
+            "stats": {n: b.detach().double().cpu().numpy()
+                      for n, b in model.named_buffers() if "running" in n}}
+
+
+def _cos_ratio(pairs):
+    """The worst cosine and norm-ratio error over (got, want) vector pairs."""
+    cos, ratio = 1.0, 0.0
+    for a, b in pairs:
+        na, nb = np.linalg.norm(a), np.linalg.norm(b)
+        if nb:
+            cos = min(cos, float(a @ b / (na * nb)))
+            ratio = max(ratio, abs(float(na / nb) - 1))
+    return cos, ratio
+
+
+def dp_compare(got, want):
+    """train_parity's criteria between two ``dp_run`` results: the losses'
+    largest relative difference; each parameter change's and each running
+    statistic's change's worst cosine and norm-ratio error (the conv biases
+    in front of a BatchNorm, whose true gradient is zero, by the size of
+    their change); the statistics' largest difference, reported."""
+    pre_bn = [n for n in want["delta"] if re.search(r"\.conv_[ab]\.bias$", n)]
+    cos, ratio = _cos_ratio((got["delta"][n], d) for n, d in want["delta"].items()
+                            if n not in pre_bn)
+    # a running statistic's change: from mean 0, variance 1
+    moved = {n: (s, got["stats"][n]) for n, s in want["stats"].items()}
+    s_cos, s_ratio = _cos_ratio((g - float("var" in n), w - float("var" in n))
+                                for n, (w, g) in moved.items())
+    return {"loss_max_rel": max(abs(a / b - 1) for a, b in zip(got["losses"],
+                                                                 want["losses"])),
+            "delta_worst_cos": cos, "delta_worst_norm_ratio_err": ratio,
+            "pre_bn_bias_delta_max": max(float(np.abs(d[n]).max()) for d in
+                                         (got["delta"], want["delta"]) for n in pre_bn),
+            "bn_stat_change_worst_cos": s_cos, "bn_stat_change_worst_norm_ratio_err": s_ratio,
+            "bn_stat_max_abs_diff": max(float(np.abs(g - w).max())
+                                        for w, g in moved.values())}
+
+
+def dp_train_phase(work: str, card: str) -> None:
+    """Data parallelism on one card: two gloo ranks on cuda:0 (NCCL refuses
+    two ranks on one card), each a process of its own (``dp_rank_main``),
+    the w64 net at full width on a global batch of 8 ``DP_HW`` frames,
+    deterministic cuDNN, TF32 off.  The group step, standard and perturbed,
+    with config.ini's adamw, against the one-process batch-8 step on the
+    card: losses within 1e-4, each parameter's and each BatchNorm running
+    statistic's change at cosine > 0.995 and norm within 2 %
+    (train_parity's bars).  These runs are float64: Adam's first steps are
+    sign-like and turn any float32 difference of summation order on
+    near-zero coordinates into ±lr, and splitting the batch over two ranks
+    changes the order of the sums; ZeRO-1 against the replicated explicit
+    step, float32 (rtol 1e-4, atol 1e-5: tests/test_dp_explicit.py's bar;
+    the pre-BN conv biases by size, as above); the ranks' step ms beside
+    the one process's, in bf16 (config.ini's dtype).  Then ``python -m
+    pcss_unet_tpu_torch train --data_parallel 2 --device cuda:0`` in
+    process for one epoch of 16 ``DP_HW`` frames (the CLI starts its two
+    ranks): its checkpoints written once, by rank 0."""
+    import pickle
+    import socket
+
+    import torch
+
+    t0 = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               WORLD_SIZE="2", PYTHONPATH=REPO)
+    procs = [subprocess.Popen([sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                               "--dp-rank", str(r), work],
+                              env=dict(env, RANK=str(r), LOCAL_RANK="0"), cwd=REPO)
+             for r in range(2)]
+    try:
+        for p in procs:
+            if p.wait(timeout=600):
+                raise AssertionError(f"dp_train: a rank exited {p.returncode}")
+    finally:
+        for p in procs:
+            p.kill()
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    rows = torch.arange(DP_BATCH)
+    with no_tf32(), deterministic_cudnn():
+        single = {lt: dp_run(lt, None, rows, dtype="float64")
+                  for lt in ("standard", "perturb")}
+    single_ms = dp_run("standard", None, rows, dtype="bfloat16", steps=DP_TIMED)["ms"]
+    line = {"phase": "dp_train", "ranks": 2, "backend": "gloo", "device": "cuda:0",
+            "widths": list(W64), "global_batch": DP_BATCH, "hw": list(DP_HW),
+            "optimizer": "adamw", "parity_dtype": "float64", "zero1_dtype": "float32",
+            "cudnn_deterministic": True, "tf32": False, "card": card}
+    ok = True
+    for lt in ("standard", "perturb"):
+        c = dp_compare(ranks[0][lt], single[lt])
+        c["ranks_agree"] = all(np.array_equal(ranks[1][lt]["delta"][n], d)
+                               for n, d in ranks[0][lt]["delta"].items())
+        line[lt] = c
+        ok &= (c["loss_max_rel"] <= 1e-4
+               and min(c["delta_worst_cos"], c["bn_stat_change_worst_cos"]) > 0.995
+               and max(c["delta_worst_norm_ratio_err"],
+                       c["bn_stat_change_worst_norm_ratio_err"]) < 2e-2
+               and c["pre_bn_bias_delta_max"] < 1e-3 and c["ranks_agree"])
+    z, e = ranks[0]["zero1"], ranks[0]["explicit"]
+    # (the pre-BN conv biases move on rounding noise: held by size above)
+    zero1_err = max(float(np.max(np.abs(z["delta"][n] - d) - 1e-4 * np.abs(d) - 1e-5))
+                    for n, d in e["delta"].items()
+                    if not re.search(r"\.conv_[ab]\.bias$", n))
+    line["zero1_vs_explicit"] = {
+        "loss_max_rel": max(abs(a / b - 1) for a, b in zip(z["losses"], e["losses"])),
+        "max_excess_over_rtol_1e-4_atol_1e-5": zero1_err}
+    ok &= zero1_err <= 0 and line["zero1_vs_explicit"]["loss_max_rel"] <= 1e-5
+    rank_ms = [max(a, b) for a, b in zip(ranks[0]["timed"], ranks[1]["timed"])]
+    line["step_ms_bf16"] = {"two_ranks": float(np.median(rank_ms[1:])),
+                            "one_process": float(np.median(single_ms[1:])),
+                            "steps": DP_TIMED, "first_step_dropped": True,
+                            "bucket_allreduce_ms": float(np.median(ranks[0]["allreduce_ms"][1:])),
+                            "bucket_floats": ranks[0]["bucket_floats"]}
+    # the CLI: one epoch of --data_parallel 2 on the card
+    data = os.path.join(work, "data")
+    os.makedirs(data)
+    rng = np.random.default_rng(1)
+    pairs = [gbuffer(rng, i, *DP_HW) for i in range(16 + 4)]
+    for split, sl in (("train", slice(0, 16)), ("val", slice(16, None))):
+        np.save(os.path.join(data, f"{split}_inputs.npy"), np.stack([p[0] for p in pairs[sl]]))
+        np.save(os.path.join(data, f"{split}_labels.npy"), np.stack([p[1] for p in pairs[sl]]))
+    ckpt = os.path.join(work, "ckpt")
+    t_cli = time.perf_counter()
+    _, code = dispatch(["train", "--config", "config.ini", "--allow_random_vgg",
+                        "--processed_data_dir", data, "--save_dir", ckpt,
+                        "--num_epochs", "1", "--data_parallel", "2",
+                        "--device", "cuda:0", "--grad_accum_steps", "1"])
+    cli_s = time.perf_counter() - t_cli
+    files = sorted(os.listdir(ckpt))
+    with open(os.path.join(ckpt, "checkpoints.json")) as f:
+        index = json.load(f)
+    with open(os.path.join(ckpt, "resolved_config.json")) as f:
+        resolved = json.load(f)
+    line["cli"] = {"exit": code, "files": files, "checkpoints": index,
+                   "data_parallel": resolved["data_parallel"], "seconds": cli_s}
+    ok &= (code == 0 and files == ["checkpoints.json", "ckpt_0.pt",
+                                   "resolved_config.json"]
+           and list(index) == ["0"] and resolved["data_parallel"] == 2)
+    line["seconds"] = time.perf_counter() - t0
+    emit(line)
+    if not ok:
+        raise AssertionError(f"dp_train: {line}")
+
+
 def main() -> int:
     import torch
 
@@ -2314,6 +2756,7 @@ def main() -> int:
     from pcss_unet_tpu_torch.ops.kernels import convblock128 as kc128
     from pcss_unet_tpu_torch.ops.kernels import deploy
     from pcss_unet_tpu_torch.ops.kernels import fused as kfu
+    from pcss_unet_tpu_torch.parallel import make_mesh
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2392,12 +2835,17 @@ def main() -> int:
             npz, train_stats, train_s = train_phase(train_work, card)
             bench_s = train_bench_phase(card)
             parity_s = train_parity_phase()
+            t_dp = time.perf_counter()
+            os.makedirs(os.path.join(train_work, "dp"))
+            dp_train_phase(os.path.join(train_work, "dp"), card)
+            dp_s = time.perf_counter() - t_dp
         t_serve = time.perf_counter()
         e_trained_nhwc, e_trained_chw, trained_frames, trained_runs = \
             train_to_serve_phase(npz, train_stats, os.path.join(train_work, "data"),
                                  plain, card, own)
         emit({"phase": "train_phases_seconds", "train": train_s, "train_bench": bench_s,
-              "train_parity": parity_s, "train_to_serve": time.perf_counter() - t_serve})
+              "train_parity": parity_s, "dp_train": dp_s,
+              "train_to_serve": time.perf_counter() - t_serve})
     finally:
         shutil.rmtree(train_work, ignore_errors=True)
 
@@ -2470,6 +2918,13 @@ def main() -> int:
             (*wrappers[k], k) for k in ("scrub", "nhwc", "int8", "kchunked",
                                         "block128", "u8")])
     del f64_b4
+    # the spatially sharded forward's windows (phase sharded_infer): the
+    # NHWC fused+int8 engine on a 1x2 mesh of cuda:0, two windows of 672
+    # rows of the frame above (its first 1080 rows; the path pads them)
+    raw64 = f64[:, :W64_H]
+    calls["w64_sharded"] = record_calls(
+        lambda: tiled.infer_sharded(e64_nhwc, raw64, make_mesh(1, 2, devices=["cuda:0"] * 2)),
+        [(*wrappers[k], k) for k in ("scrub", "nhwc", "int8", "kchunked", "block128")])
     # the trained w64 net's forwards (phase train_to_serve), one NHWC and
     # one chw frame, as one path: K1, K2, K2', K3, K5, K6, K4
     trained = [record_calls(lambda: e.render_u8(trained_frames), [
@@ -2496,6 +2951,7 @@ def main() -> int:
     all4 = all3 + ("w16_tiled",)
     b4 = "w64_serve_b4"
     tr = "w64_trained"
+    sh = "w64_sharded"
     # K1 as each path calls it (entry "chw" / "nhwc", bf16 out), and the
     # reference's own layout (entry None) on the w16 frame; the float32
     # case is the w16 call with float32 out.  Exact: one rounding of the
@@ -2504,7 +2960,7 @@ def main() -> int:
     entries = [
         check_kernel("fused_scrub_standardize", kfu.fused_scrub_standardize,
                      kfu.scrub_standardize_plain,
-                     on("scrub", *all4, b4, tr) + [("w16_entry_none", [
+                     on("scrub", *all4, b4, tr, sh) + [("w16_entry_none", [
                          (scrub_args, dict(scrub_kw, entry=None))])],
                      lambda *_: 0.0, scrub_work,
                      (scrub_args, dict(scrub_kw, out_dtype=torch.float32)), own),
@@ -2516,7 +2972,7 @@ def main() -> int:
         # takes every float32 step (dequantize, bias, leaky, rounding of h,
         # the band max) as the plain version does: equal, bit for bit
         check_kernel("fused_block_int8_nhwc", kb8.fused_block_int8_nhwc,
-                     kb8.block_int8_nhwc_plain, on("int8", *all4, b4, tr),
+                     kb8.block_int8_nhwc_plain, on("int8", *all4, b4, tr, sh),
                      lambda *_: 0.0, int8_work, f32(first("int8", "w16_chw")), own),
         check_kernel("fused_mask_to_u8", kfu.fused_mask_to_u8,
                      kfu.mask_to_u8_plain, on("u8", *all3, b4, tr), lambda *_: 0.0,
@@ -2524,10 +2980,10 @@ def main() -> int:
         # K5: exact as K3, the float32 chunk sums in the same order on both sides
         check_kernel("fused_block_int8_kchunked", kb8.fused_block_int8_kchunked,
                      kb8.block_int8_kchunked_plain,
-                     on("kchunked", "w64_nhwc", "w64_chw", b4, tr), lambda *_: 0.0,
+                     on("kchunked", "w64_nhwc", "w64_chw", b4, tr, sh), lambda *_: 0.0,
                      int8_work, f32(first("kchunked", "w64_nhwc")), own),
         check_kernel("fused_block128_nhwc", kc128.fused_block128_nhwc,
-                     kc128.block128_nhwc_plain, on("block128", "w64_nhwc", b4, tr),
+                     kc128.block128_nhwc_plain, on("block128", "w64_nhwc", b4, tr, sh),
                      conv_tol, block128_work, f32(first("block128", "w64_nhwc")), own),
     ]
     xk7 = torch.randn((1, 272, 480, 512), generator=gen, device="cuda").bfloat16()
@@ -2546,7 +3002,7 @@ def main() -> int:
                      conv3x3_int8_work,
                      (f32(k7_call)[0], dict(k7_call[1], out_dtype=torch.float32)), own),
         check_kernel("fused_conv_block_nhwc", kcb.fused_conv_block_nhwc,
-                     kcb.conv_block_nhwc_plain, on("nhwc", "w64_nhwc", b4, tr), conv_tol,
+                     kcb.conv_block_nhwc_plain, on("nhwc", "w64_nhwc", b4, tr, sh), conv_tol,
                      conv_nhwc_work, f32(first("nhwc", "w64_nhwc", 1)), own),
     ]
     block128_storage(kc128, _build, first("block128", "w64_nhwc"))
@@ -2606,6 +3062,20 @@ def main() -> int:
     runs.append(main_path("main_path_w64_chw", e64_chw, frames64, W64_FRAMES,
                           W64_CHW_WANT, card, own))
 
+    # the spatially sharded forward on 1x2 and 1x4 meshes of this card
+    with no_tf32():
+        e64_plain = InferenceEngine(None, v64, dtype=torch.float32, device="cuda", **stats)
+        runs += sharded_infer_phase(
+            [("w64_plain_float32_tf32_off", e64_plain, raw64, 5e-7, {})], card)
+    del e64_plain
+    e64_fused = InferenceEngine(None, v64, layout="nhwc", **dict(kw, quantize="none"))
+    runs += sharded_infer_phase([
+        ("w64_nhwc_fused_int8", e64_nhwc, raw64, None, W64_SHARDED_WANT),
+        ("w64_chw_int8", e64_chw, raw64, None, W64_SHARDED_WANT),
+        ("w64_nhwc_fused_bf16", e64_fused, raw64, 0.0, W64_FUSED_SHARDED_WANT),
+        ("w16_chw_int8", engine, frame_np[None], None, None)], card)
+    del e64_fused
+
     runs += trained_runs + chain_runs
 
     # the user's command: EXR in, PNG out, untiled and tiled; then validate
@@ -2648,6 +3118,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:      # a rank of phase dp_train
+        sys.exit(dp_rank_main(int(sys.argv[2]), sys.argv[3]))
     import torch
 
     with torch.inference_mode():

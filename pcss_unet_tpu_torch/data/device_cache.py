@@ -12,8 +12,9 @@ Correctness contract (``tests/test_torch_device_cache.py``): the cache is a
 pure data-path optimization.  It consumes the same ``Loader.epoch_indices``
 and ``Loader.crop_offsets`` as the host path, so batch streams are
 bit-identical and a training run produces the same trajectory either way.
-One card: the JAX cache's ``replicate``/``shard`` placements belong to data
-parallelism (ROADMAP Queue 1 item 13).
+Under data parallelism each rank holds the dataset on its own card and
+takes its rows of every batch (``batches(..., rows=...)``), the port's
+counterpart of the JAX cache's ``shard`` placement.
 """
 
 from __future__ import annotations
@@ -75,15 +76,18 @@ class DeviceCache:
         logging.info("device cache: %d samples, %.1f MiB on %s",
                      n, self.nbytes / (1 << 20), self.device)
 
-    def batches(self, loader, epoch: int, start_batch: int = 0):
+    def batches(self, loader, epoch: int, start_batch: int = 0, rows=None):
         """Yield (inputs, labels) batches on the device for ``epoch``,
         identical in content and order to ``loader.epoch(epoch,
-        start_batch)``."""
+        start_batch)``; ``rows`` (indices into each batch): only those
+        rows, a data-parallel rank's."""
         if self.crop_hw != loader.crop_hw:
             raise ValueError(f"cache crop {self.crop_hw} != loader crop "
                              f"{loader.crop_hw}")
         batches = loader.epoch_indices(epoch)
         offsets = loader.crop_offsets(epoch, len(batches))
+        if rows is not None:
+            batches = batches[:, rows]
         plan = torch.from_numpy(np.ascontiguousarray(batches, np.int64)
                                 ).to(self.device)
         for b in range(start_batch, len(batches)):

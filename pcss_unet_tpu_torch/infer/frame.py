@@ -24,10 +24,16 @@ reaches no kernel (``infer.export`` traces it).  On the card, nothing in
 the forward reads the device from the host, and ``render_u8`` (the serving
 path) sends host frames up through pinned buffers, so it returns as soon as
 its work is queued.
+
+``build_sharded_forward`` is the reference's spatially sharded forward that
+keeps the kernels: each spatial index of a mesh runs the whole kernel
+posture on an aligned window of the frame (the model's window mode) on its
+own device, and gives back its rows (``infer.tiled.infer_sharded_halo``).
 """
 
 from __future__ import annotations
 
+import copy
 import os
 
 import numpy as np
@@ -39,7 +45,8 @@ from pcss_unet_tpu_torch.infer.staging import PinnedRing
 from pcss_unet_tpu_torch.models.fold_bn import fold_batchnorm
 from pcss_unet_tpu_torch.models.torch_import import \
     load_variables as _load_reference
-from pcss_unet_tpu_torch.models.unet import (UNet, unet_for_variables,
+from pcss_unet_tpu_torch.models.unet import (UNet, spatial_align,
+                                             unet_for_variables,
                                              widths_from_params)
 from pcss_unet_tpu_torch.ops.kernels.fused import (fused_mask_to_u8,
                                                    fused_scrub_standardize)
@@ -167,6 +174,10 @@ class InferenceEngine:
         self.layout = layout
         self.taps = taps
         self.quantize = quantize
+        self._fold_bn = fold_bn
+        self._nhwc_kernel_model = None
+        self._window_models: dict = {}
+        self._sharded_cache: dict = {}
         self._chw_kw = dict(dtype=dtype, int8=quantize == "int8", taps=taps)
         self._dtype = dtype
         self._staging = PinnedRing()
@@ -248,6 +259,104 @@ class InferenceEngine:
     def _postprocess(out: torch.Tensor) -> torch.Tensor:
         out = torch.nan_to_num(out.float(), nan=0.0, posinf=1.0, neginf=0.0)
         return torch.clamp(out, 0.0, 1.0)
+
+    def sharding_model(self) -> UNet:
+        """The NHWC model the sharded paths run: ``model``, or for the chw
+        layout the NHWC model the reference's engine holds beside its
+        channels-major forward (the deployment switches where ``fold_bn``,
+        else the plain graph), built at first use."""
+        if self.model is not None:
+            return self.model
+        if self._nhwc_kernel_model is None:
+            model = self.plain_model
+            if self._fold_bn:
+                with torch.inference_mode(False):
+                    model = copy.deepcopy(model)
+                for name in model.blocks():
+                    block = getattr(model, name)
+                    block.fused_inference = True
+                    block.int8_inference = self.quantize == "int8"
+            self._nhwc_kernel_model = model
+        return self._nhwc_kernel_model
+
+    def _window_model(self, device: torch.device, plain: bool):
+        """(model, means, stds) on ``device`` for the sharded forward: the
+        sharded paths' model itself on the engine's device, a copy made
+        once on any other."""
+        key = (device, plain)
+        if key not in self._window_models:
+            model = self.plain_model if plain else self.sharding_model()
+            if next(model.parameters()).device != device:
+                with torch.inference_mode(False):
+                    model = copy.deepcopy(model).to(device)
+            stats = [None if t is None else t.to(device)
+                     for t in (self.means, self.stds)]
+            self._window_models[key] = (model, *stats)
+        return self._window_models[key]
+
+    def build_sharded_forward(self, mesh, halo: int, shard_batch: bool,
+                              plain: bool = False):
+        """A spatially sharded forward that keeps the engine's kernel
+        posture (``frame.py:257-318`` of the reference).  Spatial index i
+        of ``mesh`` takes the aligned window of rows [s, s + ext) of the
+        frame, ext = min(H, H / n_spatial + 2·halo) and s = clip(i·H /
+        n_spatial − halo, 0, H − ext); on its device it runs the K1
+        preprocessing (float32 out) and the model in window mode, and
+        keeps its own H / n_spatial rows.  With halo ≥ ``spatial_halo``
+        the rows equal the unsharded forward's on the same frame, up to
+        what a kernel does differently on a window (an int8 block bands
+        the window's rows, not the frame's).  ``plain``: the plain graph
+        and preprocessing, which reach no kernel.
+
+        → ``fn(x)`` with x [B, H, W, C] (numpy or a tensor): float32 masks
+        [B, H, W, 1] on the engine's device.  Every window is queued before
+        any result is gathered, so windows on different cards overlap.  H
+        must divide by n_spatial · align and W by align (align: the larger
+        of ``pad_multiple`` and ``spatial_align``); ``halo`` is rounded up
+        to align.  ``shard_batch``: the batch is split over the data axis
+        (each data index's windows on its row of the mesh), else row 0
+        runs it all.  Cached per (mesh, halo, shard_batch, plain)."""
+        model = self.plain_model if plain else self.sharding_model()
+        align = max(self.pad_multiple, spatial_align(model))
+        halo = -(-halo // align) * align
+        key = (mesh, halo, shard_batch, plain)
+        if key in self._sharded_cache:
+            return self._sharded_cache[key]
+        n_sp = mesh.shape["spatial"]
+        rows = mesh.devices if shard_batch else mesh.devices[:1]
+
+        @torch.inference_mode()
+        def fwd(frames) -> torch.Tensor:
+            x = self._upload(frames)
+            b, h, w, _ = x.shape
+            if h % (n_sp * align) or w % align:
+                raise ValueError(
+                    f"sharded forward needs H divisible by n_spatial·align "
+                    f"({n_sp}·{align}) and W by {align}; got H={h}, W={w} "
+                    f"(pad first — infer_sharded_halo does this)")
+            shard_h = h // n_sp
+            ext = min(h, shard_h + 2 * halo)
+            parts = []
+            for xb, row in zip(x.chunk(len(rows)), rows):
+                for i, dev in enumerate(row):
+                    m, means, stds = self._window_model(dev, plain)
+                    start = i * shard_h
+                    s = min(max(start - halo, 0), h - ext)
+                    win = xb[:, s:s + ext].to(dev).float()
+                    if plain or means is None:
+                        win = preprocess_plain(win, means, stds)
+                    else:
+                        win = fused_scrub_standardize(win, means, stds,
+                                                      out_dtype=torch.float32)
+                    out = self._postprocess(m(win, window=(h, s)))
+                    parts.append(out[:, start - s:start - s + shard_h])
+            # gathered only after every window is queued
+            parts = [p.to(self.device) for p in parts]
+            return torch.cat([torch.cat(parts[r * n_sp:(r + 1) * n_sp], dim=1)
+                              for r in range(len(rows))])
+
+        self._sharded_cache[key] = fwd
+        return fwd
 
     @torch.inference_mode()
     def run_padded(self, frames, plain: bool = False) -> torch.Tensor:

@@ -1,17 +1,28 @@
-"""Halo-tiled full-frame inference (port of the tiled half of
-``pcss_unet_tpu/infer/tiled.py``).
+"""Scaled full-frame inference: spatial sharding and halo-tiled
+decomposition (port of ``pcss_unet_tpu/infer/tiled.py``).
 
 The reference has no tiled path at all — ``validate_direct`` is explicitly
 non-tiled (main.py:583) and both CLIs are single-frame, single-GPU.
+
+``infer_sharded_halo`` splits a frame's rows over the ``spatial`` axis of a
+mesh (``parallel.make_mesh``): each spatial index runs the engine's whole
+kernel posture on an aligned window of the frame with a halo of rows
+around its own (``InferenceEngine.build_sharded_forward``), on its own
+device, and the rows are gathered on the engine's device.  The frame is
+padded by reflection to a multiple of n_spatial·align rows, more than the
+engine's ×16, so rows near the bottom edge see a longer reflected border
+than ``engine(frames)`` gives them: the oracle is the unsharded forward of
+the same padded frame.  ``infer_sharded`` takes that path for a kernel
+posture and, for a plain engine, runs the windows through the plain graph
+(the reference partitions the plain graph with XLA; windows compute the
+same plain forward of the same padded frame).
+
 ``infer_tiled`` cuts a frame into overlapping ``tile×tile`` tiles with a
 ``halo`` overlap, runs them through the engine in bounded batches
 (``tile_batch``, so peak activation memory is per chunk, not per frame) and
 blends the seams back with a separable linear feather (weights sum to 1
 everywhere by construction), on the engine's device (``ops/blend.py``) or
 on the host.
-
-The spatially sharded paths (``infer_sharded``, ``infer_sharded_halo``)
-wait for ROADMAP Queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -20,7 +31,63 @@ import numpy as np
 import torch
 
 from pcss_unet_tpu_torch.infer.frame import InferenceEngine
+from pcss_unet_tpu_torch.models.unet import spatial_align, spatial_halo
 from pcss_unet_tpu_torch.ops.blend import blend_tiles_device
+
+
+def _sharded(engine: InferenceEngine, frames, mesh, halo: int | None,
+             plain: bool) -> np.ndarray:
+    frames = np.asarray(frames, np.float32)
+    squeeze = frames.ndim == 3
+    if squeeze:
+        frames = frames[None]
+    model = engine.plain_model if plain else engine.sharding_model()
+    # shard_h (so every window start) keeps the model's pooling alignment,
+    # and W too: window mode has no resize fix-up
+    align = max(engine.pad_multiple, spatial_align(model))
+    if halo is None:
+        halo = spatial_halo(model)
+    n_sp = mesh.shape["spatial"]
+    n_dp = mesh.shape["data"]
+    b, h, w, _ = frames.shape
+    ph = (-h) % (align * n_sp)
+    pw = (-w) % align
+    if ph >= h:
+        # too small to split n_sp ways (reflection needs pad < H): the
+        # engine's own single-device pad and crop, as the reference does
+        out = engine(frames)
+        return out[0] if squeeze else out
+    if ph or pw:
+        frames = np.pad(frames, ((0, 0), (0, ph), (0, pw), (0, 0)),
+                        mode="reflect")
+    shard_batch = n_dp > 1 and b % n_dp == 0
+    fwd = engine.build_sharded_forward(mesh, halo, shard_batch, plain=plain)
+    out = fwd(frames).cpu().numpy()[:, :h, :w]
+    return out[0] if squeeze else out
+
+
+def infer_sharded(engine: InferenceEngine, frames: np.ndarray,
+                  mesh) -> np.ndarray:
+    """Full-frame inference with H over the mesh's 'spatial' axis and the
+    batch over 'data' where it divides.  A kernel posture goes to
+    ``infer_sharded_halo``; a plain engine runs the windows through its
+    plain graph (halo ``spatial_halo``), the plain forward of the same
+    padded frame.  Frames [B, H, W, 4] or [H, W, 4] → masks, float32
+    numpy."""
+    plain = engine.sharding_model() is engine.plain_model
+    return _sharded(engine, frames, mesh, None, plain)
+
+
+def infer_sharded_halo(engine: InferenceEngine, frames: np.ndarray, mesh,
+                       halo: int | None = None) -> np.ndarray:
+    """Spatially sharded inference that keeps the engine's kernel posture:
+    each spatial index runs the kernels on an aligned (shard + 2·halo)-row
+    window in window mode and keeps its own rows.  With the default halo,
+    ``spatial_halo(model)``, the result is the unsharded forward of the
+    same padded frame (where the kernels compute a window as they compute
+    the frame).  Frames [B, H, W, 4] or [H, W, 4] → masks, float32
+    numpy."""
+    return _sharded(engine, frames, mesh, halo, plain=False)
 
 
 def _feather_weights(tile: int, halo: int, dtype=np.float32) -> np.ndarray:

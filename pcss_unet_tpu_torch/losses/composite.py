@@ -41,7 +41,11 @@ class LossBundle:
     sobel_weight: float = 0.0
     ssim_weight: float = 0.0
 
-    def base_terms(self, output: torch.Tensor, target: torch.Tensor) -> dict:
+    def base_terms(self, output: torch.Tensor, target: torch.Tensor,
+                   group=None) -> dict:
+        """The loss terms; every one is a mean over the batch (so the mean
+        over a process group's equal shards is the whole batch's) except the
+        penumbra ratio, which takes ``group`` itself."""
         output = output.float()
         target = target.float()
         terms = {
@@ -51,7 +55,8 @@ class LossBundle:
         if self.high_freq_weight:
             terms["high_freq_loss"] = high_freq_loss(output, target)
         if self.penumbra_weight:
-            terms["penumbra_loss"] = penumbra_weighted_l1(output, target)
+            terms["penumbra_loss"] = penumbra_weighted_l1(output, target,
+                                                          group=group)
         if self.sobel_weight:
             terms["sobel_loss"] = sobel_gradient_loss(output, target)
         if self.ssim_weight:
@@ -69,9 +74,10 @@ class LossBundle:
 
 
 def standard_loss(bundle: LossBundle, output: torch.Tensor,
-                  target: torch.Tensor) -> tuple[torch.Tensor, dict]:
-    """α·L1 + (1−α)·VGG (+ gated extras).  → (total, components)."""
-    terms = bundle.base_terms(output, target)
+                  target: torch.Tensor, group=None) -> tuple[torch.Tensor, dict]:
+    """α·L1 + (1−α)·VGG (+ gated extras).  → (total, components).
+    ``group``: this rank's shard of a process group's batch."""
+    terms = bundle.base_terms(output, target, group)
     total = bundle._blend(terms)
     terms["total_loss"] = total
     return total, terms
@@ -81,17 +87,20 @@ def enhanced_loss(bundle: LossBundle, apply_fn: Callable,
                   inputs: torch.Tensor, output: torch.Tensor,
                   target: torch.Tensor, training: bool = True,
                   generator: torch.Generator | None = None,
-                  noise: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+                  noise: torch.Tensor | None = None,
+                  group=None) -> tuple[torch.Tensor, dict]:
     """standard blend + perturb_weight·perturbation (pert_loss.py:117-167).
     The perturbation term is skipped outside training or at weight 0,
     mirroring pert_loss.py:149.  ``generator`` / ``noise``: the
-    perturbation's noise source (``perturbation_loss``)."""
-    terms = bundle.base_terms(output, target)
+    perturbation's noise source (``perturbation_loss``); ``group``: this
+    rank's shard of a process group's batch."""
+    terms = bundle.base_terms(output, target, group)
     total = bundle._blend(terms)
     if training and bundle.perturb_weight > 0:
         pert = perturbation_loss(apply_fn, inputs, output,
                                  count=bundle.perturbation_count,
-                                 generator=generator, noise=noise)
+                                 generator=generator, noise=noise,
+                                 group=group)
         total = total + bundle.perturb_weight * pert
         terms["perturbation_loss"] = pert
     else:

@@ -13,6 +13,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pcss_unet_tpu_torch.utils.distributed import all_reduce_sum
+
 
 def _depthwise_conv(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """Single-channel NHWC conv with SAME padding (odd kernels)."""
@@ -51,12 +53,17 @@ def high_freq_loss(output: torch.Tensor, target: torch.Tensor,
 
 
 def penumbra_weighted_l1(output: torch.Tensor, target: torch.Tensor,
-                         lo: float = 0.1, hi: float = 0.9) -> torch.Tensor:
+                         lo: float = 0.1, hi: float = 0.9,
+                         group=None) -> torch.Tensor:
     """L1 restricted to the penumbra band 0.1<target<0.9, normalized by the
-    band size (customLoss.py:145-153)."""
+    band size (customLoss.py:145-153).  ``group``: the ratio of the process
+    group's whole batch (both sums all-reduced, differentiably)."""
     mask = ((target > lo) & (target < hi)).float()
-    num = torch.sum(torch.abs(output * mask - target * mask))
-    return num / (mask.sum() + 1e-8)
+    sums = torch.stack([torch.sum(torch.abs(output * mask - target * mask)),
+                        mask.sum()])
+    if group is not None:
+        sums = all_reduce_sum(sums, group)
+    return sums[0] / (sums[1] + 1e-8)
 
 
 def sobel_gradient_loss(output: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

@@ -41,8 +41,18 @@ keep them; Dropout2d takes its masks from the caller (``dropout_masks``:
 drawn from an explicit generator, at half the rate for ``dec_final``); the
 bottleneck runs under ``torch.utils.checkpoint`` (the reference's
 ``remat_bottleneck``) with its mask drawn outside the checkpointed region,
-so the recompute applies the same mask.  The reference's
-``spatial_window`` (sharded inference) is not ported yet.
+so the recompute applies the same mask.  Given a ``torch.distributed``
+process group (the reference's ``bn_axis_name``), the train-mode BatchNorm
+takes its statistics over the group's whole batch.
+
+Window mode is the reference's ``spatial_window`` for spatially sharded
+inference (``infer.tiled.infer_sharded_halo``): ``forward`` and
+``forward_entered`` take ``window=(frame_h, offset)`` (the frame's height
+and the window's first row in it) and every align-corners resize then uses
+the frame's coefficients, so the window's rows away from its edges are the
+frame's.
+``spatial_align`` and ``spatial_halo`` give the window starts' alignment
+and the halo that makes them exact.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -62,7 +73,9 @@ from pcss_unet_tpu_torch.ops.pixelshuffle import (pixel_shuffle_nhwc,
 from pcss_unet_tpu_torch.ops.resize import (apply_matrix, interp_matrix,
                                             matrix_on,
                                             resize_bilinear_align_corners,
-                                            resize_chain)
+                                            resize_chain, resize_rows_window,
+                                            upsample2x_window)
+from pcss_unet_tpu_torch.utils.distributed import all_reduce_sum
 
 
 ACTIVATIONS = ("leaky_relu", "relu", "gelu")
@@ -122,15 +135,28 @@ BN_MOMENTUM = 0.9     # flax's momentum (torch's 0.1)
 
 def batch_norm_train(x: torch.Tensor, norm: nn.BatchNorm2d,
                      running: tuple[torch.Tensor, torch.Tensor],
-                     dtype: torch.dtype) -> tuple[torch.Tensor, tuple]:
+                     dtype: torch.dtype, group=None) -> tuple[torch.Tensor, tuple]:
     """flax ``nn.BatchNorm(use_running_average=False)`` on NCHW ``x`` in
     ``dtype``: batch mean E[x] and biased variance max(0, E[x²] − E[x]²)
     over (N, H, W), ``(x − mean) · (rsqrt(var + eps) · scale) + bias``.
     Returns the output and the updated running (mean, var) computed from
-    ``running`` (detached; nothing is written)."""
+    ``running`` (detached; nothing is written).
+
+    ``group``: a process group whose ranks hold equal shards of one batch;
+    E[x] and E[x²] are then the whole batch's, from one differentiable
+    all-reduce of the per-channel sums and sums of squares (flax's
+    ``axis_name`` BatchNorm)."""
     xf = x.to(dtype)
-    mean = xf.mean(dim=(0, 2, 3))
-    var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    if group is None:
+        mean = xf.mean(dim=(0, 2, 3))
+        ex2 = (xf * xf).mean(dim=(0, 2, 3))
+    else:
+        c = xf.shape[1]
+        count = xf.numel() // c * dist.get_world_size(group)
+        sums = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                         (xf * xf).sum(dim=(0, 2, 3))]), group)
+        mean, ex2 = sums[:c] / count, sums[c:] / count
+    var = torch.clamp(ex2 - mean * mean, min=0.0)
     mul = torch.rsqrt(var + norm.eps) * norm.weight.to(dtype)
     y = (xf - mean[:, None, None]) * mul[:, None, None] \
         + norm.bias.to(dtype)[:, None, None]
@@ -237,8 +263,9 @@ class ConvBlock(nn.Module):
         return x
 
     def forward_train(self, x: torch.Tensor, mask: torch.Tensor | None,
-                      running: tuple | None) -> tuple[torch.Tensor, tuple]:
-        """Train-mode block on NCHW ``x``: BatchNorm on batch statistics,
+                      running: tuple | None, group=None) -> tuple[torch.Tensor, tuple]:
+        """Train-mode block on NCHW ``x``: BatchNorm on batch statistics
+        (of the process ``group``'s whole batch where one is given),
         Dropout2d as ``torch.where(mask, x / keep, 0)`` with ``mask`` a bool
         [B, C, 1, 1] (None: no dropout), the reference's flax Dropout.
         ``running``: (mean_a, var_a, mean_b, var_b), the running statistics
@@ -252,7 +279,7 @@ class ConvBlock(nn.Module):
             x = _conv(conv, x, self.dtype)
             if self.normalization == "batch_norm":
                 x, stats = batch_norm_train(x, norm, running[2 * i:2 * i + 2],
-                                            bn_dtype)
+                                            bn_dtype, group)
                 new += stats
             elif self.normalization != "none":
                 x = norm(x.float())
@@ -332,21 +359,36 @@ class UNet(nn.Module):
         return {name: m.route for name, m in self.named_children()
                 if isinstance(m, ConvBlock)}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @staticmethod
+    def _check_window(h: int, w: int, window: tuple[int, int] | None) -> None:
+        """Window mode takes even sizes only: there is no odd-size fix-up
+        of a window."""
+        if window is not None and (h % 2 or w % 2 or window[0] % 2):
+            raise ValueError("window mode requires even window and global "
+                             "sizes (pad first)")
+
+    def forward(self, x: torch.Tensor,
+                window: tuple[int, int] | None = None) -> torch.Tensor:
         orig_dtype = x.dtype
         _, h, w, _ = x.shape
+        self._check_window(h, w, window)
         if h % 2 or w % 2:
             # odd-size fixup, reference Unetmodel.py:93-97
             x = resize_bilinear_align_corners(x, (h - h % 2, w - w % 2))
-        out = self.forward_entered(pixel_unshuffle_nhwc(x.to(self.dtype), 2))
+        out = self.forward_entered(pixel_unshuffle_nhwc(x.to(self.dtype), 2),
+                                   window)
         return out if orig_dtype == torch.float32 else out.to(self.dtype)
 
-    def forward_entered(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_entered(self, x: torch.Tensor,
+                        window: tuple[int, int] | None = None) -> torch.Tensor:
         """The forward from its first input: x is the pixel-unshuffled frame
         [B, H/2, W/2, in_ch·4] in ``dtype`` (``pixel_unshuffle_nhwc``, or
         K1 with ``entry="nhwc"`` in one pass).  Returns the float32 sigmoid
-        mask [B, H, W, out_ch]."""
-        return self._trunk(x, lambda name, h: getattr(self, name)(h))
+        mask [B, H, W, out_ch].  ``window=(frame_h, offset)``: window mode,
+        x the input rows [offset, offset + 2·x.shape[1]) of a frame of
+        ``frame_h`` rows."""
+        self._check_window(2 * x.shape[1], 2 * x.shape[2], window)
+        return self._trunk(x, lambda name, h: getattr(self, name)(h), window)
 
     def blocks(self) -> list[str]:
         """The ConvBlocks' names in forward order."""
@@ -369,8 +411,8 @@ class UNet(nn.Module):
 
     def forward_train(self, x: torch.Tensor,
                       masks: dict[str, torch.Tensor] | None = None,
-                      running: dict[str, torch.Tensor] | None = None
-                      ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+                      running: dict[str, torch.Tensor] | None = None,
+                      group=None) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """The reference's train-mode forward of NHWC frames [B, H, W,
         in_ch]: BatchNorm on batch statistics, Dropout2d with ``masks``
         (``dropout_masks``; None or a missing block: no dropout), the
@@ -378,7 +420,8 @@ class UNet(nn.Module):
         ``running``: buffer name → running statistic to update (the
         module's buffers where absent).  → (float32 sigmoid mask [B, H, W,
         out_ch], buffer name → updated running statistic); the module's
-        buffers are not written."""
+        buffers are not written.  ``group``: the process group the
+        BatchNorm statistics are taken over (None: this process's batch)."""
         masks = masks or {}
         new: dict[str, torch.Tensor] = {}
         bottleneck = f"enc_{len(self.encoder_widths) - 1}"
@@ -395,10 +438,10 @@ class UNet(nn.Module):
                     and torch.is_grad_enabled()):
                 # no randomness inside: the mask comes in as a tensor
                 out, st = checkpoint(blk.forward_train, h, masks.get(name),
-                                     stats, use_reentrant=False,
+                                     stats, group, use_reentrant=False,
                                      preserve_rng_state=False)
             else:
-                out, st = blk.forward_train(h, masks.get(name), stats)
+                out, st = blk.forward_train(h, masks.get(name), stats, group)
             new.update(zip(keys, st))
             return out
 
@@ -408,10 +451,16 @@ class UNet(nn.Module):
         out = self._trunk(pixel_unshuffle_nhwc(x.to(self.dtype), 2), block)
         return out, new
 
-    def _trunk(self, x: torch.Tensor, block) -> torch.Tensor:
+    def _trunk(self, x: torch.Tensor, block,
+               window: tuple[int, int] | None = None) -> torch.Tensor:
         """The network from its pixel-unshuffled NHWC input to the sigmoid
-        mask, ``block(name, h)`` running each ConvBlock on NCHW ``h``."""
+        mask, ``block(name, h)`` running each ConvBlock on NCHW ``h``;
+        with a ``window=(frame_h, offset)``, in window mode
+        (global-coefficient resizes, no size re-match)."""
         x = x.permute(0, 3, 1, 2)
+        # the frame's height and the window's first row, at half resolution
+        g_half, a_half = (None, None) if window is None else (window[0] // 2,
+                                                              window[1] // 2)
         depth = len(self.encoder_widths)
         skips = []
         for i in range(depth - 1):
@@ -421,20 +470,68 @@ class UNet(nn.Module):
         x = block(f"enc_{depth - 1}", x)
         for i, skip in enumerate(reversed(skips)):
             hh, ww = x.shape[2:]
-            x = _resize_nchw(x, (hh * 2, ww * 2))
-            x = _resize_nchw(x, tuple(skip.shape[2:]))   # size re-match
+            if a_half is None:
+                x = _resize_nchw(x, (hh * 2, ww * 2))
+                x = _resize_nchw(x, tuple(skip.shape[2:]))   # size re-match
+            else:
+                # the frame's align-corners coefficients, not the window's
+                scale = 2 ** (depth - 1 - i)
+                x = upsample2x_window(x, g_half // scale, a_half // scale,
+                                      axes=(2, 3))
+                if x.shape[2:] != skip.shape[2:]:
+                    raise ValueError(
+                        "window mode requires pooling-aligned sizes (decoder "
+                        f"level {i}: {tuple(x.shape[2:])} vs "
+                        f"{tuple(skip.shape[2:])})")
             x = block(f"dec_{i}", x) + skip
         hh, ww = x.shape[2:]
         th, tw = skips[0].shape[2:]
         # the head's up-2×-then-match-down resize pair, folded into one
         # matrix per axis (exact: a composition of linear maps)
-        for axis, sizes in ((2, (hh, hh * 2, th)), (3, (ww, ww * 2, tw))):
-            if not np.array_equal(resize_chain(sizes), np.eye(sizes[0], dtype=np.float32)):
-                x = apply_matrix(x, matrix_on(x.device, resize_chain, sizes), axis)
+        if a_half is not None:
+            # the frame's th == hh
+            x = resize_rows_window(x, (g_half, g_half * 2, g_half),
+                                   (ww, ww * 2, tw), a_half, a_half, axes=(2, 3))
+        else:
+            for axis, sizes in ((2, (hh, hh * 2, th)), (3, (ww, ww * 2, tw))):
+                if not np.array_equal(resize_chain(sizes),
+                                      np.eye(sizes[0], dtype=np.float32)):
+                    x = apply_matrix(x, matrix_on(x.device, resize_chain, sizes),
+                                     axis)
         x = block("dec_final", x)
         x = _conv(self.head, x, self.dtype)
         x = pixel_shuffle_nhwc(x.permute(0, 2, 3, 1), 2)
         return torch.sigmoid(x.float())
+
+
+def spatial_align(model: UNet) -> int:
+    """Input-resolution row alignment every window start must keep for
+    window-exact sharded inference: s/2 ≡ 0 (mod 2^(depth−1)), so each
+    pooling level tiles cleanly and the global resize offsets (``a_half //
+    scale``) divide without truncation, i.e. s ≡ 0 (mod 2^depth).  16 for
+    the depth-3/4 nets, 32 for depth 5, 128 for depth 7."""
+    return max(16, 2 ** len(model.encoder_widths))
+
+
+def spatial_halo(model: UNet) -> int:
+    """Input-resolution halo rows that make a window's rows exact under
+    spatially sharded inference (``infer.tiled.infer_sharded_halo``): the
+    trunk's receptive-field radius in half-resolution rows (one 3×3 conv
+    per ConvBlock, radius = level scale × dilation; encoder, bottleneck and
+    the mirrored decoder, plus the head-resize matrix band (≤ 3) and
+    dec_final's 3×3 (1)), doubled to input resolution and rounded up to
+    ``spatial_align``."""
+    d = len(model.encoder_widths)
+    r = 0
+    for k in range(d - 1):                       # encoder levels
+        dil = (2 ** k) if model.apply_dilation else 1
+        r += (2 ** k) * dil
+    r += 2 ** (d - 1)                            # bottleneck
+    r += sum(2 ** k for k in range(d - 1))       # decoder mirror
+    r += 3 + 1                                   # head band + dec_final
+    r *= 2                                       # half-res → input rows
+    a = spatial_align(model)
+    return -(-r // a) * a
 
 
 def widths_from_params(params) -> tuple[tuple[int, ...], int, int]:

@@ -17,6 +17,7 @@ with no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -158,6 +159,23 @@ def check_extent(*tensors) -> None:
         if t is not None and t.numel() > MAX_ELEMENTS:
             raise ValueError(f"tensor of {t.numel()} elements {tuple(t.shape)}: "
                              "the kernels index at most 2^31 - 1")
+
+
+def on_device(wrapper):
+    """Decorate a kernel wrapper ``wrapper(x, ...)``: for a CUDA ``x`` it
+    runs with x's card as the current device, so that the launch, the
+    stream it is given and the C side's per-device state (the shared-memory
+    opt-in and the SM count, read through ``cudaGetDevice``) all refer to
+    the card x lies on, whatever device is current in the caller."""
+    @functools.wraps(wrapper)
+    def guarded(x, *args, **kw):
+        if x.device.type != "cuda":
+            return wrapper(x, *args, **kw)
+        import torch
+
+        with torch.cuda.device(x.device):
+            return wrapper(x, *args, **kw)
+    return guarded
 
 
 def call(name: str, *args) -> None:

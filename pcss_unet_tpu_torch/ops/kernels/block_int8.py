@@ -234,6 +234,7 @@ def _launch_block(x, w1q, s1, b1, w2q, s2, b2, k_rows, c_chunk,
     return out
 
 
+@_build.on_device
 def fused_block_int8_nhwc(x: torch.Tensor, w1q: torch.Tensor, s1: torch.Tensor,
                           b1: torch.Tensor, w2q: torch.Tensor, s2: torch.Tensor,
                           b2: torch.Tensor, *, k_rows: int,
@@ -253,6 +254,7 @@ def fused_block_int8_nhwc(x: torch.Tensor, w1q: torch.Tensor, s1: torch.Tensor,
     return out
 
 
+@_build.on_device
 def fused_block_int8_kchunked(x: torch.Tensor, w1q: torch.Tensor,
                               s1: torch.Tensor, b1: torch.Tensor,
                               w2q: torch.Tensor, s2: torch.Tensor,

@@ -55,6 +55,7 @@ def conv3x3_int8_plain(x, wq, w_scales, bias, *, k_rows: int,
     return out.reshape(n, h, w, wq.shape[2]).to(out_dtype)
 
 
+@_build.on_device
 def conv3x3_int8_nhwc(x: torch.Tensor, wq: torch.Tensor,
                       w_scales: torch.Tensor, bias: torch.Tensor, *,
                       k_rows: int = 4, co_tile: int = 256,

@@ -67,6 +67,7 @@ def conv_block_chw_plain(x, w1, b1, w2, b2, *, negative_slope: float = 0.2,
     return out.to(dtype)
 
 
+@_build.on_device
 def fused_conv_block_chw(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                          w2: torch.Tensor, b2: torch.Tensor, *,
                          negative_slope: float = 0.2, taps: str = "stack",

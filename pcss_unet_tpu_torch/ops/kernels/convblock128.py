@@ -161,6 +161,7 @@ def _launch(x, w1, b1, w2, b2, negative_slope: float, stream) -> torch.Tensor:
     return out
 
 
+@_build.on_device
 def fused_block128_nhwc(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                         w2: torch.Tensor, b2: torch.Tensor, *,
                         negative_slope: float = 0.2) -> torch.Tensor:

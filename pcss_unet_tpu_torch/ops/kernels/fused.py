@@ -62,6 +62,7 @@ def scrub_standardize_plain(x: torch.Tensor, means: torch.Tensor,
     return y
 
 
+@_build.on_device
 def fused_scrub_standardize(x: torch.Tensor, means: torch.Tensor,
                             stds: torch.Tensor,
                             out_dtype: torch.dtype = torch.bfloat16, *,
@@ -120,6 +121,7 @@ def mask_to_u8_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.round(x * 255.0).to(torch.uint8)
 
 
+@_build.on_device
 def fused_mask_to_u8(x: torch.Tensor) -> torch.Tensor:
     """Serving-path quantization: float mask [N, H, W, 1] → uint8 ×255."""
     if x.device.type == "cpu":

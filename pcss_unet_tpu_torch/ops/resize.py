@@ -138,3 +138,49 @@ def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
     on NHWC ``x``."""
     _, h, w, _ = x.shape
     return resize_bilinear_align_corners(x, (h * 2, w * 2))
+
+
+# Window-consistent resizes for spatially sharded inference: align-corners
+# coefficients depend on the global image height, so a window's own resize
+# is not a crop of the whole frame's.  These take the window's rows of the
+# global matrix (cut on the host, the offsets being Python ints, and kept
+# on the device by ``matrix_on``).  Output rows within the matrix band (≤ 2
+# rows) of the window's edges lose what lies outside it; callers crop a
+# margin of at least the network's receptive-field halo, which covers it.
+
+@functools.lru_cache(maxsize=256)
+def _window_of(build, args: tuple, rows: tuple[int, int],
+               cols: tuple[int, int]) -> np.ndarray:
+    return np.ascontiguousarray(build(*args)[rows[0]:rows[1], cols[0]:cols[1]])
+
+
+def upsample2x_window(x: torch.Tensor, global_h: int, row_off: int,
+                      axes: tuple[int, int] = (1, 2)) -> torch.Tensor:
+    """Rows [2·row_off, 2·row_off + 2h) of the global align-corners 2×
+    upsample of a ``global_h``-row image, from ``x``'s rows [row_off,
+    row_off + h); the W axis is whole (the full W matrix).  ``axes``: the
+    (H, W) axes, NHWC's by default."""
+    ah, aw = axes
+    h, w = x.shape[ah], x.shape[aw]
+    m_h = matrix_on(x.device, _window_of, interp_matrix, (global_h, 2 * global_h),
+                    (2 * row_off, 2 * row_off + 2 * h), (row_off, row_off + h))
+    x = apply_matrix(x, m_h, ah)
+    return apply_matrix(x, matrix_on(x.device, interp_matrix, w, 2 * w), aw)
+
+
+def resize_rows_window(x: torch.Tensor, sizes_h: tuple[int, ...],
+                       sizes_w: tuple[int, ...], out_off: int, in_off: int,
+                       axes: tuple[int, int] = (1, 2)) -> torch.Tensor:
+    """Apply a global square row-resize matrix to a window of ``x``: rows
+    [out_off, out_off + h) × columns [in_off, in_off + h) of
+    ``resize_chain(sizes_h)`` (the global matrix), then the whole
+    ``resize_chain(sizes_w)`` (skipped where it is the identity).
+    ``axes``: the (H, W) axes, NHWC's by default."""
+    ah, aw = axes
+    h = x.shape[ah]
+    m_h = matrix_on(x.device, _window_of, resize_chain, (tuple(sizes_h),),
+                    (out_off, out_off + h), (in_off, in_off + h))
+    x = apply_matrix(x, m_h, ah)
+    if not _is_identity(resize_chain(tuple(sizes_w))):
+        x = apply_matrix(x, matrix_on(x.device, resize_chain, tuple(sizes_w)), aw)
+    return x

@@ -1,8 +1,9 @@
 """Training (port of ``pcss_unet_tpu/train``): schedules, the train state
 and optimizers, the train and eval steps, checkpoints, metric writers and
-the ``fit`` loop, and the measured memory governor (``governor.py``).  One
-device; data and spatial parallelism are not ported yet (ROADMAP Queue 1
-items 13–14)."""
+the ``fit`` loop, and the measured memory governor (``governor.py``).  Data
+parallelism is the step's process group (``build_train_step(group=…)``,
+``fit(group=…)``); spatial parallelism in training is ROADMAP Queue 1 item
+14b."""
 
 from pcss_unet_tpu_torch.train.loop import FitResult, fit
 from pcss_unet_tpu_torch.train.state import (TrainState, create_train_state,

@@ -9,8 +9,13 @@ of ``pcss_unet_tpu/train/loop.py``.
   (and every ``log_every`` steps), and keeps a host mirror of the step;
 - TB scalars/images (main.py:435-467) through ``train/metrics.py``.
 
-One card (or the CPU): data and spatial parallelism are ROADMAP Queue 1
-items 13–14.  When ``device_data_cache`` allows it (``data/device_cache.py::
+Data parallelism: ``fit(..., group=g)`` in every rank of a process group
+trains with the group step (``train/step.py``).  Each rank reads the same
+global batch and takes its rows (``rank_rows``), or, where the loader is
+sharded per process (``--multihost``), its own shard's batch; rank 0 alone
+validates, logs and writes checkpoints while the others wait at a barrier,
+and every rank resumes from the same file.  Spatial parallelism in training
+is ROADMAP Queue 1 item 14b.  When ``device_data_cache`` allows it (``data/device_cache.py::
 cache_eligible``: on, or auto within ``device_cache_budget_mb``), the
 dataset is uploaded once and batches are gathered and cropped on the
 device, the same stream bit for bit; otherwise they stream from the host
@@ -26,6 +31,7 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+import torch.distributed as dist
 
 from pcss_unet_tpu_torch.data.device_cache import DeviceCache, cache_eligible
 from pcss_unet_tpu_torch.data.pipeline import Loader, prefetch_to_device
@@ -36,7 +42,8 @@ from pcss_unet_tpu_torch.train.metrics import (log_image_grid,
                                                log_loss_scalars, make_writer)
 from pcss_unet_tpu_torch.train.schedule import warmup_cosine_schedule
 from pcss_unet_tpu_torch.train.state import TrainState, create_train_state
-from pcss_unet_tpu_torch.train.step import build_eval_step, build_train_step
+from pcss_unet_tpu_torch.train.step import (build_eval_step, build_train_step,
+                                            rank_rows)
 
 
 @dataclass
@@ -88,11 +95,18 @@ def _teacher(cfg, device):
     return teacher.requires_grad_(False)
 
 
+class _NoWriter:
+    """The writer of ranks other than 0: takes everything, writes nothing."""
+
+    def __getattr__(self, name):
+        return lambda *a, **k: None
+
+
 def fit(cfg, model, train_loader: Loader, val_loader: Loader | None = None,
         *, log_every: int = 100, image_every: int = 100, writer=None,
         checkpoint_dir: str | None = None, profile_dir: str | None = None,
         install_preemption_handler: bool = True,
-        step_hook=None) -> FitResult:
+        step_hook=None, group=None) -> FitResult:
     """Train ``model`` (the port's UNet, with its current weights, on its
     device) per ``cfg`` over the given loaders.
 
@@ -101,7 +115,9 @@ def fit(cfg, model, train_loader: Loader, val_loader: Loader | None = None,
     finish the current step, save a checkpoint, and exit cleanly.
     ``step_hook(host_step, epoch, batch_idx) -> bool``: called after every
     train step; returning True requests a graceful stop through the same
-    checkpoint-and-exit path as a preemption signal."""
+    checkpoint-and-exit path as a preemption signal.  ``group``: the
+    process group of data-parallel ranks this one belongs to (see the
+    module docstring); a stop any rank asks for stops them all."""
     # the handler first, so that a signal during set-up is still caught
     stop_requested = []
     prev_handlers = {}
@@ -117,12 +133,24 @@ def fit(cfg, model, train_loader: Loader, val_loader: Loader | None = None,
         except ValueError:  # not the main thread
             prev_handlers = {}
 
-    if cfg.data_parallel not in (-1, 1) or cfg.spatial_parallel != 1:
+    world = 1 if group is None else dist.get_world_size(group)
+    rank = 0 if group is None else dist.get_rank(group)
+    # the per-step stop flag goes over gloo on the host, so reading it never
+    # waits for the device (a new group: every process of the default
+    # group calls fit)
+    stop_group = group
+    if group is not None and dist.get_backend(group) != "gloo":
+        stop_group = dist.new_group(dist.get_process_group_ranks(group),
+                                    backend="gloo")
+    if cfg.spatial_parallel != 1:
         raise ValueError(
-            f"data_parallel={cfg.data_parallel}, spatial_parallel="
-            f"{cfg.spatial_parallel}: this package trains on one device; "
-            "data and spatial parallelism are not ported yet (ROADMAP "
-            "Queue 1 items 13-14) — use python -m pcss_unet_tpu train")
+            f"spatial_parallel={cfg.spatial_parallel}: spatial parallelism "
+            "in training is not ported yet (ROADMAP Queue 1 item 14b) — use "
+            "python -m pcss_unet_tpu train")
+    if cfg.data_parallel not in (-1, world):
+        raise ValueError(
+            f"data_parallel={cfg.data_parallel} with {world} rank(s): pass "
+            "a process group of that many ranks (the train CLI starts them)")
     if train_loader.batches_per_epoch() < 1:
         raise ValueError(
             f"batch_size {train_loader.batch_size} yields no full batch "
@@ -138,7 +166,12 @@ def fit(cfg, model, train_loader: Loader, val_loader: Loader | None = None,
     bundle = make_bundle(cfg, device)
     teacher = _teacher(cfg, device) if cfg.distill_teacher else None
     train_step = build_train_step(cfg, bundle, ds.means, ds.stds,
-                                  steps_per_epoch, teacher=teacher)
+                                  steps_per_epoch, teacher=teacher, group=group)
+    # this rank's rows of each global batch; a per-process shard is its own
+    rows = None
+    if group is not None and train_loader.shard_count == 1:
+        rows = rank_rows(train_loader.batch_size, rank, world,
+                         max(1, int(cfg.grad_accum_steps)))
     eval_step = build_eval_step(cfg, bundle, ds.means, ds.stds)
     lr_fn = warmup_cosine_schedule(cfg.learning_rate, cfg.warmup_epochs,
                                    cfg.num_epochs, steps_per_epoch,
@@ -165,6 +198,8 @@ def fit(cfg, model, train_loader: Loader, val_loader: Loader | None = None,
                 logging.info("resumed from epoch %d (step %d)", last,
                              int(state.step))
 
+    if rank:
+        ckpt, writer = None, _NoWriter()
     writer = writer or make_writer(cfg.log_dir)
     generator = torch.Generator(device=device)
     best_val = float("inf")
@@ -177,7 +212,7 @@ def fit(cfg, model, train_loader: Loader, val_loader: Loader | None = None,
     if cache_eligible(cfg, ds):
         train_cache = DeviceCache(ds, crop_hw=train_loader.crop_hw,
                                   device=device)
-    if (val_loader is not None and val_loader.ds is not ds
+    if (val_loader is not None and val_loader.ds is not ds and rank == 0
             and cache_eligible(cfg, val_loader.ds)):
         val_cache = DeviceCache(val_loader.ds, crop_hw=val_loader.crop_hw,
                                 device=device)
@@ -186,9 +221,12 @@ def fit(cfg, model, train_loader: Loader, val_loader: Loader | None = None,
 
     def train_batches(epoch, skip=0):
         if train_cache is not None:
-            return train_cache.batches(train_loader, epoch, start_batch=skip)
-        return prefetch_to_device(train_loader.epoch(epoch, start_batch=skip),
-                                  device)
+            return train_cache.batches(train_loader, epoch, start_batch=skip,
+                                       rows=rows)
+        host = train_loader.epoch(epoch, start_batch=skip)
+        if rows is not None:
+            host = ((x[rows], y[rows]) for x, y in host)
+        return prefetch_to_device(host, device)
 
     def val_batches():
         if val_cache is not None:
@@ -243,6 +281,13 @@ def fit(cfg, model, train_loader: Loader, val_loader: Loader | None = None,
                 logging.info("step_hook requested stop at epoch %d batch %d",
                              epoch, batches_done - 1)
                 stop_requested.append("step_hook")
+            if group is not None:
+                # every rank stops at the same step, or the others would
+                # wait in the next step's collectives
+                flag = torch.tensor([float(bool(stop_requested))])
+                dist.all_reduce(flag, group=stop_group)
+                if flag.item() and not stop_requested:
+                    stop_requested.append("rank")
             if stop_requested:
                 break
             if host_step % log_every == 0:
@@ -259,7 +304,8 @@ def fit(cfg, model, train_loader: Loader, val_loader: Loader | None = None,
         log_loss_scalars(writer, "train", train_avg, epoch)
 
         val_avg = None
-        if val_loader is not None and epoch % cfg.validation_frequency == 0:
+        if (val_loader is not None and rank == 0
+                and epoch % cfg.validation_frequency == 0):
             val_acc = ema_acc = last = None   # device-side sums
             nv = 0
             for xd, yd in val_batches():
@@ -301,6 +347,8 @@ def fit(cfg, model, train_loader: Loader, val_loader: Loader | None = None,
                 key = "val_loss" if val_avg else "train_loss"
                 ckpt.save(state, {key: epoch_loss}, epoch,
                           cursor_batch=batches_done if mid_epoch_stop else None)
+        if group is not None:
+            dist.barrier(group)      # rank 0's checkpoint is on disk
         if not mid_epoch_stop:
             # a partial epoch's average is not comparable to full epochs'
             best_val = min(best_val, epoch_loss)

@@ -12,6 +12,8 @@ exactly: int8 sums are exact in any order and the kernels take every float32
 step as their plain versions do.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -899,3 +901,130 @@ def test_temporal_score_on_the_card_matches_the_cpu(dev, tmp_path, monkeypatch,
     host = temporal.main(argv + ["--device", "cpu"])["score"]
     assert abs(card - host) <= 1e-5, (card, host)
     assert card <= meta["temporal_instability"] * 1.25 + 1e-4
+
+
+# ------------------------------------------- devices and data parallelism
+def test_kernels_launch_on_their_tensors_device(dev, gen):
+    """With cuda:0 current, K1–K6 on cuda:1 tensors launch on cuda:1 (each
+    wrapper runs under its tensors' device, so the stream, the
+    shared-memory opt-in and the SM count are cuda:1's) and equal their
+    plain versions there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    d1 = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(d1, dt)  # noqa: E731
+    x = t(gen.standard_normal((2, 8, 40, 4)))
+    m, s = t([0.5, -0.5, 1.0, 0.0]), t([2.0, 1.0, 0.5, 3.0])
+    got = kfu.fused_scrub_standardize(x, m, s, out_dtype=torch.float32, entry="nhwc")
+    want = kfu.scrub_standardize_plain(x, m, s, torch.float32, entry="nhwc")
+    assert got.device == d1 and torch.equal(got, want)
+    mask = t(gen.random((2, 8, 40, 1)))
+    assert torch.equal(kfu.fused_mask_to_u8(mask), kfu.mask_to_u8_plain(mask))
+    xc, ws, _, w = _conv_operands(gen, d1, 16, 16, 32, 1, 8, 40, torch.bfloat16)
+    _close(kcb.fused_conv_block_chw(xc, *ws, true_w=w),
+           kcb.conv_block_chw_plain(xc, *ws, true_w=w), 2e-2)
+    xi, ops = _int8_block_operands(gen, d1, torch.bfloat16, 1, 8, 32, 256, 64)
+    assert torch.equal(kb8.fused_block_int8_nhwc(xi, *ops, k_rows=4),
+                       kb8.block_int8_nhwc_plain(xi, *ops, k_rows=4))
+    assert torch.equal(kb8.fused_block_int8_kchunked(xi, *ops, k_rows=4, c_chunk=128),
+                       kb8.block_int8_kchunked_plain(xi, *ops, k_rows=4, c_chunk=128))
+    params = {"conv_a": {"kernel": gen.standard_normal((3, 3, 128, 128)) * 0.05,
+                         "bias": gen.standard_normal(128) * 0.1},
+              "conv_b": {"kernel": gen.standard_normal((1, 1, 128, 64)) * 0.1,
+                         "bias": gen.standard_normal(64) * 0.1}}
+    ops128 = kc128.pack_block128_params(params, dtype=torch.bfloat16, device=d1)
+    x128 = t(gen.standard_normal((1, 16, 24, 128)), torch.bfloat16)
+    got = kc128.fused_block128_nhwc(x128, *ops128)
+    _close(got, kc128.block128_nhwc_plain(x128, *ops128), 2e-2)
+    torch.cuda.synchronize(d1)
+    assert got.device == d1 and torch.cuda.current_device() == 0
+
+
+_DP_RANK = r"""
+import os, pickle, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from pcss_unet_tpu_torch.train.step import rank_rows
+from pcss_unet_tpu_torch.utils.distributed import initialize_multihost
+sys.path.insert(0, os.path.dirname(sys.argv[1]))
+torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+initialize_multihost()
+from test_torch_cuda import _dp_case
+rows = rank_rows(4, dist.get_rank(), 2)
+out = _dp_case(dist.group.WORLD, rows)
+with open(sys.argv[2] + f".{dist.get_rank()}", "wb") as f:
+    pickle.dump(out, f)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def _dp_case(group, rows):
+    """Two standard steps (dropout 0.2) of a (8, 16) net at 32×32 on
+    cuda:0 from seed 0, on the given rows of a batch of 4 → (losses,
+    parameters)."""
+    from pcss_unet_tpu_torch.config import Config
+    from pcss_unet_tpu_torch.losses import LossBundle, PerceptualLoss
+    from pcss_unet_tpu_torch.models.unet import UNet
+    from pcss_unet_tpu_torch.train import build_train_step, create_train_state
+
+    torch.manual_seed(0)
+    model = UNet(encoder_widths=(8, 16), dropout_rate=0.2).cuda().train()
+    cfg = Config(batch_size=4, num_epochs=2, warmup_epochs=1)
+    state = create_train_state(model, cfg, 4)
+    step = build_train_step(cfg, LossBundle(perceptual=PerceptualLoss(
+        None, taps=(2,), tap_weights=(1.0,), device="cuda")),
+        np.zeros(4, np.float32), np.ones(4, np.float32), 4, group=group)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((4, 32, 32, 4)).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.random((4, 32, 32, 1), dtype=np.float32)).cuda()
+    losses = []
+    for i in range(2):
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        losses.append(float(step(state, x[rows], y[rows], gen)["total_loss"]))
+    return losses, {n: p.detach().cpu().numpy() for n, p in model.named_parameters()}
+
+
+def test_two_ranks_on_one_card_match_one_process(dev, tmp_path):
+    """Two gloo ranks on cuda:0 (NCCL refuses two ranks on one card) take
+    the group step, each on its half of the batch: the one-process step's
+    losses (1e-5) and parameters (rtol 1e-4, atol 1e-5; the conv biases in
+    front of a BatchNorm, whose true gradient is zero, by size).  cuDNN is
+    deterministic in all three processes, so that what differs is the
+    split of the batch alone."""
+    import pickle
+    import re
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port), WORLD_SIZE="2")
+    out = str(tmp_path / "rank")
+    procs = [subprocess.Popen([sys.executable, "-c", _DP_RANK, os.path.abspath(__file__),
+                               out], env=dict(env, RANK=str(r)), cwd=repo,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    for p in procs:
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-3000:]
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                    allow_tf32=False):
+        want_losses, want = _dp_case(None, np.arange(4))
+    for r in range(2):
+        with open(f"{out}.{r}", "rb") as f:
+            losses, got = pickle.load(f)
+        np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
+        for k in want:
+            if re.search(r"\.conv_[ab]\.bias$", k):
+                assert np.abs(got[k] - want[k]).max() < 1e-3, k
+            else:
+                np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-5,
+                                           err_msg=k)
+
