@@ -95,6 +95,15 @@ Then the chain from renders to a trained net, every command through
   directory ``train_governor`` wrote and ``--stats_dir`` from ``stats``
   (``--fold_bn --quantize int8``): the launches per frame, and the PNG's
   codes ``trunc(255 · engine mask)``.
+- ``spatial_train``: row-sharded training, four gloo ranks on cuda:0 (each
+  ``python3 chip_smoke.py --sp-rank R WORK``): the w64 group step on the
+  1×2 and 2×2 grids of ``DP_HW`` frames against ``dp_train``'s one-process
+  run (adamw, float64, deterministic cuDNN: train_parity's bars); the 1×2
+  grid against one process at config.ini's reference (batch 8 of
+  2048×1024, bf16, perturb): ms per step, each rank's peak allocated
+  memory, halo exchanges per step and the bytes they all-reduce; then
+  ``train --spatial_parallel 2 --device cuda:0`` for one epoch on the
+  chain's packs (one set of checkpoints).
 
 2. ``kernel``: each kernel against its plain PyTorch version on the card, on
    the inputs each main path really gives it (recorded from one forward of
@@ -2534,15 +2543,16 @@ def dp_rank_main(rank: int, work: str) -> int:
 
 
 def dp_run(loss_type, group, rows, builder=None, steps=DP_STEPS,
-           dtype="float32"):
+           dtype="float32", shard=None, hw=DP_HW):
     """``steps`` w64 train steps (config.ini's settings, adamw included,
     with ``loss_type`` and ``dtype``, 4 steps an epoch, no warmup; float64
     makes the parameters float64 too) from seed 0 on ``rows`` of a seeded
-    batch of ``DP_BATCH`` renderer-plausible ``DP_HW`` frames on cuda:0,
-    through the group step (``group``; None: one process), or through
-    ``parallel/dp.py``'s ``builder`` ("explicit" or "zero1").  → losses,
-    per-step ms, the parameters' changes and the BatchNorm statistics (host
-    numpy)."""
+    batch of ``DP_BATCH`` renderer-plausible ``hw`` frames on cuda:0,
+    through the group step (``group``; None: one process; ``shard``: this
+    rank's row shard of a (data × spatial) grid, ``parallel/spatial.py``),
+    or through ``parallel/dp.py``'s ``builder`` ("explicit" or "zero1").
+    → losses, per-step ms, the parameters' changes, the BatchNorm
+    statistics (host numpy) and the peak allocated GB."""
     import torch
 
     from pcss_unet_tpu_torch.config import load_config
@@ -2566,6 +2576,7 @@ def dp_run(loss_type, group, rows, builder=None, steps=DP_STEPS,
                         perturb_weight=cfg.perturb_weight,
                         perturbation_count=cfg.perturbation_count)
     args = (cfg, bundle, np.zeros(4, np.float32), np.ones(4, np.float32), 4)
+    torch.cuda.reset_peak_memory_stats()
     state = create_train_state(model, cfg, 4)
     if builder == "explicit":
         step = build_explicit_dp_train_step(*args, group)
@@ -2573,11 +2584,16 @@ def dp_run(loss_type, group, rows, builder=None, steps=DP_STEPS,
         state = create_zero1_state(model, cfg, 4, group)
         step = build_zero1_dp_train_step(*args, group)
     else:
-        step = build_train_step(*args, per_block_norms=False, group=group)
+        step = build_train_step(*args, per_block_norms=False, group=group,
+                                rows=shard)
     rng = np.random.default_rng(0)
-    pairs = [gbuffer(rng, i, *DP_HW) for i in range(DP_BATCH)]
+    pairs = [gbuffer(rng, i, *hw) for i in range(DP_BATCH)]
     x = torch.from_numpy(np.stack([p[0] for p in pairs])).to(DEVICE)[rows.to(DEVICE)]
     y = torch.from_numpy(np.stack([p[1] for p in pairs])).to(DEVICE)[rows.to(DEVICE)]
+    del pairs
+    if shard is not None:
+        h = hw[0] // shard.count
+        x, y = (t[:, shard.index * h:(shard.index + 1) * h].contiguous() for t in (x, y))
     losses, ms = [], []
     for i in range(steps):
         gen = torch.Generator(device=DEVICE).manual_seed(i)
@@ -2593,7 +2609,8 @@ def dp_run(loss_type, group, rows, builder=None, steps=DP_STEPS,
             "delta": {n: (p.detach() - before[n]).double().cpu().numpy().ravel()
                       for n, p in model.named_parameters()},
             "stats": {n: b.detach().double().cpu().numpy()
-                      for n, b in model.named_buffers() if "running" in n}}
+                      for n, b in model.named_buffers() if "running" in n},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def _cos_ratio(pairs):
@@ -2647,7 +2664,8 @@ def dp_train_phase(work: str, card: str) -> None:
     the one process's, in bf16 (config.ini's dtype).  Then ``python -m
     pcss_unet_tpu_torch train --data_parallel 2 --device cuda:0`` in
     process for one epoch of 16 ``DP_HW`` frames (the CLI starts its two
-    ranks): its checkpoints written once, by rank 0."""
+    ranks): its checkpoints written once, by rank 0.  → the one-process
+    float64 standard run (``spatial_train``'s reference)."""
     import pickle
     import socket
 
@@ -2738,6 +2756,171 @@ def dp_train_phase(work: str, card: str) -> None:
     emit(line)
     if not ok:
         raise AssertionError(f"dp_train: {line}")
+    return single["standard"]
+
+
+SP_HW = (FRAME_H, FRAME_W)      # spatial_train's timed frames
+SP_TIMED = 3
+
+
+def sp_rank_main(rank: int, work: str) -> int:
+    """One of the four ranks of ``spatial_train`` (``python3 chip_smoke.py
+    --sp-rank R WORK``; the launcher's environment joins them over gloo on
+    cuda:0): the float64 group step on the 1×2 grid of ranks 0 and 1 and on
+    the 2×2 grid of all four (rank r at cell (r // 2, r % 2)), then the
+    timed 1×2 grid (ranks 0 and 1; 2 and 3 wait): config.ini's bf16
+    perturbed steps at 2048×1024, the peak allocated memory, and the halo
+    exchanges with the bytes of the buffers they all-reduce.  Writes
+    ``rank<R>.pkl`` in ``work``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from pcss_unet_tpu_torch.parallel.spatial import row_shard
+    from pcss_unet_tpu_torch.train.step import rank_rows
+    from pcss_unet_tpu_torch.utils import distributed as ud
+
+    ud.initialize_multihost()
+    world = dist.group.WORLD
+    pair = [dist.new_group([0, 1]), dist.new_group([2, 3])][rank // 2]
+    grid = row_shard(world, 2)
+    out = {}
+    with no_tf32(), deterministic_cudnn():
+        if rank < 2:
+            out["1x2"] = dp_run("standard", pair, torch.arange(DP_BATCH),
+                                dtype="float64", shard=row_shard(pair, 2))
+        out["2x2"] = dp_run("standard", world,
+                            torch.from_numpy(rank_rows(DP_BATCH, rank // 2, 2)),
+                            dtype="float64", shard=grid)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank < 2:
+        calls = {"n": 0, "bytes": 0}
+        swap = ud._HaloExchange._swap
+
+        def counted(group, index, count, first, last, mine):
+            calls["n"] += 1
+            calls["bytes"] += count * (first.numel() + last.numel()) * first.element_size()
+            return swap(group, index, count, first, last, mine)
+        ud._HaloExchange._swap = staticmethod(counted)
+        r = dp_run("perturb", pair, torch.arange(DP_BATCH), dtype="bfloat16",
+                   steps=SP_TIMED, shard=row_shard(pair, 2), hw=SP_HW)
+        ud._HaloExchange._swap = staticmethod(swap)
+        out["timed"] = {"ms": r["ms"], "peak_gb": r["peak_gb"], "losses": r["losses"],
+                        "halo_exchanges": calls["n"], "halo_buffer_bytes": calls["bytes"]}
+    dist.barrier()
+    with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def spatial_train_phase(work: str, data: str, single: dict, card: str) -> None:
+    """Row-sharded training on one card (``train --spatial_parallel``):
+    four gloo ranks on cuda:0, each a process of its own (``sp_rank_main``).
+    Parity: the w64 net, config.ini's adamw, float64, deterministic cuDNN,
+    TF32 off, on a global batch of 8 ``DP_HW`` frames, on the 1×2 and the
+    2×2 grid against the one-process run of ``dp_train`` (train_parity's
+    bars; every rank of a grid holding the same parameters).  Time: the
+    1×2 grid against one process at config.ini's reference (batch 8 of
+    2048×1024, bf16, perturb, ``SP_TIMED`` steps, the first dropped): ms
+    per step (the slower rank's), each rank's peak allocated memory beside
+    one process's, halo exchanges per step and the bytes of the buffers
+    they all-reduce.  Then ``python -m pcss_unet_tpu_torch train
+    --spatial_parallel 2 --device cuda:0`` in process for one epoch on
+    ``data`` (the chain's packs): one set of checkpoints, by rank 0."""
+    import pickle
+    import socket
+
+    import torch
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               WORLD_SIZE="4", PYTHONPATH=REPO)
+    procs = [subprocess.Popen([sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                               "--sp-rank", str(r), work],
+                              env=dict(env, RANK=str(r), LOCAL_RANK="0"), cwd=REPO)
+             for r in range(4)]
+    try:
+        for p in procs:
+            if p.wait(timeout=900):
+                raise AssertionError(f"spatial_train: a rank exited {p.returncode}")
+    finally:
+        for p in procs:
+            p.kill()
+    ranks = []
+    for r in range(4):
+        with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    line = {"phase": "spatial_train", "backend": "gloo", "device": "cuda:0",
+            "widths": list(W64), "global_batch": DP_BATCH, "card": card,
+            "parity": {"hw": list(DP_HW), "optimizer": "adamw", "dtype": "float64",
+                       "cudnn_deterministic": True, "tf32": False,
+                       "against": "one process (dp_train's float64 standard run)"}}
+    ok = True
+    for grid, members in (("1x2", ranks[:2]), ("2x2", ranks)):
+        c = dp_compare(members[0][grid], single)
+        c["ranks_agree"] = all(np.array_equal(r[grid]["delta"][n], d)
+                               for r in members[1:]
+                               for n, d in members[0][grid]["delta"].items())
+        c["peak_gb_per_rank"] = [r[grid]["peak_gb"] for r in members]
+        line["parity"][grid] = c
+        ok &= (c["loss_max_rel"] <= 1e-4
+               and min(c["delta_worst_cos"], c["bn_stat_change_worst_cos"]) > 0.995
+               and max(c["delta_worst_norm_ratio_err"],
+                       c["bn_stat_change_worst_norm_ratio_err"]) < 2e-2
+               and c["pre_bn_bias_delta_max"] < 1e-3 and c["ranks_agree"])
+    one = dp_run("perturb", None, torch.arange(DP_BATCH), dtype="bfloat16",
+                 steps=SP_TIMED, hw=SP_HW)
+    timed = [r["timed"] for r in ranks[:2]]
+    rank_ms = [max(a, b) for a, b in zip(timed[0]["ms"], timed[1]["ms"])]
+    line["timed"] = {
+        "hw": list(SP_HW), "dtype": "bfloat16", "loss_type": "perturb",
+        "steps": SP_TIMED, "first_step_dropped": True,
+        "step_ms": {"1x2": float(np.median(rank_ms[1:])),
+                    "one_process": float(np.median(one["ms"][1:]))},
+        "step_ms_all": {"1x2_rank0": timed[0]["ms"], "1x2_rank1": timed[1]["ms"],
+                        "one_process": one["ms"]},
+        "peak_gb": {"1x2_per_rank": [t["peak_gb"] for t in timed],
+                    "one_process": one["peak_gb"]},
+        "halo_exchanges_per_step": timed[0]["halo_exchanges"] / SP_TIMED,
+        "halo_buffer_mb_per_step": timed[0]["halo_buffer_bytes"] / SP_TIMED / 1e6,
+        "losses": {"1x2": timed[0]["losses"], "one_process": one["losses"]}}
+    line["timed"]["step_ratio"] = (line["timed"]["step_ms"]["1x2"]
+                                   / line["timed"]["step_ms"]["one_process"])
+    ok &= all(np.isfinite(t["losses"]).all() for t in timed)
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the CLI: one epoch of --spatial_parallel 2 on the card
+    ckpt = os.path.join(work, "ckpt")
+    t_cli = time.perf_counter()
+    _, code = dispatch(["train", "--config", "config.ini", "--allow_random_vgg",
+                        "--processed_data_dir", data, "--save_dir", ckpt,
+                        "--num_epochs", "1", "--spatial_parallel", "2",
+                        "--device", "cuda:0", "--grad_accum_steps", "1"])
+    files = sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []
+    resolved = {}
+    if "resolved_config.json" in files:
+        with open(os.path.join(ckpt, "resolved_config.json")) as f:
+            resolved = json.load(f)
+    line["cli"] = {"exit": code, "files": files, "seconds": time.perf_counter() - t_cli,
+                   "spatial_parallel": resolved.get("spatial_parallel")}
+    ok &= (code == 0 and files == ["checkpoints.json", "ckpt_0.pt",
+                                   "resolved_config.json"]
+           and resolved.get("spatial_parallel") == 2)
+    line["seconds"] = time.perf_counter() - t0
+    emit(line)
+    if not ok:
+        raise AssertionError(f"spatial_train: {line}")
 
 
 def main() -> int:
@@ -2837,7 +3020,7 @@ def main() -> int:
             parity_s = train_parity_phase()
             t_dp = time.perf_counter()
             os.makedirs(os.path.join(train_work, "dp"))
-            dp_train_phase(os.path.join(train_work, "dp"), card)
+            dp_single = dp_train_phase(os.path.join(train_work, "dp"), card)
             dp_s = time.perf_counter() - t_dp
         t_serve = time.perf_counter()
         e_trained_nhwc, e_trained_chw, trained_frames, trained_runs = \
@@ -2868,6 +3051,12 @@ def main() -> int:
         chain_s["e2e_chain"] = time.perf_counter() - t0 - sum(chain_s.values())
         emit({"phase": "chain_phases_seconds", "card": card, **chain_s,
               "total": time.perf_counter() - t0})
+        t_sp = time.perf_counter()
+        with torch.inference_mode(False):
+            os.makedirs(os.path.join(chain_work, "sp"))
+            spatial_train_phase(os.path.join(chain_work, "sp"), data_dir, dp_single, card)
+        del dp_single
+        emit({"phase": "spatial_train_seconds", "seconds": time.perf_counter() - t_sp})
     finally:
         shutil.rmtree(chain_work, ignore_errors=True)
         gc.collect()
@@ -3120,6 +3309,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:      # a rank of phase dp_train
         sys.exit(dp_rank_main(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--sp-rank"]:      # a rank of phase spatial_train
+        sys.exit(sp_rank_main(int(sys.argv[2]), sys.argv[3]))
     import torch
 
     with torch.inference_mode():

@@ -30,12 +30,19 @@ Data parallelism is one process per rank, joined by ``torch.distributed``:
   ``LOCAL_RANK`` (torchrun's names; ``cuda:LOCAL_RANK``, NCCL, or the CPU
   with gloo).  Each process reads ``batch_size`` samples per step from its
   own shard of the training set (``host_shard_args``), so a step trains on
-  ``batch_size × WORLD_SIZE`` samples; rank 0 validates on the whole
-  validation set.
+  ``batch_size × WORLD_SIZE / spatial_parallel`` samples; every rank
+  validates its part of the whole validation set.
 
-What this package cannot do yet exits 2 with a message that names the JAX
-package and the ROADMAP item: ``spatial_parallel`` above 1 (Queue 1 item
-14b)."""
+Spatial parallelism, ``--spatial_parallel S`` (S > 1), splits every frame
+into S row shards, one per rank: ``--data_parallel D --spatial_parallel S``
+starts D·S ranks on the devices above (rank r is cell (r // S, r % S) of the
+data × spatial grid) and trains what ``--spatial_parallel 1`` trains
+(``parallel/spatial.py``); with ``--multihost`` WORLD_SIZE must be a
+multiple of S.  A frame height whose shards are not a multiple of the row
+alignment (16 for the reference net) exits non-zero, naming it.  The
+memory governor keeps the JAX CLI's arithmetic (a chip's batch is
+batch_size / D; S does not enter), so ``resolved_config.json`` is the JAX
+CLI's."""
 
 import argparse
 import logging
@@ -47,12 +54,6 @@ import tempfile
 
 from pcss_unet_tpu_torch.config import load_config, save_config
 from pcss_unet_tpu_torch.utils.logging import setup_logger
-
-
-def _not_ported(what: str, item: str) -> None:
-    print(f"pcss_unet_tpu_torch train: {what} is not ported yet ({item}); "
-          "run it with python -m pcss_unet_tpu train", file=sys.stderr)
-    raise SystemExit(2)
 
 
 def _rank_devices(device: str, n: int) -> list:
@@ -156,9 +157,7 @@ def main(argv=None, _rank=None):
                               "grain_workers", "allow_random_vgg", "device")
                  and v is not None}
     cfg = load_config(args.config, overrides)
-    if cfg.spatial_parallel > 1:
-        _not_ported(f"spatial_parallel={cfg.spatial_parallel}",
-                    "ROADMAP Queue 1 item 14b")
+    spatial = cfg.spatial_parallel
 
     # The reference trains its perceptual term on ImageNet VGG-19 features
     # (customLoss.py:20).  Without the converted artifact only seeded-random
@@ -200,6 +199,9 @@ def main(argv=None, _rank=None):
     if args.multihost:
         initialize_multihost(backend="nccl" if device == "cuda" else "gloo")
         group = dist.group.WORLD
+        if dist.get_world_size() % spatial:
+            raise ValueError(f"--multihost: WORLD_SIZE={dist.get_world_size()} "
+                             f"is not a multiple of spatial_parallel={spatial}")
         if device == "cuda":
             device = f"cuda:{local_rank()}"
     elif _rank is not None:
@@ -212,30 +214,52 @@ def main(argv=None, _rank=None):
         dp = cfg.data_parallel
         if dp == -1:
             # the largest data axis that divides the batch and the cards
-            cards = torch.cuda.device_count() if device == "cuda" else 1
-            dp = math.gcd(cfg.batch_size, cards)
-        if dp > 1:
-            _start_ranks(argv, _rank_devices(device, dp), cfg.save_dir)
+            # the spatial axis leaves
+            cards = torch.cuda.device_count() if device == "cuda" else spatial
+            dp = math.gcd(cfg.batch_size, max(1, cards // spatial))
+        if spatial > 1:
+            _check_rows(cfg)
+        if dp * spatial > 1:
+            _start_ranks(argv, _rank_devices(device, dp * spatial), cfg.save_dir)
             return None
+    data = 1
     if group is not None:
         world = dist.get_world_size()
-        if cfg.data_parallel not in (-1, world):
+        if cfg.data_parallel not in (-1, world // spatial):
             raise ValueError(f"data_parallel={cfg.data_parallel} in a group "
-                             f"of {world} ranks")
-        cfg = cfg.replace(data_parallel=world)
+                             f"of {world} ranks of spatial_parallel={spatial}")
+        # a --multihost rank's batch is its own already
+        data = 1 if args.multihost else world // spatial
     if device.startswith("cuda:"):
         torch.cuda.set_device(torch.device(device))
     rank0 = group is None or dist.get_rank() == 0
     try:
-        return _train(cfg, args, device, group, rank0, vgg_prov)
+        return _train(cfg, args, device, group, rank0, vgg_prov, data)
     finally:
         if group is not None:
             dist.destroy_process_group()
 
 
-def _train(cfg, args, device: str, group, rank0: bool, vgg_prov: str):
+def _check_rows(cfg) -> None:
+    """Refuse, before any rank starts, a frame whose row shards are not
+    aligned (``parallel/spatial.py::check_config_rows``): the training
+    pack's frames, or the crops."""
+    from pcss_unet_tpu_torch.data.pipeline import PackedDataset
+    from pcss_unet_tpu_torch.parallel.spatial import check_config_rows
+
+    h = (cfg.crop_height if cfg.crop_height and cfg.crop_width else
+         PackedDataset(cfg.processed_data_dir, "train").sample_hw[0])
+    try:
+        check_config_rows(cfg, h)
+    except ValueError as e:
+        raise SystemExit(f"pcss_unet_tpu_torch train: {e}") from None
+
+
+def _train(cfg, args, device: str, group, rank0: bool, vgg_prov: str,
+           data: int):
     """The run in this process: rank 0 of ``group`` (or the only process)
-    writes the config, the logs and the checkpoints."""
+    writes the config, the logs and the checkpoints.  ``data``: the data
+    axis the governor divides the batch by."""
     import torch.distributed as dist
 
     from pcss_unet_tpu_torch.data.pipeline import Loader, PackedDataset
@@ -293,8 +317,7 @@ def _train(cfg, args, device: str, group, rank0: bool, vgg_prov: str):
         from pcss_unet_tpu_torch.utils.memory import (check_memory,
                                                       find_accum_steps)
 
-        # a --multihost rank's batch is its own already
-        dp = 1 if args.multihost else max(1, cfg.data_parallel)
+        dp = data
         per_chip = max(1, cfg.batch_size // dp)
         a = find_accum_steps(n, per_chip, h, w, cfg.optimizer_type,
                              hbm_bytes=hbm)
@@ -332,7 +355,7 @@ def _train(cfg, args, device: str, group, rank0: bool, vgg_prov: str):
                     extra={"vgg_weights": vgg_prov})
     if group is not None:
         dist.barrier()
-    shard_kw = host_shard_args() if args.multihost else {}
+    shard_kw = host_shard_args(cfg.spatial_parallel) if args.multihost else {}
     if args.grain:
         from pcss_unet_tpu_torch.data.grain_pipeline import GrainLoader
 

@@ -42,25 +42,28 @@ class LossBundle:
     ssim_weight: float = 0.0
 
     def base_terms(self, output: torch.Tensor, target: torch.Tensor,
-                   group=None) -> dict:
+                   group=None, rows=None) -> dict:
         """The loss terms; every one is a mean over the batch (so the mean
         over a process group's equal shards is the whole batch's) except the
-        penumbra ratio, which takes ``group`` itself."""
+        penumbra ratio and, on row shards, SSIM, which take ``group``
+        itself.  ``rows``: the tensors are this rank's row shards of the
+        frames (``parallel/spatial.py::RowShard``)."""
         output = output.float()
         target = target.float()
         terms = {
             "l1_loss": torch.mean(torch.abs(output - target)),
-            "vgg_loss": self.perceptual(output, target),
+            "vgg_loss": self.perceptual(output, target, rows),
         }
         if self.high_freq_weight:
-            terms["high_freq_loss"] = high_freq_loss(output, target)
+            terms["high_freq_loss"] = high_freq_loss(output, target, rows=rows)
         if self.penumbra_weight:
             terms["penumbra_loss"] = penumbra_weighted_l1(output, target,
                                                           group=group)
         if self.sobel_weight:
-            terms["sobel_loss"] = sobel_gradient_loss(output, target)
+            terms["sobel_loss"] = sobel_gradient_loss(output, target, rows)
         if self.ssim_weight:
-            terms["ssim_loss"] = ssim_loss(output, target)
+            terms["ssim_loss"] = ssim_loss(output, target, rows=rows,
+                                           group=group)
         return terms
 
     def _blend(self, terms: dict) -> torch.Tensor:
@@ -74,10 +77,12 @@ class LossBundle:
 
 
 def standard_loss(bundle: LossBundle, output: torch.Tensor,
-                  target: torch.Tensor, group=None) -> tuple[torch.Tensor, dict]:
+                  target: torch.Tensor, group=None,
+                  rows=None) -> tuple[torch.Tensor, dict]:
     """α·L1 + (1−α)·VGG (+ gated extras).  → (total, components).
-    ``group``: this rank's shard of a process group's batch."""
-    terms = bundle.base_terms(output, target, group)
+    ``group``: this rank's shard of a process group's batch; ``rows``: its
+    row split (``base_terms``)."""
+    terms = bundle.base_terms(output, target, group, rows)
     total = bundle._blend(terms)
     terms["total_loss"] = total
     return total, terms
@@ -88,19 +93,19 @@ def enhanced_loss(bundle: LossBundle, apply_fn: Callable,
                   target: torch.Tensor, training: bool = True,
                   generator: torch.Generator | None = None,
                   noise: torch.Tensor | None = None,
-                  group=None) -> tuple[torch.Tensor, dict]:
+                  group=None, rows=None) -> tuple[torch.Tensor, dict]:
     """standard blend + perturb_weight·perturbation (pert_loss.py:117-167).
     The perturbation term is skipped outside training or at weight 0,
     mirroring pert_loss.py:149.  ``generator`` / ``noise``: the
     perturbation's noise source (``perturbation_loss``); ``group``: this
-    rank's shard of a process group's batch."""
-    terms = bundle.base_terms(output, target, group)
+    rank's shard of a process group's batch; ``rows``: its row split."""
+    terms = bundle.base_terms(output, target, group, rows)
     total = bundle._blend(terms)
     if training and bundle.perturb_weight > 0:
         pert = perturbation_loss(apply_fn, inputs, output,
                                  count=bundle.perturbation_count,
                                  generator=generator, noise=noise,
-                                 group=group)
+                                 group=group, rows=rows)
         total = total + bundle.perturb_weight * pert
         terms["perturbation_loss"] = pert
     else:

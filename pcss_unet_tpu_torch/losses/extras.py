@@ -4,7 +4,10 @@ The reference computes all three of these inside ``CustomLoss.forward`` and
 then **discards them**, returning only the α-blend (customLoss.py:140-193).
 Here they are real, config-gated terms (Config.high_freq_weight /
 penumbra_weight / sobel_weight, default 0.0 for reference parity).  Images
-are NHWC, as in the reference.
+are NHWC, as in the reference.  On a row shard (``rows``,
+``parallel/spatial.py``) the stencils take their halo rows from the
+neighbouring shards, and the high-frequency and Sobel terms stay means of
+equal-size shards.
 """
 
 from __future__ import annotations
@@ -13,14 +16,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pcss_unet_tpu_torch.parallel.spatial import conv2d_rows
 from pcss_unet_tpu_torch.utils.distributed import all_reduce_sum
 
 
-def _depthwise_conv(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """Single-channel NHWC conv with SAME padding (odd kernels)."""
+def _depthwise_conv(img: torch.Tensor, kernel: torch.Tensor,
+                    rows=None) -> torch.Tensor:
+    """Single-channel NHWC conv with SAME padding (odd kernels); ``rows``:
+    img is a row shard of the frames."""
     k = kernel.to(img.dtype)[None, None]                 # [1, 1, kh, kw]
-    out = F.conv2d(img.permute(0, 3, 1, 2), k,
-                   padding=(kernel.shape[0] // 2, kernel.shape[1] // 2))
+    pad = (kernel.shape[0] // 2, kernel.shape[1] // 2)
+    x = img.permute(0, 3, 1, 2)
+    out = (F.conv2d(x, k, padding=pad) if rows is None
+           else conv2d_rows(x, k, None, rows, pad))
     return out.permute(0, 2, 3, 1)
 
 
@@ -41,14 +49,14 @@ def gaussian_kernel(size: int = 5, sigma: float = 1.0,
 
 
 def high_freq_loss(output: torch.Tensor, target: torch.Tensor,
-                   size: int = 5, sigma: float = 1.0) -> torch.Tensor:
+                   size: int = 5, sigma: float = 1.0, rows=None) -> torch.Tensor:
     """L1 between high-frequency residuals (img − gaussian_blur(img));
     customLoss.py:116-127, 140-142."""
     k = gaussian_kernel(size, sigma, output.device)
     o = _to_gray(output.float())
     t = _to_gray(target.float())
-    ho = o - _depthwise_conv(o, k)
-    ht = t - _depthwise_conv(t, k)
+    ho = o - _depthwise_conv(o, k, rows)
+    ht = t - _depthwise_conv(t, k, rows)
     return torch.mean(torch.abs(ho - ht))
 
 
@@ -66,7 +74,8 @@ def penumbra_weighted_l1(output: torch.Tensor, target: torch.Tensor,
     return sums[0] / (sums[1] + 1e-8)
 
 
-def sobel_gradient_loss(output: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def sobel_gradient_loss(output: torch.Tensor, target: torch.Tensor,
+                        rows=None) -> torch.Tensor:
     """L1 between Sobel gradient magnitudes; target side has no gradient
     path (customLoss.py:163-185)."""
     sx = torch.tensor([[-1., 0, 1], [-2, 0, 2], [-1, 0, 1]],
@@ -75,8 +84,8 @@ def sobel_gradient_loss(output: torch.Tensor, target: torch.Tensor) -> torch.Ten
 
     def magnitude(img):
         g = _to_gray(img.float())
-        gx = _depthwise_conv(g, sx)
-        gy = _depthwise_conv(g, sy)
+        gx = _depthwise_conv(g, sx, rows)
+        gy = _depthwise_conv(g, sy, rows)
         return torch.sqrt(gx ** 2 + gy ** 2 + 1e-6)
 
     tg = magnitude(target).detach()   # customLoss.py:177-178

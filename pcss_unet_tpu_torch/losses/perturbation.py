@@ -21,8 +21,10 @@ package.
 
 With a process ``group`` the inputs are this rank's equal shard of the
 group's batch: the noise is drawn for the whole batch from the (shared)
-generator and sliced to the rank's rows, and the channel σ is the whole
-batch's, so each rank computes its rows of the one-process result."""
+generator and sliced to the rank's samples (its data index's) and, on row
+shards (``rows``, ``parallel/spatial.py``), to its frame rows, and the
+channel σ is the whole batch's, so each rank computes its part of the
+one-process result."""
 
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ def perturb_inputs(inputs: torch.Tensor, count: int, std_factor: float = 0.01,
                    noise_mode: str = "channel_std",
                    generator: torch.Generator | None = None,
                    noise: torch.Tensor | None = None,
-                   group=None) -> torch.Tensor:
+                   group=None, rows=None) -> torch.Tensor:
     """→ [p, B, H, W, C] noisy copies of NHWC ``inputs``.
 
     noise_mode:
@@ -49,13 +51,17 @@ def perturb_inputs(inputs: torch.Tensor, count: int, std_factor: float = 0.01,
       (customLoss.py:223-231)
     """
     world = 1 if group is None else dist.get_world_size(group)
+    spatial = 1 if rows is None else rows.count
     if noise is None:
-        b = inputs.shape[0]
-        noise = torch.randn((count, b * world, *inputs.shape[1:]),
+        b, h = inputs.shape[:2]
+        noise = torch.randn((count, b * world // spatial, h * spatial,
+                             *inputs.shape[2:]),
                             generator=generator, device=inputs.device,
                             dtype=torch.float32)
         if group is not None:
-            noise = noise[:, rank_slice(group, b)]
+            noise = noise[:, rank_slice(group, b, spatial)]
+        if rows is not None:
+            noise = noise[:, :, rows.index * h:(rows.index + 1) * h]
     x = inputs.float()[None]
     if noise_mode == "channel_std":
         if group is None:
@@ -86,7 +92,7 @@ def perturbation_loss(apply_fn: Callable[[torch.Tensor], torch.Tensor],
                       noise_mode: str = "channel_std", metric: str = "l1",
                       generator: torch.Generator | None = None,
                       noise: torch.Tensor | None = None,
-                      group=None) -> torch.Tensor:
+                      group=None, rows=None) -> torch.Tensor:
     """Mean drift of the model under small input perturbations.
 
     ``apply_fn``: x → model output (train-mode semantics, no state updates).
@@ -97,7 +103,7 @@ def perturbation_loss(apply_fn: Callable[[torch.Tensor], torch.Tensor],
         raise ValueError(f"unknown metric: {metric}")
     with torch.no_grad():
         perturbed = perturb_inputs(inputs, count, std_factor, noise_mode,
-                                   generator, noise, group)
+                                   generator, noise, group, rows)
         outs = torch.stack([apply_fn(xp) for xp in perturbed])  # [p, B, H, W, 1]
     diffs = original_output[None].float() - outs.float()
     if metric == "l1":

@@ -17,6 +17,10 @@ from L1 alone.  ``grad=False`` (default) reproduces that by running the
 towers under ``torch.no_grad()``, the port's ``stop_gradient``, which also
 keeps the towers' activations out of memory; ``grad=True`` enables real
 perceptual gradients.
+
+On a row shard (``rows``) the tower runs on the shard's rows with halos
+from its neighbours; every shard's taps have the same element counts, so
+the mean of the shards' losses is the frame's.
 """
 
 from __future__ import annotations
@@ -58,7 +62,8 @@ class PerceptualLoss:
         self.tap_weights = [by_tap[i] for i in sorted(by_tap)]
         self.grad = grad
 
-    def _loss(self, output: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    def _loss(self, output: torch.Tensor, target: torch.Tensor,
+              rows=None) -> torch.Tensor:
         out, tgt = _scrub(output), _scrub(target)
         n, h, w = out.shape[:3]
         per = max(1, CHUNK_PIXELS // (h * w))     # images per tower run
@@ -69,7 +74,8 @@ class PerceptualLoss:
             k = both.shape[0] // 2
             img3 = both.permute(0, 3, 1, 2).repeat(1, 3, 1, 1)  # gray → 3ch
             norm = (img3 - VGG_MEAN) / (VGG_STD + 1e-8)
-            taps = self.model.iter_taps(norm.to(self.model.conv_0.weight.dtype))
+            taps = self.model.iter_taps(norm.to(self.model.conv_0.weight.dtype),
+                                        rows)
             for j, (_, f) in enumerate(taps):
                 f = torch.nan_to_num(f.float(), nan=0.0, posinf=1.0, neginf=-1.0)
                 sums[j] = sums[j] + torch.sum(torch.abs(f[:k] - f[k:]))
@@ -79,9 +85,12 @@ class PerceptualLoss:
             total = total + wt * (s / c)
         return total
 
-    def __call__(self, output: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    def __call__(self, output: torch.Tensor, target: torch.Tensor,
+                 rows=None) -> torch.Tensor:
+        """``rows``: output and target are this rank's row shards
+        (``parallel/spatial.py::RowShard``)."""
         if self.grad:
-            return self._loss(output, target)
+            return self._loss(output, target, rows)
         # reference's gradient-dead VGG branch (customLoss.py:69-71, 90)
         with torch.no_grad():
-            return self._loss(output, target)
+            return self._loss(output, target, rows)

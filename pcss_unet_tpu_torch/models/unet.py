@@ -16,7 +16,7 @@ Same architecture and parameter names as the reference:
 ``gelu`` (flax's ``nn.gelu``: the tanh approximation); ``normalization`` is
 ``batch_norm`` (running statistics), ``group_norm`` (groups of 16 channels),
 ``instance_norm`` (groups of one) or ``none`` (a folded checkpoint), every
-norm in float32 with eps 1e-5.
+norm in float32 (float64 in a float64 net) with eps 1e-5.
 
 Frames are NHWC at the public interface, as in the reference; inside, the
 modules run NCHW.  This is the forward of ``layout="nhwc"`` and the tests'
@@ -53,6 +53,16 @@ the frame's coefficients, so the window's rows away from its edges are the
 frame's.
 ``spatial_align`` and ``spatial_halo`` give the window starts' alignment
 and the halo that makes them exact.
+
+Row shards are the reference's training under a ``spatial`` mesh axis
+(``train --spatial_parallel``): ``forward``, ``forward_train`` and each
+``ConvBlock`` take ``rows`` (``parallel/spatial.py::RowShard``), x being
+this rank's rows of the frames, and every 3×3 conv and align-corners resize
+then takes its halo rows from the neighbouring shards (forward and
+backward; the remat'd bottleneck exchanges again in its recompute), and a
+group or instance norm takes each sample's statistics over the whole frame
+(``GroupNorm``), so each shard computes its rows of the whole frame's
+forward.  Without ``rows`` the code is the unsharded one.
 """
 
 from __future__ import annotations
@@ -75,6 +85,8 @@ from pcss_unet_tpu_torch.ops.resize import (apply_matrix, interp_matrix,
                                             resize_bilinear_align_corners,
                                             resize_chain, resize_rows_window,
                                             upsample2x_window)
+from pcss_unet_tpu_torch.parallel.spatial import (conv2d_rows, rows_matrix,
+                                                  upsample2x_rows)
 from pcss_unet_tpu_torch.utils.distributed import all_reduce_sum
 
 
@@ -90,10 +102,14 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 class GroupNorm(nn.Module):
-    """flax's ``nn.GroupNorm(group_size=...)`` on NCHW in float32: per
-    sample and group, mean E[x] and variance E[x²] − E[x]² (clipped at 0),
-    then ``(x − mean) · (rsqrt(var + eps) · scale) + bias``.  The affine
-    parameters are ``weight`` (flax ``scale``) and ``bias``."""
+    """flax's ``nn.GroupNorm(group_size=...)`` on NCHW in float32 (float64
+    for float64 input): per sample and group, mean E[x] and variance
+    E[x²] − E[x]² (clipped at 0), then ``(x − mean) · (rsqrt(var + eps) ·
+    scale) + bias``.  The affine parameters are ``weight`` (flax ``scale``)
+    and ``bias``.  ``forward(x, rows)``: x is a row shard
+    (``parallel/spatial.py``); E[x] and E[x²] are then the whole frame's,
+    from one differentiable all-reduce of the per-(sample, group) sums over
+    the shard's group (the shards are equal, so is each one's count)."""
 
     def __init__(self, ch: int, group_size: int, eps: float = 1e-5):
         super().__init__()
@@ -104,18 +120,25 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows=None) -> torch.Tensor:
         n, c = x.shape[:2]
-        g = x.float().reshape(n, self.groups, -1)
-        mean = g.mean(-1)
-        var = torch.clamp((g * g).mean(-1) - mean * mean, min=0.0)
+        x = x.to(torch.promote_types(torch.float32, x.dtype))
+        g = x.reshape(n, self.groups, -1)
+        if rows is None:
+            mean, ex2 = g.mean(-1), (g * g).mean(-1)
+        else:
+            count = g.shape[-1] * rows.count
+            sums = all_reduce_sum(torch.stack([g.sum(-1), (g * g).sum(-1)]),
+                                  rows.group)
+            mean, ex2 = sums[0] / count, sums[1] / count
+        var = torch.clamp(ex2 - mean * mean, min=0.0)
         per_ch = (n, self.groups, c // self.groups)
 
         def expand(v):
             return v[:, :, None].expand(per_ch).reshape(n, c, 1, 1)
 
-        mul = torch.rsqrt(expand(var) + self.eps) * self.weight.float()[:, None, None]
-        return (x.float() - expand(mean)) * mul + self.bias.float()[:, None, None]
+        mul = torch.rsqrt(expand(var) + self.eps) * self.weight.to(x.dtype)[:, None, None]
+        return (x - expand(mean)) * mul + self.bias.to(x.dtype)[:, None, None]
 
 
 def _norm(normalization: str, ch: int) -> nn.Module:
@@ -166,10 +189,14 @@ def batch_norm_train(x: torch.Tensor, norm: nn.BatchNorm2d,
     return y, new
 
 
-def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Conv in the working dtype (inputs, kernel and bias cast first)."""
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
-                    padding=conv.padding, dilation=conv.dilation)
+def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype,
+          rows=None) -> torch.Tensor:
+    """Conv in the working dtype (inputs, kernel and bias cast first);
+    ``rows``: x is a row shard, its halo rows from the neighbours."""
+    args = (x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype))
+    if rows is None or conv.padding[0] == 0:
+        return F.conv2d(*args, padding=conv.padding, dilation=conv.dilation)
+    return conv2d_rows(*args, rows, conv.padding, conv.dilation)
 
 
 class ConvBlock(nn.Module):
@@ -247,25 +274,32 @@ class ConvBlock(nn.Module):
                 negative_slope=0.2)
         return None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self._kernel_block(x)
+    def forward(self, x: torch.Tensor, rows=None) -> torch.Tensor:
+        """``rows``: x is a row shard (plain convolutions; no kernel takes
+        a shard)."""
+        out = self._kernel_block(x) if rows is None else None
         if out is not None:
             return out.permute(0, 3, 1, 2)
         self.route = "plain"
         for conv, norm in ((self.conv_a, self.norm_a),
                            (self.conv_b, self.norm_b)):
-            x = _conv(conv, x, self.dtype)
-            if self.normalization != "none":
-                x = norm(x.float())
+            x = _conv(conv, x, self.dtype, rows)
+            if isinstance(norm, GroupNorm):
+                # in its parameters' dtype: float32, float64 for a .double() net
+                x = norm(x.to(norm.weight.dtype), rows)
+            elif self.normalization != "none":
+                x = norm(x.to(norm.weight.dtype))   # running statistics: local
             x = _act(self.activation, x).to(self.dtype)
             if conv is self.conv_a:
                 x = self.dropout(x)
         return x
 
     def forward_train(self, x: torch.Tensor, mask: torch.Tensor | None,
-                      running: tuple | None, group=None) -> tuple[torch.Tensor, tuple]:
-        """Train-mode block on NCHW ``x``: BatchNorm on batch statistics
-        (of the process ``group``'s whole batch where one is given),
+                      running: tuple | None, group=None,
+                      rows=None) -> tuple[torch.Tensor, tuple]:
+        """Train-mode block on NCHW ``x`` (a row shard where ``rows``):
+        BatchNorm on batch statistics (of the process ``group``'s whole
+        batch where one is given), a group norm on the whole frame's,
         Dropout2d as ``torch.where(mask, x / keep, 0)`` with ``mask`` a bool
         [B, C, 1, 1] (None: no dropout), the reference's flax Dropout.
         ``running``: (mean_a, var_a, mean_b, var_b), the running statistics
@@ -276,13 +310,13 @@ class ConvBlock(nn.Module):
         new = []
         for i, (conv, norm) in enumerate(((self.conv_a, self.norm_a),
                                           (self.conv_b, self.norm_b))):
-            x = _conv(conv, x, self.dtype)
+            x = _conv(conv, x, self.dtype, rows)
             if self.normalization == "batch_norm":
                 x, stats = batch_norm_train(x, norm, running[2 * i:2 * i + 2],
                                             bn_dtype, group)
                 new += stats
             elif self.normalization != "none":
-                x = norm(x.float())
+                x = norm(x.to(bn_dtype), rows)
             x = _act(self.activation, x).to(self.dtype)
             if conv is self.conv_a and mask is not None:
                 keep = 1.0 - self.dropout.p
@@ -367,8 +401,8 @@ class UNet(nn.Module):
             raise ValueError("window mode requires even window and global "
                              "sizes (pad first)")
 
-    def forward(self, x: torch.Tensor,
-                window: tuple[int, int] | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, window: tuple[int, int] | None = None,
+                rows=None) -> torch.Tensor:
         orig_dtype = x.dtype
         _, h, w, _ = x.shape
         self._check_window(h, w, window)
@@ -376,19 +410,22 @@ class UNet(nn.Module):
             # odd-size fixup, reference Unetmodel.py:93-97
             x = resize_bilinear_align_corners(x, (h - h % 2, w - w % 2))
         out = self.forward_entered(pixel_unshuffle_nhwc(x.to(self.dtype), 2),
-                                   window)
+                                   window, rows)
         return out if orig_dtype == torch.float32 else out.to(self.dtype)
 
     def forward_entered(self, x: torch.Tensor,
-                        window: tuple[int, int] | None = None) -> torch.Tensor:
+                        window: tuple[int, int] | None = None,
+                        rows=None) -> torch.Tensor:
         """The forward from its first input: x is the pixel-unshuffled frame
         [B, H/2, W/2, in_ch·4] in ``dtype`` (``pixel_unshuffle_nhwc``, or
         K1 with ``entry="nhwc"`` in one pass).  Returns the float32 sigmoid
         mask [B, H, W, out_ch].  ``window=(frame_h, offset)``: window mode,
         x the input rows [offset, offset + 2·x.shape[1]) of a frame of
-        ``frame_h`` rows."""
+        ``frame_h`` rows.  ``rows``: x is this rank's row shard of the
+        frames (the module docstring)."""
         self._check_window(2 * x.shape[1], 2 * x.shape[2], window)
-        return self._trunk(x, lambda name, h: getattr(self, name)(h), window)
+        return self._trunk(x, lambda name, h: getattr(self, name)(h, rows),
+                           window, rows)
 
     def blocks(self) -> list[str]:
         """The ConvBlocks' names in forward order."""
@@ -412,7 +449,8 @@ class UNet(nn.Module):
     def forward_train(self, x: torch.Tensor,
                       masks: dict[str, torch.Tensor] | None = None,
                       running: dict[str, torch.Tensor] | None = None,
-                      group=None) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+                      group=None,
+                      rows=None) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """The reference's train-mode forward of NHWC frames [B, H, W,
         in_ch]: BatchNorm on batch statistics, Dropout2d with ``masks``
         (``dropout_masks``; None or a missing block: no dropout), the
@@ -421,7 +459,9 @@ class UNet(nn.Module):
         module's buffers where absent).  → (float32 sigmoid mask [B, H, W,
         out_ch], buffer name → updated running statistic); the module's
         buffers are not written.  ``group``: the process group the
-        BatchNorm statistics are taken over (None: this process's batch)."""
+        BatchNorm statistics are taken over (None: this process's batch);
+        ``rows``: x is this rank's row shard of the frames (the module
+        docstring)."""
         masks = masks or {}
         new: dict[str, torch.Tensor] = {}
         bottleneck = f"enc_{len(self.encoder_widths) - 1}"
@@ -438,25 +478,29 @@ class UNet(nn.Module):
                     and torch.is_grad_enabled()):
                 # no randomness inside: the mask comes in as a tensor
                 out, st = checkpoint(blk.forward_train, h, masks.get(name),
-                                     stats, group, use_reentrant=False,
+                                     stats, group, rows, use_reentrant=False,
                                      preserve_rng_state=False)
             else:
-                out, st = blk.forward_train(h, masks.get(name), stats, group)
+                out, st = blk.forward_train(h, masks.get(name), stats, group,
+                                            rows)
             new.update(zip(keys, st))
             return out
 
         _, h, w, _ = x.shape
         if h % 2 or w % 2:
             x = resize_bilinear_align_corners(x, (h - h % 2, w - w % 2))
-        out = self._trunk(pixel_unshuffle_nhwc(x.to(self.dtype), 2), block)
+        out = self._trunk(pixel_unshuffle_nhwc(x.to(self.dtype), 2), block,
+                          rows=rows)
         return out, new
 
     def _trunk(self, x: torch.Tensor, block,
-               window: tuple[int, int] | None = None) -> torch.Tensor:
+               window: tuple[int, int] | None = None,
+               rows=None) -> torch.Tensor:
         """The network from its pixel-unshuffled NHWC input to the sigmoid
         mask, ``block(name, h)`` running each ConvBlock on NCHW ``h``;
         with a ``window=(frame_h, offset)``, in window mode
-        (global-coefficient resizes, no size re-match)."""
+        (global-coefficient resizes, no size re-match); with ``rows``, on a
+        row shard (the frame's resizes, halos from the neighbours)."""
         x = x.permute(0, 3, 1, 2)
         # the frame's height and the window's first row, at half resolution
         g_half, a_half = (None, None) if window is None else (window[0] // 2,
@@ -470,7 +514,10 @@ class UNet(nn.Module):
         x = block(f"enc_{depth - 1}", x)
         for i, skip in enumerate(reversed(skips)):
             hh, ww = x.shape[2:]
-            if a_half is None:
+            if rows is not None:
+                x = upsample2x_rows(x, rows)
+                x = _resize_nchw(x, (hh * 2, skip.shape[3]))  # W re-match
+            elif a_half is None:
                 x = _resize_nchw(x, (hh * 2, ww * 2))
                 x = _resize_nchw(x, tuple(skip.shape[2:]))   # size re-match
             else:
@@ -493,13 +540,19 @@ class UNet(nn.Module):
             x = resize_rows_window(x, (g_half, g_half * 2, g_half),
                                    (ww, ww * 2, tw), a_half, a_half, axes=(2, 3))
         else:
-            for axis, sizes in ((2, (hh, hh * 2, th)), (3, (ww, ww * 2, tw))):
-                if not np.array_equal(resize_chain(sizes),
-                                      np.eye(sizes[0], dtype=np.float32)):
+            n = 1 if rows is None else rows.count      # the frame's rows
+            for axis, sizes in ((2, (hh * n, hh * n * 2, th * n)),
+                                (3, (ww, ww * 2, tw))):
+                if np.array_equal(resize_chain(sizes),
+                                  np.eye(sizes[0], dtype=np.float32)):
+                    continue
+                if axis == 2 and rows is not None:
+                    x = rows_matrix(x, resize_chain, (sizes,), rows, axis)
+                else:
                     x = apply_matrix(x, matrix_on(x.device, resize_chain, sizes),
                                      axis)
         x = block("dec_final", x)
-        x = _conv(self.head, x, self.dtype)
+        x = _conv(self.head, x, self.dtype)     # 1×1: local on a row shard
         x = pixel_shuffle_nhwc(x.permute(0, 2, 3, 1), 2)
         return torch.sigmoid(x.float())
 

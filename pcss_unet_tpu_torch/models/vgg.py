@@ -10,6 +10,10 @@ math, ~2.5× fewer FLOPs).
 Tap indices follow torchvision's ``features`` indexing (conv outputs,
 pre-ReLU, of conv1_2 / conv2_2 / conv3_2 / conv4_2 / conv5_2).
 
+On a row shard of a frame (``rows``, ``parallel/spatial.py``) the convs take
+their halo rows from the neighbouring shards and the 2×2 max-pools stay in
+the shard (its height a multiple of 2^``pools_before(taps)``).
+
 Weights: ImageNet-pretrained weights load from the same ``.npz`` the JAX
 package reads (``scripts/convert_vgg_weights.py``: ``conv_{idx}_kernel``
 HWIO, ``conv_{idx}_bias``).  Without one the extractor falls back to fixed
@@ -30,6 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pcss_unet_tpu_torch.parallel.spatial import conv2d_rows
+
 # (torchvision index, out_channels) for every conv in vgg19.features
 VGG19_CONVS: tuple[tuple[int, int], ...] = (
     (0, 64), (2, 64),
@@ -43,6 +49,11 @@ VGG19_POOLS = frozenset((4, 9, 18, 27, 36))
 
 DEFAULT_TAPS = (2, 7, 12, 21, 30)      # customLoss.py:8
 DEFAULT_TAP_WEIGHTS = (0.25, 0.25, 0.3, 0.1, 0.1)  # customLoss.py:8, normalized at :34-36
+
+
+def pools_before(taps: Sequence[int]) -> int:
+    """The max-pools the tower runs on its way to ``max(taps)``."""
+    return sum(1 for i in VGG19_POOLS if i < max(taps))
 
 
 class VGG19Features(nn.Module):
@@ -61,14 +72,17 @@ class VGG19Features(nn.Module):
             self.add_module(f"conv_{idx}", nn.Conv2d(cin, ch, 3, padding=1))
             cin = ch
 
-    def iter_taps(self, x: torch.Tensor):
+    def iter_taps(self, x: torch.Tensor, rows=None):
         """Yield the tap outputs in tower order (ascending index), so a
-        caller can reduce each and let it go before the next."""
+        caller can reduce each and let it go before the next.  ``rows``: x
+        is this rank's row shard of the frames (``parallel/spatial.py::
+        RowShard``)."""
         taps = set(self.taps)
         for idx in range(max(self.taps) + 1):
             conv = getattr(self, f"conv_{idx}", None)
             if conv is not None:
-                x = conv(x)
+                x = (conv(x) if rows is None else
+                     conv2d_rows(x, conv.weight, conv.bias, rows, conv.padding))
             elif idx in VGG19_POOLS:
                 x = F.max_pool2d(x, 2, 2)
             else:

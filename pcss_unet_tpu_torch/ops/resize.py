@@ -151,7 +151,30 @@ def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=256)
 def _window_of(build, args: tuple, rows: tuple[int, int],
                cols: tuple[int, int]) -> np.ndarray:
-    return np.ascontiguousarray(build(*args)[rows[0]:rows[1], cols[0]:cols[1]])
+    """Rows × columns of ``build(*args)``; columns outside the matrix (a
+    halo beyond the frame's edge) are zeros."""
+    m = build(*args)
+    out = np.zeros((rows[1] - rows[0], cols[1] - cols[0]), m.dtype)
+    lo, hi = max(cols[0], 0), min(cols[1], m.shape[1])
+    out[:, lo - cols[0]:hi - cols[0]] = m[rows[0]:rows[1], lo:hi]
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def shard_halo(build, args: tuple, count: int) -> tuple[int, int]:
+    """The halo (rows above, rows below) that the row shards of a global
+    matrix ``build(*args)`` [out, in] need, split into ``count`` equal
+    shards of its output and input rows: the largest reach of any shard's
+    output rows past its own input rows, up and down."""
+    m = build(*args)
+    ho, hi = m.shape[0] // count, m.shape[1] // count
+    above = below = 0
+    for s in range(count):
+        cols = np.nonzero(np.any(m[s * ho:(s + 1) * ho] != 0, axis=0))[0]
+        if cols.size:
+            above = max(above, s * hi - int(cols[0]))
+            below = max(below, int(cols[-1]) + 1 - (s + 1) * hi)
+    return above, below
 
 
 def upsample2x_window(x: torch.Tensor, global_h: int, row_off: int,

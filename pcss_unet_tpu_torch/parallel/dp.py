@@ -49,7 +49,12 @@ from pcss_unet_tpu_torch.train.step import (_commit, _grad_step, _metrics,
 def _require_explicit_supported(cfg, fn_name: str) -> None:
     """The explicit builders pin the standard-loss whole-batch semantics;
     the perturbation loss and gradient accumulation are refused, as the
-    reference refuses them."""
+    reference refuses them, and so is a (data × spatial) grid: they are
+    pure data parallel, as the reference's ``shard_map`` over ``'data'``."""
+    if int(getattr(cfg, "spatial_parallel", 1)) > 1:
+        raise ValueError(f"{fn_name} is pure data parallel; got "
+                         f"spatial_parallel={cfg.spatial_parallel} — use "
+                         "build_train_step with a group and a row shard")
     if getattr(cfg, "loss_type", "standard") != "standard":
         raise ValueError(f"{fn_name} implements the standard loss only; "
                          f"got loss_type={cfg.loss_type!r} — use "

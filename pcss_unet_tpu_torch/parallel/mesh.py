@@ -8,7 +8,9 @@ Axes, as in the reference:
   ranks' devices.
 - ``spatial``: height-dimension partitioning of full frames.  The sharded
   inference (``infer/tiled.py::infer_sharded_halo``) runs one window of the
-  frame per spatial index on that index's device, from one process.
+  frame per spatial index on that index's device, from one process; the
+  sharded training (``parallel/spatial.py``) is one process per cell, each
+  holding its rows of its data index's frames.
 
 A ``Mesh`` is a (data, spatial) grid of ``torch.device``s.  A device may
 appear more than once: a 1×N mesh of one card runs the N windows one after
@@ -65,17 +67,25 @@ def make_mesh(data_parallel: int = -1, spatial_parallel: int = 1,
 
 
 def batch_sharding(mesh: Mesh):
-    """→ ``split(x)``: a host batch [B, ...] as one block of B / data rows
-    per data index, on that index's first device (the ranks' rows of the
-    batch, in rank order); B must divide by the data axis."""
-    n = mesh.shape["data"]
+    """→ ``split(x)``: a host batch [B, H, ...] as one block per cell (d, s)
+    of the mesh, in rank order (d-major, the reference's
+    ``P('data', 'spatial')``): samples [d·B/D, (d+1)·B/D) and, where the
+    spatial axis is longer than 1, frame rows [s·H/S, (s+1)·H/S), on that
+    cell's device.  B must divide by the data axis and H by the spatial
+    one; with spatial 1 it is one block of samples per data index."""
+    n, m = mesh.shape["data"], mesh.shape["spatial"]
 
     def split(x) -> list[torch.Tensor]:
         x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
         if x.shape[0] % n:
             raise ValueError(f"batch {x.shape[0]} does not divide over "
                              f"data={n}")
-        return [part.to(row[0]) for part, row in zip(x.chunk(n), mesh.devices)]
+        if m > 1 and x.shape[1] % m:
+            raise ValueError(f"height {x.shape[1]} does not divide over "
+                             f"spatial={m}")
+        return [block.to(dev) for part, row in zip(x.chunk(n), mesh.devices)
+                for block, dev in zip(part.chunk(m, dim=1) if m > 1 else [part],
+                                      row)]
     return split
 
 
@@ -88,6 +98,7 @@ def replicate_sharding(mesh: Mesh):
 
 
 def shard_train_inputs(mesh: Mesh, x, y):
-    """A host batch's inputs and labels split over the data axis."""
+    """A host batch's inputs and labels split over the mesh's cells
+    (``batch_sharding``)."""
     split = batch_sharding(mesh)
     return split(x), split(y)

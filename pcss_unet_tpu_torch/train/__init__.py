@@ -1,9 +1,9 @@
 """Training (port of ``pcss_unet_tpu/train``): schedules, the train state
 and optimizers, the train and eval steps, checkpoints, metric writers and
 the ``fit`` loop, and the measured memory governor (``governor.py``).  Data
-parallelism is the step's process group (``build_train_step(group=…)``,
-``fit(group=…)``); spatial parallelism in training is ROADMAP Queue 1 item
-14b."""
+and spatial parallelism are the step's process group and row split
+(``build_train_step(group=…, rows=…)``, ``fit(group=…)`` with
+``cfg.spatial_parallel``)."""
 
 from pcss_unet_tpu_torch.train.loop import FitResult, fit
 from pcss_unet_tpu_torch.train.state import (TrainState, create_train_state,

@@ -9,13 +9,18 @@ of ``pcss_unet_tpu/train/loop.py``.
   (and every ``log_every`` steps), and keeps a host mirror of the step;
 - TB scalars/images (main.py:435-467) through ``train/metrics.py``.
 
-Data parallelism: ``fit(..., group=g)`` in every rank of a process group
-trains with the group step (``train/step.py``).  Each rank reads the same
-global batch and takes its rows (``rank_rows``), or, where the loader is
-sharded per process (``--multihost``), its own shard's batch; rank 0 alone
-validates, logs and writes checkpoints while the others wait at a barrier,
-and every rank resumes from the same file.  Spatial parallelism in training
-is ROADMAP Queue 1 item 14b.  When ``device_data_cache`` allows it (``data/device_cache.py::
+Data and spatial parallelism: ``fit(..., group=g)`` in every rank of a
+process group trains with the group step (``train/step.py``).  With
+``cfg.spatial_parallel = S`` the group is a (data × spatial) grid of D·S
+ranks, rank r at cell (r // S, r % S) (``utils/distributed.py``).  Each rank
+reads the same global batch and takes its data index's samples
+(``rank_rows``), or, where the loader is sharded per process
+(``--multihost``), its data index's shard's batch, and then its rows of
+every frame (``parallel/spatial.py``).  Every rank validates its part of
+each validation batch, the terms averaged over the grid; rank 0 alone logs
+(the validation frame put together from its spatial group's rows) and
+writes checkpoints while the others wait at a barrier, and every rank
+resumes from the same file.  When ``device_data_cache`` allows it (``data/device_cache.py::
 cache_eligible``: on, or auto within ``device_cache_budget_mb``), the
 dataset is uploaded once and batches are gathered and cropped on the
 device, the same stream bit for bit; otherwise they stream from the host
@@ -36,6 +41,7 @@ import torch.distributed as dist
 from pcss_unet_tpu_torch.data.device_cache import DeviceCache, cache_eligible
 from pcss_unet_tpu_torch.data.pipeline import Loader, prefetch_to_device
 from pcss_unet_tpu_torch.losses import LossBundle, PerceptualLoss
+from pcss_unet_tpu_torch.parallel.spatial import check_config_rows, row_shard
 from pcss_unet_tpu_torch.train.checkpoint import (CheckpointManager,
                                                   check_resume_compat)
 from pcss_unet_tpu_torch.train.metrics import (log_image_grid,
@@ -44,6 +50,7 @@ from pcss_unet_tpu_torch.train.schedule import warmup_cosine_schedule
 from pcss_unet_tpu_torch.train.state import TrainState, create_train_state
 from pcss_unet_tpu_torch.train.step import (build_eval_step, build_train_step,
                                             rank_rows)
+from pcss_unet_tpu_torch.utils.distributed import gather_rows
 
 
 @dataclass
@@ -116,8 +123,9 @@ def fit(cfg, model, train_loader: Loader, val_loader: Loader | None = None,
     ``step_hook(host_step, epoch, batch_idx) -> bool``: called after every
     train step; returning True requests a graceful stop through the same
     checkpoint-and-exit path as a preemption signal.  ``group``: the
-    process group of data-parallel ranks this one belongs to (see the
-    module docstring); a stop any rank asks for stops them all."""
+    process group of data-parallel ranks, or of the (data × spatial) grid
+    where ``cfg.spatial_parallel > 1``, this one belongs to (see the module
+    docstring); a stop any rank asks for stops them all."""
     # the handler first, so that a signal during set-up is still caught
     stop_requested = []
     prev_handlers = {}
@@ -142,15 +150,19 @@ def fit(cfg, model, train_loader: Loader, val_loader: Loader | None = None,
     if group is not None and dist.get_backend(group) != "gloo":
         stop_group = dist.new_group(dist.get_process_group_ranks(group),
                                     backend="gloo")
-    if cfg.spatial_parallel != 1:
+    spatial = int(cfg.spatial_parallel)
+    if world % spatial:
         raise ValueError(
-            f"spatial_parallel={cfg.spatial_parallel}: spatial parallelism "
-            "in training is not ported yet (ROADMAP Queue 1 item 14b) — use "
-            "python -m pcss_unet_tpu train")
-    if cfg.data_parallel not in (-1, world):
+            f"spatial_parallel={spatial} with {world} rank(s): pass a process "
+            "group of data_parallel × spatial_parallel ranks (the train CLI "
+            "starts them)")
+    data = world // spatial
+    if cfg.data_parallel not in (-1, data):
         raise ValueError(
-            f"data_parallel={cfg.data_parallel} with {world} rank(s): pass "
-            "a process group of that many ranks (the train CLI starts them)")
+            f"data_parallel={cfg.data_parallel} with {world} rank(s) of "
+            f"spatial_parallel={spatial}: pass a process group of "
+            "data_parallel × spatial_parallel ranks (the train CLI starts them)")
+    d, s = divmod(rank, spatial)
     if train_loader.batches_per_epoch() < 1:
         raise ValueError(
             f"batch_size {train_loader.batch_size} yields no full batch "
@@ -165,14 +177,38 @@ def fit(cfg, model, train_loader: Loader, val_loader: Loader | None = None,
     state = create_train_state(model, cfg, steps_per_epoch)
     bundle = make_bundle(cfg, device)
     teacher = _teacher(cfg, device) if cfg.distill_teacher else None
-    train_step = build_train_step(cfg, bundle, ds.means, ds.stds,
-                                  steps_per_epoch, teacher=teacher, group=group)
-    # this rank's rows of each global batch; a per-process shard is its own
+    # this rank's rows of every frame (None: whole frames)
     rows = None
+    if spatial > 1:
+        for loader in (train_loader, val_loader):
+            if loader is not None:
+                check_config_rows(cfg, (loader.crop_hw or loader.ds.sample_hw)[0],
+                                  (model, teacher))
+        rows = row_shard(group, spatial)
+    train_step = build_train_step(cfg, bundle, ds.means, ds.stds,
+                                  steps_per_epoch, teacher=teacher, group=group,
+                                  rows=rows)
+    # this data index's samples of each global batch; a per-process shard
+    # is its own
+    samples = val_samples = None
     if group is not None and train_loader.shard_count == 1:
-        rows = rank_rows(train_loader.batch_size, rank, world,
-                         max(1, int(cfg.grad_accum_steps)))
-    eval_step = build_eval_step(cfg, bundle, ds.means, ds.stds)
+        samples = rank_rows(train_loader.batch_size, d, data,
+                            max(1, int(cfg.grad_accum_steps)))
+    if (group is not None and val_loader is not None
+            and val_loader.batch_size % data == 0):
+        # (otherwise every data index validates the whole batch)
+        val_samples = rank_rows(val_loader.batch_size, d, data)
+
+    def mine(x, idx=None):
+        """This rank's part of a batch: its samples ``idx``, its rows."""
+        if idx is not None:
+            x = x[idx]
+        if rows is not None:
+            h = x.shape[1] // spatial
+            x = x[:, s * h:(s + 1) * h]
+        return x
+    eval_step = build_eval_step(cfg, bundle, ds.means, ds.stds, group=group,
+                                rows=rows)
     lr_fn = warmup_cosine_schedule(cfg.learning_rate, cfg.warmup_epochs,
                                    cfg.num_epochs, steps_per_epoch,
                                    cfg.lr_floor_fraction)
@@ -212,7 +248,7 @@ def fit(cfg, model, train_loader: Loader, val_loader: Loader | None = None,
     if cache_eligible(cfg, ds):
         train_cache = DeviceCache(ds, crop_hw=train_loader.crop_hw,
                                   device=device)
-    if (val_loader is not None and val_loader.ds is not ds and rank == 0
+    if (val_loader is not None and val_loader.ds is not ds
             and cache_eligible(cfg, val_loader.ds)):
         val_cache = DeviceCache(val_loader.ds, crop_hw=val_loader.crop_hw,
                                 device=device)
@@ -221,19 +257,20 @@ def fit(cfg, model, train_loader: Loader, val_loader: Loader | None = None,
 
     def train_batches(epoch, skip=0):
         if train_cache is not None:
-            return train_cache.batches(train_loader, epoch, start_batch=skip,
-                                       rows=rows)
-        host = train_loader.epoch(epoch, start_batch=skip)
-        if rows is not None:
-            host = ((x[rows], y[rows]) for x, y in host)
+            return ((mine(x), mine(y)) for x, y in train_cache.batches(
+                train_loader, epoch, start_batch=skip, rows=samples))
+        host = ((mine(x, samples), mine(y, samples))
+                for x, y in train_loader.epoch(epoch, start_batch=skip))
         return prefetch_to_device(host, device)
 
     def val_batches():
         if val_cache is not None:
-            yield from val_cache.batches(val_loader, 0)
+            for x, y in val_cache.batches(val_loader, 0, rows=val_samples):
+                yield mine(x), mine(y)
             return
         for x, y in val_loader.epoch(0):
-            yield torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+            yield (torch.from_numpy(mine(x, val_samples)).to(device),
+                   torch.from_numpy(mine(y, val_samples)).to(device))
 
     profiler = None
     if profile_dir:
@@ -304,13 +341,12 @@ def fit(cfg, model, train_loader: Loader, val_loader: Loader | None = None,
         log_loss_scalars(writer, "train", train_avg, epoch)
 
         val_avg = None
-        if (val_loader is not None and rank == 0
-                and epoch % cfg.validation_frequency == 0):
+        if val_loader is not None and epoch % cfg.validation_frequency == 0:
             val_acc = ema_acc = last = None   # device-side sums
             nv = 0
             for xd, yd in val_batches():
                 terms, out = eval_step(model, xd, yd)
-                last = (xd[:1], out[:1], yd[:1])
+                last = (xd[:1], out[:1], yd[:1])   # this rank's part of it
                 val_acc = terms if val_acc is None else {
                     k: val_acc[k] + v for k, v in terms.items()}
                 if state.ema_params is not None:
@@ -326,7 +362,12 @@ def fit(cfg, model, train_loader: Loader, val_loader: Loader | None = None,
                 val_avg = {k: v / nv for k, v in to_host(val_acc).items()}
                 log_loss_scalars(writer, "val", val_avg, epoch)
                 if image_every and last is not None:
-                    log_image_grid(writer, *(t.float().cpu().numpy() for t in last),
+                    last = [t.float() for t in last]
+                    if rows is not None:
+                        # the whole frame: its rows from the spatial group
+                        whole = gather_rows(torch.cat(last, -1), rows)
+                        last = whole.split([t.shape[-1] for t in last], -1)
+                    log_image_grid(writer, *(t.cpu().numpy() for t in last),
                                    epoch)
 
         epoch_loss = (val_avg or train_avg).get("total_loss", float("inf"))

@@ -25,7 +25,10 @@ Data parallelism is the same step in each rank of a process group
 (``group``): each rank takes its rows of the global batch and all of them
 compute the whole batch's step, with one explicit all-reduce of the
 gradients and loss terms (``parallel/dp.py`` holds the reference's
-explicit and ZeRO-1 formulations).
+explicit and ZeRO-1 formulations).  Spatial parallelism splits each of
+those samples' frames into row shards over the ranks of a (data × spatial)
+grid (``rows``, ``parallel/spatial.py``): the same step, each rank on its
+rows, the halos exchanged inside the model and the losses.
 """
 
 from __future__ import annotations
@@ -69,7 +72,9 @@ def rank_rows(batch: int, rank: int, world: int, accum: int = 1) -> np.ndarray:
     """The rows of a global batch of ``batch`` that rank ``rank`` of
     ``world`` takes for the group step, in the order it takes them: for each
     of the ``accum`` microbatches (rows [i·mb, (i+1)·mb), mb = batch /
-    accum), the rank's equal share of it, in rank order."""
+    accum), the rank's equal share of it, in rank order.  On a (data ×
+    spatial) grid, ``rank`` and ``world`` are the data index and the data
+    axis's length: the spatial ranks of a data index take the same rows."""
     if batch % (world * accum):
         raise ValueError(f"batch {batch} does not divide over {world} ranks "
                          f"× {accum} microbatches")
@@ -80,7 +85,7 @@ def rank_rows(batch: int, rank: int, world: int, accum: int = 1) -> np.ndarray:
 
 
 def _grad_step(cfg, bundle: LossBundle, means, stds, steps_per_epoch: int,
-               teacher, group) -> Callable:
+               teacher, group, rows=None) -> Callable:
     """The part of the step before the optimizer: → ``grads(state, x_raw,
     y, generator) -> (params, clipped grads, new running stats, terms,
     total, gnorm, max_norm)``; see ``build_train_step``."""
@@ -89,34 +94,39 @@ def _grad_step(cfg, bundle: LossBundle, means, stds, steps_per_epoch: int,
     distill_w = float(cfg.distill_weight)
     on = _stats_on(means, stds)
     world = 1 if group is None else dist.get_world_size(group)
+    spatial = 1 if rows is None else rows.count
 
     def grads_one(state, stats, x_mb, y_mb, gen):
         """Gradients, new running stats and loss terms for one (micro)batch."""
         model = state.model
         b = x_mb.shape[0]
-        # drawn for the group's whole (micro)batch, this rank's rows kept
-        rows = slice(0, b) if group is None else rank_slice(group, b)
+        # drawn for the group's whole (micro)batch, this data index's
+        # samples kept (a sample's row shards share its masks)
+        mine = slice(0, b) if group is None else rank_slice(group, b, spatial)
 
         def draw():
-            return {k: m[rows] for k, m in
-                    model.dropout_masks(b * world, gen, x_mb.device).items()}
+            return {k: m[mine] for k, m in model.dropout_masks(
+                b * world // spatial, gen, x_mb.device).items()}
         masks = draw()
         pert_masks = draw() if use_perturb else None
         soft = None
         if teacher is not None:
             with torch.no_grad():
-                soft = teacher(x_mb).float()
-        out, new_stats = model.forward_train(x_mb, masks, stats, group=group)
+                soft = teacher(x_mb, rows=rows).float()
+        out, new_stats = model.forward_train(x_mb, masks, stats, group=group,
+                                             rows=rows)
         if use_perturb:
             def pert_apply(xp):
                 # train-mode forward (dropout, batch-stat BN), BN updates
                 # discarded — pert_loss.py:78-81 semantics
-                return model.forward_train(xp, pert_masks, stats, group=group)[0]
+                return model.forward_train(xp, pert_masks, stats, group=group,
+                                           rows=rows)[0]
             total, terms = enhanced_loss(bundle, pert_apply, x_mb, out, y_mb,
                                          training=True, generator=gen,
-                                         group=group)
+                                         group=group, rows=rows)
         else:
-            total, terms = standard_loss(bundle, out, y_mb, group=group)
+            total, terms = standard_loss(bundle, out, y_mb, group=group,
+                                         rows=rows)
         if soft is not None:
             d = torch.mean((out.float() - soft) ** 2)
             total = total + distill_w * d
@@ -233,7 +243,7 @@ def _metrics(state, terms, grads, gnorm, max_norm, skipped,
 
 def build_train_step(cfg, bundle: LossBundle, means, stds,
                      steps_per_epoch: int, per_block_norms: bool = True,
-                     teacher=None, group=None) -> Callable:
+                     teacher=None, group=None, rows=None) -> Callable:
     """→ ``train_step(state, x, y, generator) -> metrics`` (updates
     ``state`` in place).
 
@@ -269,10 +279,20 @@ def build_train_step(cfg, bundle: LossBundle, means, stds,
     averaged over the ranks (one flat all-reduce) before the clip, so
     every rank applies the same update and the same skip decision.  The
     all-reduce is explicit: ``DistributedDataParallel`` hooks ``.backward()``
-    and this step takes ``torch.autograd.grad``."""
+    and this step takes ``torch.autograd.grad``.
+
+    ``rows``: ``group`` is a (data × spatial) grid and this rank holds its
+    row shard of its data index's samples (``parallel/spatial.py::
+    RowShard``; x and y [b, H/S, W, C], its rows of ``rank_rows`` of the
+    data index).  Masks and noise are drawn for the whole batch and sliced
+    to the data index (and the noise to the rows); convs, resizes, the VGG
+    tower and the loss stencils exchange halos; BatchNorm, the channel σ,
+    the penumbra ratio and SSIM take the grid's sums; the teacher runs its
+    eval forward on the shard.  The step is still the one-process step on
+    the whole frames."""
     ema_decay = float(getattr(cfg, "ema_decay", 0.0))
     grads = _grad_step(cfg, bundle, means, stds, steps_per_epoch, teacher,
-                       group)
+                       group, rows)
 
     def train_step(state: TrainState, x_raw: torch.Tensor, y: torch.Tensor,
                    generator: torch.Generator | None = None) -> dict:
@@ -288,13 +308,20 @@ def build_train_step(cfg, bundle: LossBundle, means, stds,
     return train_step
 
 
-def build_eval_step(cfg, bundle: LossBundle, means, stds) -> Callable:
+def build_eval_step(cfg, bundle: LossBundle, means, stds, group=None,
+                    rows=None) -> Callable:
     """Full-frame validation step (main.py:583-664): eval-mode forward
     (running statistics, no dropout) + loss components, without gradients.
     → ``eval_step(model, x, y, params=None) -> (terms, output)``;
     ``params``: tensors to run in place of the model's parameters, in
-    ``named_parameters`` order (the EMA weights)."""
+    ``named_parameters`` order (the EMA weights).
+
+    ``group``: every rank of the group runs the step on its part of the
+    batch (its samples and, with ``rows``, its row shard of their frames,
+    as the train step) and the terms are averaged over the group, so every
+    rank returns the whole batch's; ``output`` is the rank's part."""
     on = _stats_on(means, stds)
+    world = 1 if group is None else dist.get_world_size(group)
 
     def eval_step(model, x_raw: torch.Tensor, y: torch.Tensor,
                   params: list[torch.Tensor] | None = None):
@@ -305,12 +332,18 @@ def build_eval_step(cfg, bundle: LossBundle, means, stds) -> Callable:
             try:
                 x = standardize(x_raw.float(), *on(dev))
                 if params is None:
-                    out = model(x)
+                    out = model(x, rows=rows)
                 else:
                     names = [n for n, _ in model.named_parameters()]
                     out = torch.func.functional_call(
-                        model, dict(zip(names, params)), (x,))
-                _, terms = standard_loss(bundle, out, y.float())
+                        model, dict(zip(names, params)), (x,), {"rows": rows})
+                _, terms = standard_loss(bundle, out, y.float(), group=group,
+                                         rows=rows)
+                if group is not None:
+                    keys = list(terms)
+                    mean = torch.stack([terms[k] for k in keys])
+                    dist.all_reduce(mean, group=group)
+                    terms = dict(zip(keys, mean / world))
             finally:
                 model.train(was)
         # perturbation is a train-only term (pert_loss.py:149); reference

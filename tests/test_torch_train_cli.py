@@ -1,8 +1,9 @@
 """``python -m pcss_unet_tpu_torch train`` (``cli/train.py``) on the CPU:
 it trains on a tiny pack and writes the resolved config the JAX CLI
 writes, with the memory governor's auto modes, the ``--grain`` loader and
-the device cache too; what the port cannot do yet exits 2; without a card
-the default device raises."""
+the device cache too; ``--spatial_parallel`` trains on row shards, and a
+misaligned frame height is refused; without a card the default device
+raises."""
 
 import json
 import os
@@ -73,14 +74,77 @@ def test_resolved_config_matches_the_jax_cli(work, monkeypatch):
     assert mine == theirs
 
 
-@pytest.mark.parametrize("flags", [["--spatial_parallel", "2"]])
-def test_unported_flags_exit_2(work, capsys, flags):
+@pytest.fixture
+def tall(tmp_path, monkeypatch):
+    """A pack of 32-row frames (two shards of 16 rows: the reference net's
+    row alignment) and a w4 config, in a working directory of its own;
+    the ranks the CLI starts take one thread each."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((8, 32, 16, 4)).astype(np.float32)
+    y = (x.mean(axis=-1, keepdims=True) > 0).astype(np.float32)
+    d = tmp_path / "d"
+    d.mkdir()
+    np.save(d / "train_inputs.npy", x)
+    np.save(d / "train_labels.npy", y)
+    np.save(d / "val_inputs.npy", x[:4])
+    np.save(d / "val_labels.npy", y[:4])
+    (tmp_path / "cfg.ini").write_text(
+        "[base]\nbase_width=4\nbatch_size=4\nnum_epochs=1\nwarmup_epochs=1\n"
+        "save_frequency=1\nlog_dir=logs\nsave_dir=ck\nprocessed_data_dir=d\n"
+        "compute_dtype=float64\n")
+    return tmp_path
+
+
+def test_spatial_parallel_trains_with_the_jax_cli_config(tall, monkeypatch):
+    """``train --spatial_parallel 2 --device cpu`` starts two ranks, each on
+    16 of the 32 rows, and trains: one set of checkpoints, written by rank
+    0; its ``resolved_config.json`` is the JAX CLI's, key for key (the JAX
+    CLI's ``fit`` is stubbed: it writes the config before it trains)."""
+    import pcss_unet_tpu.cli.train as jcli
+
+    class Done:
+        best_val_loss = 0.0
+
+    monkeypatch.setattr(jcli, "fit", lambda *a, **k: Done())
+    monkeypatch.setenv("PCSS_COMPILE_CACHE", "0")
+    flags = ["--config", "cfg.ini", "--allow_random_vgg", "--spatial_parallel", "2"]
+    assert main(flags + ["--save_dir", "p", "--device", "cpu"]) is None
+    jcli.main(flags + ["--save_dir", "j"])
+    mine = json.loads((tall / "p" / "resolved_config.json").read_text())
+    theirs = json.loads((tall / "j" / "resolved_config.json").read_text())
+    assert mine.pop("save_dir") == "p" and theirs.pop("save_dir") == "j"
+    assert mine == theirs and mine["spatial_parallel"] == 2
+    files = sorted(f for f in os.listdir(tall / "p") if not f.startswith("."))
+    assert files == ["checkpoints.json", "ckpt_0.pt", "resolved_config.json"]
+
+
+def test_data_and_spatial_parallel_match_one_process(tall):
+    """``--data_parallel 2 --spatial_parallel 2`` (four ranks, a 2×2 grid)
+    trains what ``--spatial_parallel 1`` trains, float64 compute: the saved
+    train and validation losses."""
+    common = ["--config", "cfg.ini", "--allow_random_vgg", "--device", "cpu",
+              "--loss_type", "perturb"]
+    one = main(common + ["--spatial_parallel", "1", "--save_dir", "one"])
+    assert main(common + ["--data_parallel", "2", "--spatial_parallel", "2",
+                          "--save_dir", "grid"]) is None
+    m1 = json.loads((tall / "one" / "checkpoints.json").read_text())
+    m2 = json.loads((tall / "grid" / "checkpoints.json").read_text())
+    assert m1.keys() == m2.keys() == {"0"} and len(one.history) == 1
+    for name, v in m1["0"].items():
+        assert m2["0"][name] == pytest.approx(v, rel=1e-6), name
+
+
+def test_misaligned_height_exits_naming_the_alignment(work):
+    """16-row frames over two shards give 8 rows, not a multiple of the
+    reference net's row alignment 16: refused before any rank starts."""
     with pytest.raises(SystemExit) as e:
-        main(["--config", "cfg.ini", "--allow_random_vgg", "--device", "cpu", *flags])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP" in err and "pcss_unet_tpu train" in err
-    assert "item 14b" in err
+        main(["--config", "cfg.ini", "--allow_random_vgg", "--device", "cpu",
+              "--spatial_parallel", "2"])
+    assert e.value.code not in (0, None)
+    assert "row alignment 16" in str(e.value.code)
+    assert not (work / "ck").exists()
 
 
 @pytest.mark.parametrize("flags", [
