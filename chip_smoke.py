@@ -145,8 +145,8 @@ Then the chain from renders to a trained net, every command through
    frame, then one frame under ``torch.profiler`` (device busy and idle
    share, ``device_launches``: the device kernels, copies and memsets of the
    frame, and the device events from K1 to the first block kernel in time
-   order).  ``scripts/profile_frames.py`` compares these counts between two
-   checkouts.
+   order).  ``benchmark/run.py --trace 1`` compares such counts between
+   two checkouts.
 5. ``golden_nhwc``: the golden net as in 3 through
    ``InferenceEngine(layout="nhwc", fold_bn=True, quantize="int8")``.
 6. ``main_path_w64_nhwc``: 1920×1080 frames padded to 1920×1088 through the

@@ -24,6 +24,8 @@ import logging
 import numpy as np
 import torch
 
+from pcss_unet_tpu_torch.utils.profiling import span
+
 
 def dataset_nbytes(ds) -> int:
     """Total bytes a device cache of ``ds`` would occupy (float32)."""
@@ -91,11 +93,13 @@ class DeviceCache:
         plan = torch.from_numpy(np.ascontiguousarray(batches, np.int64)
                                 ).to(self.device)
         for b in range(start_batch, len(batches)):
-            xb = self.x.index_select(0, plan[b])
-            yb = self.y.index_select(0, plan[b])
-            if offsets is not None:
-                ch, cw = self.crop_hw
-                oy, ox = (int(v) for v in offsets[b])
-                xb = xb.narrow(1, oy, ch).narrow(2, ox, cw).contiguous()
-                yb = yb.narrow(1, oy, ch).narrow(2, ox, cw).contiguous()
+            # closed before the yield: the consumer's work is not the gather's
+            with span("data.batch"):
+                xb = self.x.index_select(0, plan[b])
+                yb = self.y.index_select(0, plan[b])
+                if offsets is not None:
+                    ch, cw = self.crop_hw
+                    oy, ox = (int(v) for v in offsets[b])
+                    xb = xb.narrow(1, oy, ch).narrow(2, ox, cw).contiguous()
+                    yb = yb.narrow(1, oy, ch).narrow(2, ox, cw).contiguous()
             yield xb, yb

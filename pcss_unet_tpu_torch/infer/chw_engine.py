@@ -39,6 +39,7 @@ from pcss_unet_tpu_torch.ops.pixelshuffle import padded_width as _wp
 from pcss_unet_tpu_torch.ops.pixelshuffle import pixel_unshuffle_chw_padded
 from pcss_unet_tpu_torch.ops.resize import (apply_matrix, matrix_on,
                                             resize_chain)
+from pcss_unet_tpu_torch.utils.profiling import span
 
 
 def _padded_chain(sizes: tuple[int, ...], rows: int, cols: int) -> np.ndarray:
@@ -115,11 +116,12 @@ def _block_chw(x, p, w, *, taps: str, dtype, residual=None):
     """Folded ConvBlock through the K2 kernel, no layout change.  Pad-column
     re-zeroing and the additive skip run in the kernel's epilogue."""
     dev = x.device
-    ka = _param(p["conv_a"]["kernel"], dev).to(dtype)           # [3,3,Cin,Cm]
-    w1 = ka.permute(0, 1, 3, 2).reshape(9, ka.shape[3], ka.shape[2])
-    w2 = _param(p["conv_b"]["kernel"], dev)[0, 0].T.to(dtype)
-    b1 = _param(p["conv_a"]["bias"], dev).float()[:, None]
-    b2 = _param(p["conv_b"]["bias"], dev).float()[:, None]
+    with span("ops.weight_prep"):
+        ka = _param(p["conv_a"]["kernel"], dev).to(dtype)       # [3,3,Cin,Cm]
+        w1 = ka.permute(0, 1, 3, 2).reshape(9, ka.shape[3], ka.shape[2])
+        w2 = _param(p["conv_b"]["kernel"], dev)[0, 0].T.to(dtype)
+        b1 = _param(p["conv_a"]["bias"], dev).float()[:, None]
+        b2 = _param(p["conv_b"]["bias"], dev).float()[:, None]
     return fused_conv_block_chw(
         x.to(dtype), w1, b1, w2, b2, negative_slope=0.2, taps=taps, true_w=w,
         residual=None if residual is None else residual.to(dtype))
@@ -226,15 +228,16 @@ def chw_forward_entered(variables: dict, x: torch.Tensor, w: int, *,
         cout = p["conv_b"]["kernel"].shape[-1]
         t = (taps.get(name, taps.get("*", "stack"))
              if isinstance(taps, dict) else taps)
-        if _chw_fusable(cin, cout, use128_chw):
-            return _block_chw(x, p, cur_w, taps=t, dtype=dtype,
-                              residual=residual)
-        int8_stage = int8 and _int8_stage(cin, cout)
-        if wide == "einsum" or (wide == "auto" and not int8_stage):
-            return _block_chw_plain(x, p, dtype=dtype, residual=residual)
-        out = _to_chw(_block_nhwc_dispatch(_to_nhwc(x, cur_w), p,
-                                           dtype=dtype, int8=int8))
-        return out if residual is None else out + residual
+        with span(f"unet.{name}"):
+            if _chw_fusable(cin, cout, use128_chw):
+                return _block_chw(x, p, cur_w, taps=t, dtype=dtype,
+                                  residual=residual)
+            int8_stage = int8 and _int8_stage(cin, cout)
+            if wide == "einsum" or (wide == "auto" and not int8_stage):
+                return _block_chw_plain(x, p, dtype=dtype, residual=residual)
+            out = _to_chw(_block_nhwc_dispatch(_to_nhwc(x, cur_w), p,
+                                               dtype=dtype, int8=int8))
+            return out if residual is None else out + residual
 
     skips = []
     for i in range(depth - 1):
@@ -245,16 +248,20 @@ def chw_forward_entered(variables: dict, x: torch.Tensor, w: int, *,
     x = any_block(x, f"enc_{depth - 1}", cur_w)
 
     for i, skip in enumerate(reversed(skips)):
-        x = _upsample2x_chw(x, cur_w)
+        with span("unet.resize"):
+            x = _upsample2x_chw(x, cur_w)
         cur_w *= 2
         x = any_block(x, f"dec_{i}", cur_w, residual=skip)
 
     # head: composed up-2×-then-match-down align-corners pair, one matrix
     # per axis (exact fold of the reference's resize chain)
     hh, wp = x.shape[2], x.shape[3]
-    x = _resize_chw(x, (hh, hh * 2, hh), (cur_w, cur_w * 2, cur_w), wp)
+    with span("unet.resize"):
+        x = _resize_chw(x, (hh, hh * 2, hh), (cur_w, cur_w * 2, cur_w), wp)
     x = any_block(x, "dec_final", cur_w)
-    hk = _param(params["head"]["kernel"], x.device)[0, 0].to(dtype).float()
-    x = torch.einsum("co,nchw->nohw", hk, x.float())
-    x = x + _param(params["head"]["bias"], x.device).float()[None, :, None, None]
-    return _exit_nhwc(x.to(dtype), w, out_ch)
+    with span("unet.head"):
+        hk = _param(params["head"]["kernel"], x.device)[0, 0].to(dtype).float()
+        x = torch.einsum("co,nchw->nohw", hk, x.float())
+        x = x + _param(params["head"]["bias"],
+                       x.device).float()[None, :, None, None]
+        return _exit_nhwc(x.to(dtype), w, out_ch)

@@ -50,6 +50,7 @@ from pcss_unet_tpu_torch.models.unet import (UNet, spatial_align,
                                              widths_from_params)
 from pcss_unet_tpu_torch.ops.kernels.fused import (fused_mask_to_u8,
                                                    fused_scrub_standardize)
+from pcss_unet_tpu_torch.utils.profiling import span
 
 __all__ = ["InferenceEngine", "load_variables", "pad_to_multiple",
            "preprocess_plain"]
@@ -210,15 +211,16 @@ class InferenceEngine:
         a new shape costs more than the wait."""
         if torch.is_tensor(frames) and frames.device.type != "cpu":
             return frames.to(self.device)
-        host = torch.as_tensor(frames)
-        if not staged or self.device.type != "cuda":
-            return host.to(self.device)
-        slot = self._staging.take(host.shape, host.dtype)
-        slot.buf.copy_(host)
-        x = slot.buf.to(self.device, non_blocking=True)
-        slot.fence()
-        self._staging.release(slot)
-        return x
+        with span("engine.upload"):
+            host = torch.as_tensor(frames)
+            if not staged or self.device.type != "cuda":
+                return host.to(self.device)
+            slot = self._staging.take(host.shape, host.dtype)
+            slot.buf.copy_(host)
+            x = slot.buf.to(self.device, non_blocking=True)
+            slot.fence()
+            self._staging.release(slot)
+            return x
 
     def _preprocess(self, x: torch.Tensor, fused: bool) -> torch.Tensor:
         """Input scrub + standardization in float32, [N, H, W, C]
@@ -242,15 +244,20 @@ class InferenceEngine:
         resizes first).  ``staged``: upload as ``_upload`` says."""
         x = self._upload(frames, staged).float()
         if plain:
-            return self.plain_model(self._preprocess(x, fused=False))
+            with span("engine.entry"):
+                x = self._preprocess(x, fused=False)
+            return self.plain_model(x)
         _, h, w, _ = x.shape
         if self.means is not None and not (h % 2 or w % 2):
-            xe = fused_scrub_standardize(x, self.means, self.stds,
-                                         out_dtype=self._dtype, entry=self.layout)
+            with span("engine.entry"):
+                xe = fused_scrub_standardize(x, self.means, self.stds,
+                                             out_dtype=self._dtype,
+                                             entry=self.layout)
             if self.layout == "chw":
                 return chw_forward_entered(self.variables, xe, w, **self._chw_kw)
             return self.model.forward_entered(xe)
-        x = self._preprocess(x, fused=True)
+        with span("engine.entry"):
+            x = self._preprocess(x, fused=True)
         if self.layout == "chw":
             return chw_forward(self.variables, x, **self._chw_kw)
         return self.model(x)
@@ -364,7 +371,9 @@ class InferenceEngine:
         tensor on any device; moved to the engine's) → masks on the
         engine's device, scrubbed and clipped to [0, 1].  ``plain=True``
         runs the plain graph, which reaches no kernel."""
-        return self._postprocess(self._forward(frames, plain))
+        out = self._forward(frames, plain)
+        with span("engine.exit"):
+            return self._postprocess(out)
 
     @torch.inference_mode()
     def render_u8(self, frames) -> torch.Tensor:
@@ -373,7 +382,10 @@ class InferenceEngine:
         forward's mask as it comes (the same codes as after
         ``_postprocess``).  On the card it returns once the work is
         queued: host frames go up through pinned buffers."""
-        return fused_mask_to_u8(self._forward(frames, staged=True))
+        with span("engine.render_u8"):
+            out = self._forward(frames, staged=True)
+            with span("engine.exit"):
+                return fused_mask_to_u8(out)
 
     def __call__(self, frames: np.ndarray) -> np.ndarray:
         frames = np.asarray(frames, np.float32)

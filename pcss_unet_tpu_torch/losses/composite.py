@@ -26,6 +26,7 @@ from pcss_unet_tpu_torch.losses.extras import (high_freq_loss,
 from pcss_unet_tpu_torch.losses.perturbation import perturbation_loss
 from pcss_unet_tpu_torch.losses.ssim import ssim_loss
 from pcss_unet_tpu_torch.losses.vgg import PerceptualLoss
+from pcss_unet_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -82,8 +83,9 @@ def standard_loss(bundle: LossBundle, output: torch.Tensor,
     """α·L1 + (1−α)·VGG (+ gated extras).  → (total, components).
     ``group``: this rank's shard of a process group's batch; ``rows``: its
     row split (``base_terms``)."""
-    terms = bundle.base_terms(output, target, group, rows)
-    total = bundle._blend(terms)
+    with span("loss.base"):
+        terms = bundle.base_terms(output, target, group, rows)
+        total = bundle._blend(terms)
     terms["total_loss"] = total
     return total, terms
 
@@ -99,14 +101,16 @@ def enhanced_loss(bundle: LossBundle, apply_fn: Callable,
     mirroring pert_loss.py:149.  ``generator`` / ``noise``: the
     perturbation's noise source (``perturbation_loss``); ``group``: this
     rank's shard of a process group's batch; ``rows``: its row split."""
-    terms = bundle.base_terms(output, target, group, rows)
-    total = bundle._blend(terms)
+    with span("loss.base"):
+        terms = bundle.base_terms(output, target, group, rows)
+        total = bundle._blend(terms)
     if training and bundle.perturb_weight > 0:
-        pert = perturbation_loss(apply_fn, inputs, output,
-                                 count=bundle.perturbation_count,
-                                 generator=generator, noise=noise,
-                                 group=group, rows=rows)
-        total = total + bundle.perturb_weight * pert
+        with span("loss.perturb"):
+            pert = perturbation_loss(apply_fn, inputs, output,
+                                     count=bundle.perturbation_count,
+                                     generator=generator, noise=noise,
+                                     group=group, rows=rows)
+            total = total + bundle.perturb_weight * pert
         terms["perturbation_loss"] = pert
     else:
         terms["perturbation_loss"] = torch.zeros((), device=output.device)

@@ -31,6 +31,7 @@ import torch
 
 from pcss_unet_tpu_torch.models.vgg import (DEFAULT_TAP_WEIGHTS, DEFAULT_TAPS,
                                            load_vgg_params, vgg_from_params)
+from pcss_unet_tpu_torch.utils.profiling import span
 
 VGG_MEAN = 0.485   # customLoss.py:39
 VGG_STD = 0.229    # customLoss.py:40
@@ -89,8 +90,9 @@ class PerceptualLoss:
                  rows=None) -> torch.Tensor:
         """``rows``: output and target are this rank's row shards
         (``parallel/spatial.py::RowShard``)."""
-        if self.grad:
-            return self._loss(output, target, rows)
-        # reference's gradient-dead VGG branch (customLoss.py:69-71, 90)
-        with torch.no_grad():
-            return self._loss(output, target, rows)
+        with span("loss.vgg"):
+            if self.grad:
+                return self._loss(output, target, rows)
+            # reference's gradient-dead VGG branch (customLoss.py:69-71, 90)
+            with torch.no_grad():
+                return self._loss(output, target, rows)

@@ -88,6 +88,7 @@ from pcss_unet_tpu_torch.ops.resize import (apply_matrix, interp_matrix,
 from pcss_unet_tpu_torch.parallel.spatial import (conv2d_rows, rows_matrix,
                                                   upsample2x_rows)
 from pcss_unet_tpu_torch.utils.distributed import all_reduce_sum
+from pcss_unet_tpu_torch.utils.profiling import span
 
 
 ACTIVATIONS = ("leaky_relu", "relu", "gelu")
@@ -266,12 +267,13 @@ class ConvBlock(nn.Module):
             self.route, out = hit
             return out
         if self._fusable(x):
-            w1 = self.conv_a.weight.permute(2, 3, 0, 1).reshape(9, cin, cin)
+            with span("ops.weight_prep"):
+                w1 = (self.conv_a.weight.permute(2, 3, 0, 1).reshape(9, cin, cin)
+                      .to(self.dtype))
+                w2 = self.conv_b.weight[:, :, 0, 0].to(self.dtype)
             self.route = "fused_conv_block_nhwc"
-            return fused_conv_block_nhwc(
-                xh, w1.to(self.dtype), b1[:, None],
-                self.conv_b.weight[:, :, 0, 0].to(self.dtype), b2[:, None],
-                negative_slope=0.2)
+            return fused_conv_block_nhwc(xh, w1, b1[:, None], w2, b2[:, None],
+                                         negative_slope=0.2)
         return None
 
     def forward(self, x: torch.Tensor, rows=None) -> torch.Tensor:
@@ -506,55 +508,64 @@ class UNet(nn.Module):
         g_half, a_half = (None, None) if window is None else (window[0] // 2,
                                                               window[1] // 2)
         depth = len(self.encoder_widths)
+
+        def run(name, h):
+            with span(f"unet.{name}"):
+                return block(name, h)
+
         skips = []
         for i in range(depth - 1):
-            x = block(f"enc_{i}", x)
+            x = run(f"enc_{i}", x)
             skips.append(x)
             x = _pool2x(x)
-        x = block(f"enc_{depth - 1}", x)
+        x = run(f"enc_{depth - 1}", x)
         for i, skip in enumerate(reversed(skips)):
             hh, ww = x.shape[2:]
-            if rows is not None:
-                x = upsample2x_rows(x, rows)
-                x = _resize_nchw(x, (hh * 2, skip.shape[3]))  # W re-match
-            elif a_half is None:
-                x = _resize_nchw(x, (hh * 2, ww * 2))
-                x = _resize_nchw(x, tuple(skip.shape[2:]))   # size re-match
-            else:
-                # the frame's align-corners coefficients, not the window's
-                scale = 2 ** (depth - 1 - i)
-                x = upsample2x_window(x, g_half // scale, a_half // scale,
-                                      axes=(2, 3))
-                if x.shape[2:] != skip.shape[2:]:
-                    raise ValueError(
-                        "window mode requires pooling-aligned sizes (decoder "
-                        f"level {i}: {tuple(x.shape[2:])} vs "
-                        f"{tuple(skip.shape[2:])})")
-            x = block(f"dec_{i}", x) + skip
+            with span("unet.resize"):
+                if rows is not None:
+                    x = upsample2x_rows(x, rows)
+                    x = _resize_nchw(x, (hh * 2, skip.shape[3]))  # W re-match
+                elif a_half is None:
+                    x = _resize_nchw(x, (hh * 2, ww * 2))
+                    x = _resize_nchw(x, tuple(skip.shape[2:]))   # size re-match
+                else:
+                    # the frame's align-corners coefficients, not the window's
+                    scale = 2 ** (depth - 1 - i)
+                    x = upsample2x_window(x, g_half // scale, a_half // scale,
+                                          axes=(2, 3))
+                    if x.shape[2:] != skip.shape[2:]:
+                        raise ValueError(
+                            "window mode requires pooling-aligned sizes "
+                            f"(decoder level {i}: {tuple(x.shape[2:])} vs "
+                            f"{tuple(skip.shape[2:])})")
+            x = run(f"dec_{i}", x) + skip
         hh, ww = x.shape[2:]
         th, tw = skips[0].shape[2:]
         # the head's up-2×-then-match-down resize pair, folded into one
         # matrix per axis (exact: a composition of linear maps)
-        if a_half is not None:
-            # the frame's th == hh
-            x = resize_rows_window(x, (g_half, g_half * 2, g_half),
-                                   (ww, ww * 2, tw), a_half, a_half, axes=(2, 3))
-        else:
-            n = 1 if rows is None else rows.count      # the frame's rows
-            for axis, sizes in ((2, (hh * n, hh * n * 2, th * n)),
-                                (3, (ww, ww * 2, tw))):
-                if np.array_equal(resize_chain(sizes),
-                                  np.eye(sizes[0], dtype=np.float32)):
-                    continue
-                if axis == 2 and rows is not None:
-                    x = rows_matrix(x, resize_chain, (sizes,), rows, axis)
-                else:
-                    x = apply_matrix(x, matrix_on(x.device, resize_chain, sizes),
-                                     axis)
-        x = block("dec_final", x)
-        x = _conv(self.head, x, self.dtype)     # 1×1: local on a row shard
-        x = pixel_shuffle_nhwc(x.permute(0, 2, 3, 1), 2)
-        return torch.sigmoid(x.float())
+        with span("unet.resize"):
+            if a_half is not None:
+                # the frame's th == hh
+                x = resize_rows_window(x, (g_half, g_half * 2, g_half),
+                                       (ww, ww * 2, tw), a_half, a_half,
+                                       axes=(2, 3))
+            else:
+                n = 1 if rows is None else rows.count      # the frame's rows
+                for axis, sizes in ((2, (hh * n, hh * n * 2, th * n)),
+                                    (3, (ww, ww * 2, tw))):
+                    if np.array_equal(resize_chain(sizes),
+                                      np.eye(sizes[0], dtype=np.float32)):
+                        continue
+                    if axis == 2 and rows is not None:
+                        x = rows_matrix(x, resize_chain, (sizes,), rows, axis)
+                    else:
+                        x = apply_matrix(x, matrix_on(x.device, resize_chain,
+                                                      sizes), axis)
+        x = run("dec_final", x)
+        with span("unet.head"):
+            x = _conv(self.head, x, self.dtype)     # 1×1: local on a row shard
+            x = pixel_shuffle_nhwc(x.permute(0, 2, 3, 1), 2)
+            return torch.sigmoid(x.float())
 
 
 def spatial_align(model: UNet) -> int:

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from pcss_unet_tpu_torch.ops.kernels import _build
+from pcss_unet_tpu_torch.utils.profiling import span
 
 _MAX_SMEM = 232448   # bytes of shared memory one block can use on the H100
 MAX_C = 384          # the widest C whose plan fits, on either card kernel
@@ -142,12 +143,14 @@ def _launch(x, w1, b1, w2, b2, negative_slope: float, stream) -> torch.Tensor:
     b2f = b2.float().reshape(-1).contiguous()
     if x.dtype == torch.bfloat16:
         x, mode = _storage(x)
-        w1k, w2k = pack_tc_weights(w1, w2, smem_plan(c, cout)[0])
+        with span("ops.weight_prep"):
+            w1k, w2k = pack_tc_weights(w1, w2, smem_plan(c, cout)[0])
     else:
         # CUDA-core kernel: channels-last float32, weights as given
         x, mode = x.contiguous(), NHWC
-        w1k = _build.aligned(w1.to(x.dtype))                      # [9, C, C]
-        w2k = _build.aligned(w2.to(x.dtype))                      # [C, Cout]
+        with span("ops.weight_prep"):
+            w1k = _build.aligned(w1.to(x.dtype))                  # [9, C, C]
+            w2k = _build.aligned(w2.to(x.dtype))                  # [C, Cout]
     if mode == NHWC:
         out = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
     else:

@@ -20,15 +20,17 @@ from pcss_unet_tpu_torch.ops.kernels.block_int8 import (fused_block_int8_kchunke
                                                         pick_kchunked)
 from pcss_unet_tpu_torch.ops.kernels.convblock128 import (fused_block128_nhwc,
                                                           pick_k_rows_128)
+from pcss_unet_tpu_torch.utils.profiling import span
 
 
 def int8_weights(ka: torch.Tensor, kb: torch.Tensor):
     """HWIO ``ka [3,3,Cin,Cmid]``, ``kb [1,1,Cmid,Cout]`` → the int8 blocks'
     weight operands ``(w1q [9,Cin,Cmid], s1, w2q [Cmid,Cout], s2)``, one
     scale per output channel."""
-    w1q, s1 = quantize_kernel_int8(ka)
-    w2q, s2 = quantize_kernel_int8(kb)
-    return w1q.reshape(9, *w1q.shape[2:]), s1, w2q[0, 0], s2
+    with span("ops.weight_prep"):
+        w1q, s1 = quantize_kernel_int8(ka)
+        w2q, s2 = quantize_kernel_int8(kb)
+        return w1q.reshape(9, *w1q.shape[2:]), s1, w2q[0, 0], s2
 
 
 def block_kernel_nhwc(x: torch.Tensor, ka: torch.Tensor, b1: torch.Tensor,
@@ -55,7 +57,8 @@ def block_kernel_nhwc(x: torch.Tensor, ka: torch.Tensor, b1: torch.Tensor,
             return "fused_block_int8_kchunked", fused_block_int8_kchunked(
                 *args, k_rows=kc[0], c_chunk=kc[1], negative_slope=0.2)
     if block128 and pick_k_rows_128(h, w, cin, cout):
+        with span("ops.weight_prep"):
+            w1, w2 = ka.to(dtype).reshape(9, *ka.shape[2:]), kb[0, 0].to(dtype)
         return "fused_block128_nhwc", fused_block128_nhwc(
-            x, ka.to(dtype).reshape(9, *ka.shape[2:]), b1, kb[0, 0].to(dtype),
-            b2, negative_slope=0.2)
+            x, w1, b1, w2, b2, negative_slope=0.2)
     return None

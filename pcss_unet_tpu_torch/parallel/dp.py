@@ -42,8 +42,8 @@ from torch import nn
 
 from pcss_unet_tpu_torch.losses import LossBundle
 from pcss_unet_tpu_torch.train.state import Optimizer, make_optimizer
-from pcss_unet_tpu_torch.train.step import (_commit, _grad_step, _metrics,
-                                            build_train_step)
+from pcss_unet_tpu_torch.train.step import (_clip, _commit, _grad_step,
+                                            _metrics, build_train_step)
 
 
 def _require_explicit_supported(cfg, fn_name: str) -> None:
@@ -139,8 +139,8 @@ def build_zero1_dp_train_step(cfg, bundle: LossBundle, means, stds,
 
     def train_step(state: Zero1State, x_raw: torch.Tensor, y: torch.Tensor,
                    generator: torch.Generator | None = None) -> dict:
-        params, g, new_stats, terms, total, gnorm, max_norm = grads(
-            state, x_raw, y, generator)
+        params, g, new_stats, terms, total = grads(state, x_raw, y, generator)
+        g, gnorm, max_norm = _clip(cfg, steps_per_epoch, state, g)
         size = state.chunk * world
         mine = slice(r * state.chunk, (r + 1) * state.chunk)
         p_chunk = _flat(params, size)[mine]

@@ -29,8 +29,8 @@ loader through ``prefetch_to_device``.
 
 from __future__ import annotations
 
+import contextlib
 import logging
-import os
 import signal
 import time
 from dataclasses import dataclass, field
@@ -50,6 +50,7 @@ from pcss_unet_tpu_torch.train.schedule import warmup_cosine_schedule
 from pcss_unet_tpu_torch.train.state import TrainState, create_train_state
 from pcss_unet_tpu_torch.train.step import (build_eval_step, build_train_step,
                                             rank_rows)
+from pcss_unet_tpu_torch.utils import profiling
 from pcss_unet_tpu_torch.utils.distributed import gather_rows
 
 
@@ -117,8 +118,9 @@ def fit(cfg, model, train_loader: Loader, val_loader: Loader | None = None,
     """Train ``model`` (the port's UNet, with its current weights, on its
     device) per ``cfg`` over the given loaders.
 
-    ``profile_dir``: a torch.profiler trace (Chrome format) of epoch 0's
-    first batches.  ``install_preemption_handler``: on SIGTERM/SIGINT,
+    ``profile_dir``: a torch.profiler trace (Chrome format, with the
+    program's spans; ``utils/profiling.py::trace``) of epoch 0's first 4
+    batches.  ``install_preemption_handler``: on SIGTERM/SIGINT,
     finish the current step, save a checkpoint, and exit cleanly.
     ``step_hook(host_step, epoch, batch_idx) -> bool``: called after every
     train step; returning True requests a graceful stop through the same
@@ -274,17 +276,11 @@ def fit(cfg, model, train_loader: Loader, val_loader: Loader | None = None,
 
     profiler = None
     if profile_dir:
-        from torch.profiler import ProfilerActivity, profile
-
-        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
-                                         if device.type == "cuda" else [])
-        profiler = profile(activities=acts)
-        profiler.start()
+        profiler = contextlib.ExitStack()
+        profiler.enter_context(profiling.trace(profile_dir))
 
     def finish_profile():
-        profiler.stop()
-        os.makedirs(profile_dir, exist_ok=True)
-        profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        profiler.close()
         logging.info("wrote profiler trace to %s", profile_dir)
 
     first_logged = start_epoch > 0

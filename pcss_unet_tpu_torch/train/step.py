@@ -43,6 +43,7 @@ from pcss_unet_tpu_torch.losses import LossBundle, enhanced_loss, standard_loss
 from pcss_unet_tpu_torch.train.schedule import clip_norm_for_step
 from pcss_unet_tpu_torch.train.state import TrainState
 from pcss_unet_tpu_torch.utils.distributed import rank_slice
+from pcss_unet_tpu_torch.utils.profiling import span
 
 
 def standardize(x: torch.Tensor, means: torch.Tensor,
@@ -86,9 +87,9 @@ def rank_rows(batch: int, rank: int, world: int, accum: int = 1) -> np.ndarray:
 
 def _grad_step(cfg, bundle: LossBundle, means, stds, steps_per_epoch: int,
                teacher, group, rows=None) -> Callable:
-    """The part of the step before the optimizer: → ``grads(state, x_raw,
-    y, generator) -> (params, clipped grads, new running stats, terms,
-    total, gnorm, max_norm)``; see ``build_train_step``."""
+    """The part of the step before the clip: → ``grads(state, x_raw, y,
+    generator) -> (params, grads, new running stats, terms, total)``; see
+    ``build_train_step``."""
     use_perturb = cfg.loss_type == "perturb"
     accum = max(1, int(getattr(cfg, "grad_accum_steps", 1)))
     distill_w = float(cfg.distill_weight)
@@ -97,7 +98,8 @@ def _grad_step(cfg, bundle: LossBundle, means, stds, steps_per_epoch: int,
     spatial = 1 if rows is None else rows.count
 
     def grads_one(state, stats, x_mb, y_mb, gen):
-        """Gradients, new running stats and loss terms for one (micro)batch."""
+        """Gradients, new running stats and loss terms for one (micro)batch
+        of raw inputs ``x_mb``."""
         model = state.model
         b = x_mb.shape[0]
         # drawn for the group's whole (micro)batch, this data index's
@@ -107,14 +109,16 @@ def _grad_step(cfg, bundle: LossBundle, means, stds, steps_per_epoch: int,
         def draw():
             return {k: m[mine] for k, m in model.dropout_masks(
                 b * world // spatial, gen, x_mb.device).items()}
-        masks = draw()
-        pert_masks = draw() if use_perturb else None
-        soft = None
-        if teacher is not None:
-            with torch.no_grad():
-                soft = teacher(x_mb, rows=rows).float()
-        out, new_stats = model.forward_train(x_mb, masks, stats, group=group,
-                                             rows=rows)
+        with span("step.forward"):
+            x_mb = standardize(x_mb, *on(x_mb.device))
+            masks = draw()
+            pert_masks = draw() if use_perturb else None
+            soft = None
+            if teacher is not None:
+                with torch.no_grad():
+                    soft = teacher(x_mb, rows=rows).float()
+            out, new_stats = model.forward_train(x_mb, masks, stats,
+                                                 group=group, rows=rows)
         if use_perturb:
             def pert_apply(xp):
                 # train-mode forward (dropout, batch-stat BN), BN updates
@@ -131,15 +135,15 @@ def _grad_step(cfg, bundle: LossBundle, means, stds, steps_per_epoch: int,
             d = torch.mean((out.float() - soft) ** 2)
             total = total + distill_w * d
             terms = dict(terms, distill_loss=d, total_loss=total)
-        grads = torch.autograd.grad(total, state.params)
+        with span("step.backward"):
+            grads = torch.autograd.grad(total, state.params)
         return list(grads), new_stats, {k: v.detach() for k, v in terms.items()}, \
             total.detach()
 
     def grads(state: TrainState, x_raw: torch.Tensor, y: torch.Tensor,
               generator: torch.Generator | None):
         model = state.model
-        m, s = on(x_raw.device)
-        x = standardize(x_raw.float(), m, s)
+        x = x_raw.float()
         y = y.float()
         params = [p.detach() for p in state.params]
         old_stats = {n: t.detach() for n, t in model.named_buffers()
@@ -169,17 +173,20 @@ def _grad_step(cfg, bundle: LossBundle, means, stds, steps_per_epoch: int,
             total = torch.stack([t for _, t in seq]).mean()
         if group is not None:
             g, terms, total = _all_reduce_mean(g, terms, total, group, world)
-
-        # dynamic global-norm clip (main.py:356-358, 405)
-        gnorm = _global_norm(g)
-        max_norm = clip_norm_for_step(state.step, steps_per_epoch,
-                                      cfg.num_epochs, cfg.grad_clip_norm,
-                                      cfg.grad_clip_decay)
-        scale = torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)
-        g = [t * scale.to(t.dtype) for t in g]
-        return params, g, new_stats, terms, total, gnorm, max_norm
+        return params, g, new_stats, terms, total
 
     return grads
+
+
+def _clip(cfg, steps_per_epoch: int, state, g: list[torch.Tensor]):
+    """The dynamic global-norm clip (main.py:356-358, 405): → (clipped
+    grads, their norm before the clip, the step's max norm)."""
+    gnorm = _global_norm(g)
+    max_norm = clip_norm_for_step(state.step, steps_per_epoch,
+                                  cfg.num_epochs, cfg.grad_clip_norm,
+                                  cfg.grad_clip_decay)
+    scale = torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)
+    return [t * scale.to(t.dtype) for t in g], gnorm, max_norm
 
 
 def _all_reduce_mean(grads, terms, total, group, world):
@@ -296,14 +303,23 @@ def build_train_step(cfg, bundle: LossBundle, means, stds,
 
     def train_step(state: TrainState, x_raw: torch.Tensor, y: torch.Tensor,
                    generator: torch.Generator | None = None) -> dict:
-        params, g, new_stats, terms, total, gnorm, max_norm = grads(
-            state, x_raw, y, generator)
-        updates, new_opt = state.tx.update(g, state.opt_state, params)
-        new_params = torch._foreach_add(params, updates)
-        ok = torch.isfinite(total) & torch.isfinite(gnorm)
-        skipped = _commit(state, ok, new_params, new_stats, new_opt, ema_decay)
-        return _metrics(state, terms, g, gnorm, max_norm, skipped,
-                        per_block_norms)
+        with span("step"):
+            params, g, new_stats, terms, total = grads(state, x_raw, y,
+                                                       generator)
+            with span("step.update"):
+                with span("step.clip"):
+                    g, gnorm, max_norm = _clip(cfg, steps_per_epoch, state, g)
+                with span("step.optimizer"):
+                    updates, new_opt = state.tx.update(g, state.opt_state,
+                                                       params)
+                    new_params = torch._foreach_add(params, updates)
+                with span("step.commit"):
+                    ok = torch.isfinite(total) & torch.isfinite(gnorm)
+                    skipped = _commit(state, ok, new_params, new_stats,
+                                      new_opt, ema_decay)
+                with span("step.metrics"):
+                    return _metrics(state, terms, g, gnorm, max_norm, skipped,
+                                    per_block_norms)
 
     return train_step
 

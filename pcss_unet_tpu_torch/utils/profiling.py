@@ -4,9 +4,16 @@
 The reference has no profiling code; the paper reports a per-layer timing
 analysis (paper.md:139-147) with no shipped implementation (SURVEY.md §5).
 
+- ``span(name)``: the program's named range ``pcss.<name>`` at a layer
+  boundary (the engine's stages, each UNet block and resize, the weight
+  preparation, the train step's phases, the batch gather).  Off by
+  default, it is one shared no-op; ``spans()`` turns it on, and a span is
+  then a ``torch.profiler.record_function``: on the profiler's clock, tied
+  by correlation id to the device work launched inside it, and an NVTX
+  range under ``torch.autograd.profiler.emit_nvtx()``.
 - ``trace(logdir)``: a ``torch.profiler`` context over the host and the
-  card that writes a Chrome trace into ``logdir`` (open it in Perfetto or
-  ``chrome://tracing``).
+  card, with the spans on, that writes a Chrome trace into ``logdir`` (open
+  it in Perfetto or ``chrome://tracing``).
 - ``layer_latency_report(model, variables, shape)``: each encoder and
   decoder ConvBlock timed standalone at the size it sees in the network,
   then the full model, with its FLOP count.
@@ -24,17 +31,43 @@ import numpy as np
 import torch
 
 
+_SPANS_ON = False
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The context of the program's range ``pcss.<name>``: while spans are
+    off (the default), the one shared no-op; while on, a
+    ``torch.profiler.record_function``."""
+    if not _SPANS_ON:
+        return _OFF
+    return torch.profiler.record_function(f"pcss.{name}")
+
+
+@contextlib.contextmanager
+def spans():
+    """Turn the program's spans on while inside; the previous state comes
+    back on exit."""
+    global _SPANS_ON
+    prev, _SPANS_ON = _SPANS_ON, True
+    try:
+        yield
+    finally:
+        _SPANS_ON = prev
+
+
 @contextlib.contextmanager
 def trace(logdir: str):
-    """Profile the host and (where present) the card while inside; the
-    Chrome trace is written to ``logdir/trace.json`` on exit."""
+    """Profile the host and (where present) the card while inside, with
+    the program's spans on; the Chrome trace is written to
+    ``logdir/trace.json`` on exit."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, spans():
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 

@@ -127,6 +127,24 @@ def test_fit_end_to_end_and_resume(packs, tmp_path):
     assert int(result2.state.step) == 8
 
 
+def test_profile_dir_traces_the_step_spans(packs, tmp_path):
+    """``train --profile_dir``: ``utils/profiling.py::trace`` over the first
+    4 batches, with the program's spans on, then off again."""
+    from pcss_unet_tpu_torch.utils import profiling
+
+    cfg = Config(batch_size=2, num_epochs=1, warmup_epochs=1, save_dir="",
+                 log_dir="", vgg_weights_path=os.path.join(packs, "vgg.npz"))
+    fit(cfg, _model(), Loader(PackedDataset(packs, "train"), 2, shuffle=True),
+        None, writer=NullWriter(), profile_dir=str(tmp_path / "prof"),
+        install_preemption_handler=False)
+    assert not profiling._SPANS_ON
+    with open(tmp_path / "prof" / "trace.json") as f:
+        names = [e.get("name") for e in json.load(f)["traceEvents"]]
+    assert names.count("pcss.step") == 4
+    assert names.count("pcss.step.backward") == 4
+    assert names.count("pcss.data.batch") >= 4
+
+
 def _run(packs, ck, hook=None, epochs=2, dropout=0.2):
     cfg = Config(batch_size=2, num_epochs=epochs, warmup_epochs=1,
                  save_frequency=1000, save_dir="", log_dir="",

@@ -3,7 +3,7 @@ against the JAX package's (``tests/test_profiling.py``), on the CPU: the
 per-layer latency report has the JAX report's stages, order, block input
 shapes (N, H, W, C) and output widths; ``compiled_flops`` counts a matmul
 as 2·m·n·k, as XLA's cost analysis does; ``trace`` writes a Chrome
-trace."""
+trace with the program's spans."""
 
 import json
 import os
@@ -15,7 +15,8 @@ from pcss_unet_tpu.models import UNet as JUNet
 from pcss_unet_tpu.utils import profiling as jprof
 from pcss_unet_tpu_torch.models.unet import UNet
 from pcss_unet_tpu_torch.utils.profiling import (compiled_flops,
-                                                 layer_latency_report, trace)
+                                                 layer_latency_report, span,
+                                                 trace)
 
 
 def test_layer_latency_report_matches_the_reference(monkeypatch):
@@ -47,7 +48,10 @@ def test_compiled_flops_counts_a_matmul():
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     with trace(str(tmp_path)):
-        torch.tanh(torch.ones(8)) @ torch.ones(8)
+        with span("unet.head"):         # the program's spans are on inside
+            torch.tanh(torch.ones(8)) @ torch.ones(8)
+    assert span("unet.head") is span("step")        # and off again after
     with open(os.path.join(tmp_path, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert any("tanh" in e.get("name", "") for e in events)
+    assert any(e.get("name") == "pcss.unet.head" for e in events)
