@@ -125,10 +125,16 @@ Then the chain from renders to a trained net, every command through
    the w16 2048×1024 chw+int8 forward, that of K5 (w64 ``dec_0``), K6 (w64
    ``dec_2``) and K2′ (w64 ``enc_0``, ``enc_1``, ``dec_final``) the w64
    1920×1088 NHWC forward; K7, on no model path, runs at the w64 ``dec_1``
-   conv shape [1,272,480,512] → 512.  ``block128_storage``: K6's recorded
-   main-path input (an NHWC view of channels-major storage) reaches the
-   kernel in place, with no copy, and the output comes back channels-major
-   too.  ``weight_prep``: the per-frame int8
+   conv shape [1,272,480,512] → 512.  ``banded_resize`` (the kernel behind
+   ``ops/resize.py::apply_matrix``, with no TPU counterpart) on the w64
+   NHWC forward's eight calls, against the dense product
+   (``apply_matrix_dense``) as its plain version: within one ulp of bf16 at
+   the values' magnitude, and of float32 per addition in the float32 case;
+   its bound is the bytes of x, the output and the band tables.
+   ``block128_storage``: K6's recorded main-path input (channels-last
+   storage, as the resize before it keeps its input's) reaches the kernel
+   in place, with no copy, and the output comes back in the same storage
+   order.  ``weight_prep``: the per-frame int8
    quantization of the w64 int8 blocks' weights.  ``w64_vs_plain``: the w64
    forward through the kernels against the same forward with every kernel
    swapped for its plain version, within twice the plain forward's change
@@ -141,9 +147,10 @@ Then the chain from renders to a trained net, every command through
    against the same engine on the CPU.
 4. ``main_path``: full-width 2048×1024 w16 frames through the chw+int8
    ``render_u8`` with the kernels' launch counters zeroed just before and
-   read just after (per frame: K1 ×1, K2 ×6, K3 ×1, K4 ×1), the time per
-   frame, then one frame under ``torch.profiler`` (device busy and idle
-   share, ``device_launches``: the device kernels, copies and memsets of the
+   read just after (per frame: K1 ×1, K2 ×6, K3 ×1, K4 ×1; the banded
+   resize's launches are printed, and must not be 0), the time per frame,
+   then one frame under ``torch.profiler`` (device busy and idle share,
+   ``device_launches``: the device kernels, copies and memsets of the
    frame, and the device events from K1 to the first block kernel in time
    order).  ``benchmark/run.py --trace 1`` compares such counts between
    two checkouts.
@@ -202,9 +209,10 @@ Then the chain from renders to a trained net, every command through
     write's share of the wall time.
 13. ``export``: the w64 engine's plain graph through ``torch.export`` at
     1088×1920 on the card, loaded from bytes: float32 (TF32 off) within
-    1e-6 of ``run_padded(x, plain=True)``; the bf16 export against the
-    kernel path (max |d| and ms per frame of each); blob size, torch
-    version.
+    1e-6 of ``run_padded(x, plain=True)`` (the trace holds the banded
+    resize's plain version, bit for bit the kernel's); the bf16 export
+    against the kernel path (max |d| and ms per frame of each); blob size,
+    torch version.
 
 14. ``bench``: ``python -m pcss_unet_tpu_torch.bench`` in process
     (streams of 4 and 20 forwards, fastest of 4 dispatches, 3 repeats): one
@@ -717,11 +725,50 @@ def u8_work(args, kw):
     return bound_ms(nbytes(args[0]) + args[0].numel(), 0, 1)
 
 
+def resize_tol(want, args):
+    """Kernel vs the dense product: one ulp of the dtype at the largest
+    magnitude of x and the result (interpolation weights are at most 1 and
+    sum to 1 a row), at float32 one per addition of the band."""
+    import torch
+
+    x, bands = args[0], args[1]
+    mant = {torch.bfloat16: 7, torch.float16: 10, torch.float32: 23}[want.dtype]
+    mag = max(x.float().abs().max().item(), want.float().abs().max().item(), 1e-30)
+    adds = max(bands.width - 1, 1) if want.dtype == torch.float32 else 1
+    return adds * 2.0 ** (math.floor(math.log2(mag)) - mant)
+
+
+def resize_work(args, kw):
+    """x read once, the output written once, the band tables read once."""
+    x, bands, axis = args
+    out = x.numel() // x.shape[axis] * bands.out_size * x.element_size()
+    return bound_ms(nbytes(x, bands.start, bands.weight) + out, 0, 1)
+
+
+@functools.lru_cache(maxsize=64)
+def _dense_of_bands(bands):
+    import torch
+
+    from pcss_unet_tpu_torch.ops.kernels.resize import dense_of
+
+    return torch.as_tensor(dense_of(bands.start.cpu().numpy(), bands.weight.cpu().numpy(),
+                                    bands.in_size), device=bands.start.device)
+
+
+def resize_dense_plain(x, bands, axis):
+    """The dense ``apply_matrix`` product of the matrix the tables describe
+    (its device copy made once per tables)."""
+    from pcss_unet_tpu_torch.ops.resize import apply_matrix_dense
+
+    return apply_matrix_dense(x, _dense_of_bands(bands), axis)
+
+
 def block128_storage(kc128, build, call) -> None:
     """K6 once on its recorded main-path call with the C entry watched: the
-    main path hands over an NHWC view of channels-major storage, which must
-    reach the kernel in place (the same pointer, 16-byte mode) and come back
-    in the same storage order."""
+    main path's input (channels-last storage since the resizes keep their
+    input's layout; an NHWC view of channels-major storage before) must
+    reach the kernel in place (the same pointer, the mode of that storage)
+    and come back in the same storage order."""
     args, kw = call
     seen, real = [], build.call
 
@@ -732,15 +779,17 @@ def block128_storage(kc128, build, call) -> None:
     with swapped([(build, "call", watch)]):
         out = kc128.fused_block128_nhwc(*args, **kw)
     x = args[0]
+    cmajor = x.permute(0, 3, 1, 2).is_contiguous()
     line = {"phase": "block128_storage", "x_shape": list(x.shape),
             "x_strides": list(x.stride()),
-            "x_channels_major": x.permute(0, 3, 1, 2).is_contiguous(),
+            "x_channels_major": cmajor, "x_nhwc": x.is_contiguous(),
             "x_in_place": seen[0][0] == x.data_ptr(), "mode": seen[0][13],
             "out_strides": list(out.stride()),
             "out_channels_major": out.permute(0, 3, 1, 2).is_contiguous()}
     emit(line)
-    if not (line["x_channels_major"] and line["x_in_place"]
-            and line["mode"] == kc128.CMAJOR_VEC and line["out_channels_major"]):
+    want_mode = kc128.CMAJOR_VEC if cmajor else kc128.NHWC
+    if not ((cmajor or line["x_nhwc"]) and line["x_in_place"]
+            and line["mode"] == want_mode and line["out_channels_major"] == cmajor):
         raise AssertionError(f"K6 main-path storage: {line}")
 
 
@@ -830,7 +879,8 @@ def main_path(phase, engine, frames, n_frames, want, card, own):
     exactly ``want[name]`` times per frame (0 if absent)."""
     import torch
 
-    from pcss_unet_tpu_torch.ops.kernels import KERNELS, reset_launch_counts
+    from pcss_unet_tpu_torch.ops.kernels import (KERNELS, banded_resize,
+                                                 reset_launch_counts)
 
     engine.render_u8(frames)            # warm
     torch.cuda.synchronize()
@@ -844,6 +894,9 @@ def main_path(phase, engine, frames, n_frames, want, card, own):
         if count != want.get(name, 0) * n_frames:
             raise AssertionError(f"{phase}: {name} launched {count} times in "
                                  f"{n_frames} frames, want {want.get(name, 0)} each")
+    resize = {"launches_per_frame": banded_resize.launches / n_frames}
+    if not resize["launches_per_frame"]:
+        raise AssertionError(f"{phase}: no banded resize launched")
     out = outs[-1]
     b, h, w, _ = frames.shape
     if (tuple(out.shape) != (b, h, w, 1) or out.dtype != torch.uint8
@@ -851,7 +904,7 @@ def main_path(phase, engine, frames, n_frames, want, card, own):
         raise AssertionError(f"{phase}: bad output {tuple(out.shape)} {out.dtype}")
     line = {"phase": phase, "frames": n_frames, "frame_hw": [h, w],
             "ms_per_frame": frame_ms, "launches": launches,
-            "launches_per_frame_want": want, "card": card}
+            "launches_per_frame_want": want, "banded_resize": resize, "card": card}
     if engine.model is not None:
         line["routes"] = engine.model.routes()
     emit(line)
@@ -1205,8 +1258,10 @@ def export_phase(variables, kw, frames, engine_bf16, card):
     """The w64 serving engine's plain graph exported by ``torch.export`` at
     1088×1920, batch 1, on the card, and loaded from bytes: in float32 with
     TF32 off within 1e-6 of ``run_padded(x, plain=True)`` (the JAX suite's
-    tolerance); the bf16 export against the kernel path (the same engine's
-    ``run_padded``), reported with both ms per frame (CUDA events)."""
+    tolerance; the trace holds the banded resize's plain version, which
+    equals the eager kernel bit for bit); the bf16 export against the
+    kernel path (the same engine's ``run_padded``), reported with both ms
+    per frame (CUDA events)."""
     import torch
 
     from pcss_unet_tpu_torch.infer import (InferenceEngine, export_inference,
@@ -2552,7 +2607,8 @@ def dp_run(loss_type, group, rows, builder=None, steps=DP_STEPS,
     rank's row shard of a (data × spatial) grid, ``parallel/spatial.py``),
     or through ``parallel/dp.py``'s ``builder`` ("explicit" or "zero1").
     → losses, per-step ms, the parameters' changes, the BatchNorm
-    statistics (host numpy) and the peak allocated GB."""
+    statistics (host numpy), the peak allocated GB and the banded resize's
+    launches."""
     import torch
 
     from pcss_unet_tpu_torch.config import load_config
@@ -2562,8 +2618,10 @@ def dp_run(loss_type, group, rows, builder=None, steps=DP_STEPS,
     from pcss_unet_tpu_torch.losses import LossBundle, PerceptualLoss
     from pcss_unet_tpu_torch.models.init import init_train_weights
     from pcss_unet_tpu_torch.models.unet import unet_from_config
+    from pcss_unet_tpu_torch.ops.kernels import banded_resize
     from pcss_unet_tpu_torch.train import build_train_step, create_train_state
 
+    resizes = banded_resize.launches
     cfg = load_config(os.path.join(REPO, "config.ini"), {
         "loss_type": loss_type, "compute_dtype": dtype, "batch_size": DP_BATCH,
         "num_epochs": 2, "warmup_epochs": 0})
@@ -2610,7 +2668,8 @@ def dp_run(loss_type, group, rows, builder=None, steps=DP_STEPS,
                       for n, p in model.named_parameters()},
             "stats": {n: b.detach().double().cpu().numpy()
                       for n, b in model.named_buffers() if "running" in n},
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "resize_launches": banded_resize.launches - resizes}
 
 
 def _cos_ratio(pairs):
@@ -2829,7 +2888,8 @@ def spatial_train_phase(work: str, data: str, single: dict, card: str) -> None:
     2048×1024, bf16, perturb, ``SP_TIMED`` steps, the first dropped): ms
     per step (the slower rank's), each rank's peak allocated memory beside
     one process's, halo exchanges per step and the bytes of the buffers
-    they all-reduce.  Then ``python -m pcss_unet_tpu_torch train
+    they all-reduce.  Each parity rank's banded-resize launches (the kernel
+    on its row shard's cut matrices, in float64) must not be 0.  Then ``python -m pcss_unet_tpu_torch train
     --spatial_parallel 2 --device cuda:0`` in process for one epoch on
     ``data`` (the chain's packs): one set of checkpoints, by rank 0."""
     import pickle
@@ -2872,12 +2932,14 @@ def spatial_train_phase(work: str, data: str, single: dict, card: str) -> None:
                                for r in members[1:]
                                for n, d in members[0][grid]["delta"].items())
         c["peak_gb_per_rank"] = [r[grid]["peak_gb"] for r in members]
+        c["resize_launches_per_rank"] = [r[grid]["resize_launches"] for r in members]
         line["parity"][grid] = c
         ok &= (c["loss_max_rel"] <= 1e-4
                and min(c["delta_worst_cos"], c["bn_stat_change_worst_cos"]) > 0.995
                and max(c["delta_worst_norm_ratio_err"],
                        c["bn_stat_change_worst_norm_ratio_err"]) < 2e-2
-               and c["pre_bn_bias_delta_max"] < 1e-3 and c["ranks_agree"])
+               and c["pre_bn_bias_delta_max"] < 1e-3 and c["ranks_agree"]
+               and min(c["resize_launches_per_rank"]) > 0)
     one = dp_run("perturb", None, torch.arange(DP_BATCH), dtype="bfloat16",
                  steps=SP_TIMED, hw=SP_HW)
     timed = [r["timed"] for r in ranks[:2]]
@@ -2932,6 +2994,7 @@ def main() -> int:
     from pcss_unet_tpu_torch.io import exr
     from pcss_unet_tpu_torch.models import unet as unet_mod
     from pcss_unet_tpu_torch.models.init import seeded_variables
+    from pcss_unet_tpu_torch.ops import resize as resize_mod
     from pcss_unet_tpu_torch.ops.kernels import KERNELS, _build
     from pcss_unet_tpu_torch.ops.kernels import block_int8 as kb8
     from pcss_unet_tpu_torch.ops.kernels import conv3x3_int8 as kc7
@@ -2939,6 +3002,7 @@ def main() -> int:
     from pcss_unet_tpu_torch.ops.kernels import convblock128 as kc128
     from pcss_unet_tpu_torch.ops.kernels import deploy
     from pcss_unet_tpu_torch.ops.kernels import fused as kfu
+    from pcss_unet_tpu_torch.ops.kernels import resize as kres
     from pcss_unet_tpu_torch.parallel import make_mesh
 
     if not torch.cuda.is_available():
@@ -3000,7 +3064,10 @@ def main() -> int:
                 "nhwc": (unet_mod, "fused_conv_block_nhwc"),
                 "int8": (deploy, "fused_block_int8_nhwc"),
                 "kchunked": (deploy, "fused_block_int8_kchunked"),
-                "block128": (deploy, "fused_block128_nhwc")}
+                "block128": (deploy, "fused_block128_nhwc"),
+                "resize": (resize_mod, "banded_resize")}
+    # (the resize kernel runs on both sides of w64_vs_plain: it is no TPU
+    # kernel's port, and is held to the dense product on its own)
     plain = [(*wrappers["scrub"], kfu.scrub_standardize_plain),
              (*wrappers["u8"], kfu.mask_to_u8_plain),
              (*wrappers["convblock"],
@@ -3094,7 +3161,7 @@ def main() -> int:
     frames64 = torch.from_numpy(f64).cuda()
     calls["w64_nhwc"] = record_calls(lambda: e64_nhwc.render_u8(frames64), [
         (*wrappers[k], k) for k in ("scrub", "nhwc", "int8", "kchunked",
-                                    "block128", "u8")])
+                                    "block128", "u8", "resize")])
     calls["w64_chw"] = record_calls(lambda: e64_chw.render_u8(frames64), [
         (*wrappers[k], k) for k in ("scrub", "convblock", "int8", "kchunked",
                                     "u8")])
@@ -3195,6 +3262,12 @@ def main() -> int:
                      conv_nhwc_work, f32(first("nhwc", "w64_nhwc", 1)), own),
     ]
     block128_storage(kc128, _build, first("block128", "w64_nhwc"))
+    # the banded resize: the w64 frame's eight calls, against the dense
+    # product; float32 on the head's W chain
+    resize_entry = check_kernel(
+        "banded_resize", kres.banded_resize, resize_dense_plain,
+        on("resize", "w64_nhwc"), resize_tol, resize_work,
+        f32(first("resize", "w64_nhwc", -1)), own)
     del calls
     # a yardstick for K7, not the same function: cuDNN's bf16 conv at its shape
     wbf = wk7.to(torch.bfloat16).permute(2, 1, 0).reshape(512, 512, 3, 3).contiguous()
@@ -3296,6 +3369,9 @@ def main() -> int:
         e["source"], e["replaces"] = sources[e["name"]]
         e["launches"] = sum(r[e["name"]] for r in runs)
     emit({"library_ms_null_because": NO_LIBRARY})
+    emit({"resize_kernel": dict(resize_entry, route="cuda",
+                                source="pcss_unet_tpu_torch/csrc/resize.cu",
+                                replaces="none (the dense apply_matrix product)")})
     emit({"kernels": [{k: e[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -6,6 +6,9 @@ kernel (or raises) for a CUDA tensor, and counts kernel launches in a
 ``launches`` attribute.  Sources live in ``pcss_unet_tpu_torch/csrc/`` and
 are built by ``_build`` at first use.  ``deploy`` turns a folded block's
 weights into the int8 and 128-channel kernels' operands for both forwards.
+``resize`` holds the banded resize behind ``ops/resize.py::apply_matrix``,
+a kernel with no TPU counterpart: it is not in ``KERNELS`` (the ported
+ones), and ``reset_launch_counts`` zeroes its ``launches`` too.
 """
 
 from pcss_unet_tpu_torch.ops.kernels.block_int8 import (fused_block_int8_kchunked,
@@ -16,6 +19,7 @@ from pcss_unet_tpu_torch.ops.kernels.convblock import (fused_conv_block_chw,
 from pcss_unet_tpu_torch.ops.kernels.convblock128 import fused_block128_nhwc
 from pcss_unet_tpu_torch.ops.kernels.fused import (fused_mask_to_u8,
                                                    fused_scrub_standardize)
+from pcss_unet_tpu_torch.ops.kernels.resize import banded_resize
 
 KERNELS = (fused_scrub_standardize, fused_conv_block_chw,
            fused_block_int8_nhwc, fused_mask_to_u8, fused_block_int8_kchunked,
@@ -25,3 +29,4 @@ KERNELS = (fused_scrub_standardize, fused_conv_block_chw,
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    banded_resize.launches = 0

@@ -45,6 +45,7 @@ _SIGNATURES = {
                            _I, _P),
     "pcss_conv3x3_int8_nhwc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _F, _I, _I, _I, _P),
+    "pcss_band_resize": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

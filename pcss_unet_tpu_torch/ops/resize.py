@@ -3,14 +3,19 @@ contractions (port of ``pcss_unet_tpu/ops/resize.py``).
 
 Each axis resize is a product with a host-built interpolation matrix
 (``interp_matrix``: two nonzeros per row), and chains of resizes fold into
-one matrix per axis (``compose_resize_matrices``).  The JAX package bands
-these products to save TPU matrix-unit work (``banded_apply``); that is
-exact against the dense product, so the port keeps the dense one.
+one matrix per axis (``compose_resize_matrices``).  Every such matrix is
+banded.  On a card ``apply_matrix`` runs the product as a stencil over each
+row's band, the kernel of ``ops/kernels/resize.py``, with the band tables
+built on the host and kept on the device (``matrix_on``, ``Matrix``); the
+JAX package bands the same products for the TPU's matrix unit
+(``banded_apply``).  On the CPU the dense product runs.
 
 Numerics follow the reference: at a low-precision working dtype the matrix
 is cast to that dtype first, the product accumulates in float32 and the
 result is cast back; at float32 the product runs at full float32 precision;
 at float64 it accumulates in float64 and the result is rounded to float32.
+The banded kernel keeps those cast points; it differs from the dense
+product only in the order of its sums.
 
 Public layout is NHWC (axes 1 and 2), like the reference.
 """
@@ -18,9 +23,14 @@ Public layout is NHWC (axes 1 and 2), like the reference.
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import torch
+
+from pcss_unet_tpu_torch.ops.kernels import resize as kresize
+from pcss_unet_tpu_torch.ops.kernels.resize import banded_resize
 
 
 @functools.lru_cache(maxsize=256)
@@ -60,40 +70,89 @@ def compose_resize_matrices(sizes_h: tuple[int, ...],
     return resize_chain(tuple(sizes_h)), resize_chain(tuple(sizes_w))
 
 
-@functools.lru_cache(maxsize=256)
-def _matrix_cached(device: torch.device, build, args: tuple) -> torch.Tensor:
-    # a normal tensor even when first asked for under inference_mode, so a
-    # later training forward in the process can save it for backward
+@dataclass(frozen=True)
+class Matrix:
+    """The host matrix ``build(*args)`` [out, in], which depends on its
+    (hashable) arguments alone, for ``apply_matrix`` on ``device``: the
+    host array on the CPU, its band tables on a card."""
+
+    device: torch.device
+    build: Callable[..., np.ndarray]
+    args: tuple
+
+    def host(self) -> np.ndarray:
+        return self.build(*self.args)
+
+    def bands(self, dtype: torch.dtype, transposed: bool = False) -> kresize.Bands:
+        """The band tables of the matrix (or of its transpose) rounded to
+        ``dtype``, on the device: built and copied once per key, because a
+        copy from pageable host memory makes the host wait for the device;
+        not cached while tracing (``torch.export``: the traced constant is
+        not a real tensor)."""
+        key = (self.device, self.build, self.args, dtype, transposed)
+        return _bands(*key) if torch.compiler.is_compiling() else _bands_cached(*key)
+
+
+def _bands(device: torch.device, build, args: tuple, dtype: torch.dtype,
+           transposed: bool) -> kresize.Bands:
+    m = build(*args)
+    bands = kresize.bands_on(m.T if transposed else m, dtype, device)
+    if bands is None:
+        raise ValueError(
+            f"{getattr(build, '__name__', build)}{args}{'ᵀ' if transposed else ''}: "
+            f"a row spans more than {kresize.MAX_BAND} columns, wider than "
+            "the banded resize kernel takes")
+    return bands
+
+
+@functools.lru_cache(maxsize=512)
+def _bands_cached(*key) -> kresize.Bands:
+    # normal tensors even when first asked for under inference_mode, so a
+    # later training forward in the process can use them in backward
     with torch.inference_mode(False):
-        return torch.as_tensor(build(*args), device=device)
+        return _bands(*key)
 
 
-def matrix_on(device: torch.device, build, *args) -> torch.Tensor:
-    """``build(*args)``, a host matrix that depends on its (hashable)
-    arguments alone, as a tensor on ``device``: copied to a card once per
-    arguments, because a copy from pageable host memory makes the host wait
-    for the device, and a forward that copied its matrices on every call
-    would wait on every one.  Not cached on the CPU (the tensor shares the
-    host array) nor while tracing (``torch.export``: the traced constant is
-    not a real tensor)."""
-    if device.type == "cpu" or torch.compiler.is_compiling():
-        return torch.as_tensor(build(*args), device=device)
-    return _matrix_cached(device, build, args)
+def matrix_on(device: torch.device, build, *args) -> Matrix:
+    """``build(*args)`` for ``apply_matrix`` on ``device`` (see ``Matrix``)."""
+    return Matrix(torch.device(device), build, args)
 
 
-def apply_matrix(x: torch.Tensor, m: np.ndarray | torch.Tensor,
+def apply_matrix(x: torch.Tensor, m: np.ndarray | Matrix,
                  axis: int) -> torch.Tensor:
     """out[..., o, ...] = Σ_i m[o, i]·x[..., i, ...] along ``axis``, with the
     reference's cast points: the matrix in x's dtype, float32 accumulation,
-    the result back in x's dtype.  ``m`` is a host array or a tensor on x's
-    device (``matrix_on``)."""
+    the result back in x's dtype.  On the CPU, the dense product
+    (``apply_matrix_dense``) of a host array or a ``matrix_on`` matrix.  On
+    a card, the banded kernel on the band tables of a ``matrix_on`` matrix
+    (``ops/kernels/resize.py``; differentiable, in x's memory order), or
+    its plain version while tracing; a matrix whose band is wider than
+    ``MAX_BAND`` raises there."""
+    axis %= x.dim()
+    if x.device.type != "cuda":
+        return apply_matrix_dense(x, m.host() if isinstance(m, Matrix) else m, axis)
+    if not isinstance(m, Matrix):
+        raise TypeError("on a card apply_matrix takes a matrix_on matrix, "
+                        f"got {type(m).__name__}")
+    fwd = m.bands(x.dtype)
+    if torch.compiler.is_compiling():
+        return kresize.banded_resize_plain(x, fwd, axis)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return kresize.BandedResize.apply(x, fwd, m.bands(x.dtype, True), axis)
+    return banded_resize(x, fwd, axis)
+
+
+def apply_matrix_dense(x: torch.Tensor, m: np.ndarray | torch.Tensor,
+                       axis: int) -> torch.Tensor:
+    """``apply_matrix`` as one dense product on any device: the plain
+    version the banded kernel is held to."""
+    axis %= x.dim()
     dtype = x.dtype
     # float64 (the training-parity nets) accumulates in float64 and rounds
     # the product to float32, as the reference's float32 result type does
     acc = torch.float64 if dtype == torch.float64 else torch.float32
     mt = torch.as_tensor(m, device=x.device).to(dtype).to(acc)
     xa = x.to(acc)
-    axis %= x.dim()
     if axis == x.dim() - 1:
         out = torch.matmul(xa, mt.T)
     elif axis == x.dim() - 2:

@@ -12,6 +12,7 @@ exactly: int8 sums are exact in any order and the kernels take every float32
 step as their plain versions do.
 """
 
+import math
 import os
 
 import numpy as np
@@ -24,6 +25,7 @@ from pcss_unet_tpu_torch.ops.kernels import conv3x3_int8 as kc7
 from pcss_unet_tpu_torch.ops.kernels import convblock as kcb
 from pcss_unet_tpu_torch.ops.kernels import convblock128 as kc128
 from pcss_unet_tpu_torch.ops.kernels import fused as kfu
+from pcss_unet_tpu_torch.ops.kernels import resize as kres
 
 pytestmark = pytest.mark.cuda
 
@@ -196,6 +198,262 @@ def test_launch_error_raises(dev):
         _build.call("pcss_convblock_chw", None, None, None, None, None, None,
                     None, 1, 256, 16, 16, 8, 128, 128, 0.2, 1,
                     torch.cuda.current_stream().cuda_stream)
+
+
+def test_band_resize_launch_error_raises(dev):
+    """The banded resize's C entry refuses a band wider than 4 with a CUDA
+    error, which surfaces as a RuntimeError."""
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.call("pcss_band_resize", None, None, None, None, 1, 8, 16, 8,
+                    9, 1, kres.VECTOR, torch.cuda.current_stream().cuda_stream)
+
+
+# ------------------------------------------------------------ banded resize
+# the w64 1088x1920 frame's eight resize calls: (input shape, axis, matrix)
+W64_RESIZES = {
+    "dec0_h": ((1, 1024, 68, 120), 2, ("up", 68)),
+    "dec0_w": ((1, 1024, 136, 120), 3, ("up", 120)),
+    "dec1_h": ((1, 512, 136, 240), 2, ("up", 136)),
+    "dec1_w": ((1, 512, 272, 240), 3, ("up", 240)),
+    "dec2_h": ((1, 128, 272, 480), 2, ("up", 272)),
+    "dec2_w": ((1, 128, 544, 480), 3, ("up", 480)),
+    "head_h": ((1, 64, 544, 960), 2, ("chain", 544)),
+    "head_w": ((1, 64, 544, 960), 3, ("chain", 960)),
+}
+
+
+def _w64_matrix(kind, n):
+    """(build, args) of the call's matrix, as the forward asks ``matrix_on``."""
+    from pcss_unet_tpu_torch.ops.resize import interp_matrix, resize_chain
+
+    return (interp_matrix, (n, 2 * n)) if kind == "up" else (resize_chain,
+                                                             ((n, 2 * n, n),))
+
+
+def _ulp_at(mag, dtype):
+    mant = {torch.bfloat16: 7, torch.float16: 10, torch.float32: 23}[dtype]
+    e = torch.floor(torch.log2(mag.float().abs().clamp(min=torch.finfo(dtype).tiny)))
+    return torch.exp2(e - mant)
+
+
+def _within_ulp(got, want, x, m, axis, ulps=1):
+    """|got − want| within ``ulps`` ulp of the dtype at the sum's magnitude
+    Σ|m||x| (at float32, that many per addition: band width − 1), as two
+    orders of one float32 sum may differ → the share of elements that
+    differ."""
+    from pcss_unet_tpu_torch.ops.resize import apply_matrix_dense
+
+    mr = np.abs(torch.as_tensor(m).to(x.dtype).float().numpy())
+    mag = apply_matrix_dense(x.detach().abs().float(), mr, axis)
+    adds = kres.band_tables(m, x.dtype)[1].shape[1] - 1
+    tol = ulps * _ulp_at(mag, x.dtype) * (max(adds, 1) if x.dtype == torch.float32 else 1)
+    d = (got.float() - want.float()).abs()
+    assert torch.all(d <= tol), (d / tol).max().item()
+    return (d > 0).float().mean().item()
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("call", sorted(W64_RESIZES))
+def test_banded_resize_kernel_w64_shapes(dev, gen, call, dtype, layout):
+    """apply_matrix on the card (the banded kernel) against the dense
+    product, at each of the w64 frame's eight resize shapes: the forward,
+    and the Function's gradient against autograd through the dense product,
+    each within one ulp of the dtype; the kernel's output and gradient keep
+    the input's layout, and equal the plain banded version bit for bit."""
+    from pcss_unet_tpu_torch.ops import resize as tres
+
+    shape, axis, (kind, n) = W64_RESIZES[call]
+    build, args = _w64_matrix(kind, n)
+    m = build(*args)
+    fmt = (torch.channels_last if layout == "channels_last"
+           else torch.contiguous_format)
+    x = torch.from_numpy(gen.standard_normal(shape).astype(np.float32)).to(
+        dev, dtype).contiguous(memory_format=fmt)
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    before = kres.banded_resize.launches
+    got = tres.apply_matrix(xa, tres.matrix_on(dev, build, *args), axis)
+    assert kres.banded_resize.launches - before == 1
+    want = tres.apply_matrix_dense(xb, m, axis)
+    assert got.is_contiguous(memory_format=fmt)
+    share = _within_ulp(got, want, x, m, axis)
+    fwd = kres.bands_on(m, dtype, dev)
+    assert torch.equal(got, kres.banded_resize_plain(x, fwd, axis))
+    g = torch.from_numpy(gen.standard_normal(want.shape).astype(np.float32)).to(
+        dev, dtype).contiguous(memory_format=fmt)
+    (ga,) = torch.autograd.grad(got, xa, g)
+    (gb,) = torch.autograd.grad(want, xb, g)
+    assert kres.banded_resize.launches - before == 2
+    assert ga.is_contiguous(memory_format=fmt)
+    share_g = _within_ulp(ga, gb, g, m.T, axis)
+    print(f"{call} {dtype} {layout}: differ {share:.4f} forward, {share_g:.4f} gradient")
+
+
+# beyond the w64 frame: (matrix, input shape, axis) with rows-mode tiles
+# that end inside a lane's 8 outputs (l_out > 256, l_out % 8 != 0), rows
+# that are not whole 16-byte packs, the head's chain on such a row, and the
+# windows' and row shards' cut matrices (halo columns past the frame)
+BAND_CASES = {
+    "rows_up_250": (("interp_matrix", (250, 500)), (2, 8, 5, 250), 3),
+    "rows_up_242": (("interp_matrix", (242, 484)), (2, 8, 5, 242), 3),
+    "rows_up_121": (("interp_matrix", (121, 242)), (2, 8, 5, 121), 3),
+    "rows_chain_250": (("resize_chain", ((250, 500, 250),)), (2, 8, 5, 250), 3),
+    "rows_down_500": (("interp_matrix", (500, 250)), (1, 4, 3, 500), 3),
+    "cols_window_up": (("_window_of", ("interp_matrix", (68, 136), (40, 96), (19, 49))),
+                       (1, 16, 30, 40), 2),
+    "cols_window_chain": (("_window_of", ("resize_chain", ((68, 136, 68),), (10, 40),
+                                          (8, 42))), (1, 16, 34, 40), 2),
+}
+
+
+def _band_case_matrix(spec):
+    from pcss_unet_tpu_torch.ops import resize as tres
+
+    name, args = spec
+    if name == "_window_of":
+        inner, *rest = args
+        args = (getattr(tres, inner), *rest)
+    return getattr(tres, name), tuple(args)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(BAND_CASES))
+def test_banded_resize_kernel_partial_tiles_and_cut_matrices(dev, gen, case, dtype):
+    """apply_matrix on the card at the shapes the w64 frame does not reach:
+    the forward and the Function's gradient equal the plain banded version
+    bit for bit (float64 too: float64 sums rounded to float32), and lie
+    within one ulp of the dense product."""
+    from pcss_unet_tpu_torch.ops import resize as tres
+
+    spec, shape, axis = BAND_CASES[case]
+    build, args = _band_case_matrix(spec)
+    m = build(*args)
+    x = torch.from_numpy(gen.standard_normal(shape)).to(dev, dtype)
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    mat = tres.matrix_on(dev, build, *args)
+    got = tres.apply_matrix(xa, mat, axis)
+    assert torch.equal(got, kres.banded_resize_plain(x, mat.bands(dtype), axis))
+    want = tres.apply_matrix_dense(xb, m, axis)
+    # float64 results are float32 values: held at float32's ulp
+    t = torch.float32 if dtype == torch.float64 else dtype
+    _within_ulp(got.to(t), want.to(t), x.to(t), m, axis)
+    g = torch.from_numpy(gen.standard_normal(want.shape)).to(dev, dtype)
+    (ga,) = torch.autograd.grad(got, xa, g)
+    assert torch.equal(ga, kres.banded_resize_plain(g, mat.bands(dtype, True), axis))
+    (gb,) = torch.autograd.grad(want, xb, g)
+    # at float64 the dense backward rounds g to float32 on the way in, the
+    # kernel its result on the way out: one ulp more (test_torch_ops.py's
+    # _sum_tol)
+    _within_ulp(ga.to(t), gb.to(t), g.to(t), m.T, axis,
+                ulps=2 if dtype == torch.float64 else 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float64])
+def test_banded_resize_kernel_unaligned_base(dev, gen, dtype):
+    """x one element past a 16-byte boundary takes the one-value-a-thread
+    mode along inner, and the rows mode its unaligned staging; both equal
+    the plain version bit for bit."""
+    from pcss_unet_tpu_torch.ops import resize as tres
+
+    shape = (1, 6, 20, 40)
+    buf = torch.empty(math.prod(shape) + 1, device=dev, dtype=dtype)
+    x = buf[1:].view(shape)
+    x.copy_(torch.from_numpy(gen.standard_normal(shape)).to(dev, dtype))
+    assert kres.plan(x, 2, 40)[3] == kres.SCALAR
+    for axis, n in ((2, 20), (3, 40)):
+        mat = tres.matrix_on(dev, tres.interp_matrix, n, 2 * n)
+        got = kres.banded_resize(x, mat.bands(dtype), axis)
+        assert torch.equal(got, kres.banded_resize_plain(x, mat.bands(dtype), axis))
+
+
+def test_banded_resize_kernel_nonfinite_stays_in_its_band(dev):
+    """An Inf input reaches only the outputs whose band reads it (the dense
+    product spreads NaN along the whole axis, 0·Inf)."""
+    from pcss_unet_tpu_torch.ops import resize as tres
+
+    x = torch.zeros(1, 2, 8, 16, device=dev, dtype=torch.bfloat16)
+    x[0, 0, 3, 5] = float("inf")
+    out = tres.apply_matrix(x, tres.matrix_on(dev, tres.interp_matrix, 8, 16), 2)
+    bad = ~torch.isfinite(out.float())
+    assert bad[0, 0, 5:9, 5].all() and bad.sum() == 4
+
+
+def test_banded_resize_counts_for_one_w64_forward(dev, gen):
+    """One w64 NHWC fused+int8 bf16 forward from its entered input (the
+    render cells' posture) makes 8 banded-resize launches (a card has no
+    other route for a resize)."""
+    from pcss_unet_tpu_torch.infer import InferenceEngine
+    from pcss_unet_tpu_torch.models.init import seeded_variables
+    from pcss_unet_tpu_torch.ops.kernels import reset_launch_counts
+
+    engine = InferenceEngine(None, seeded_variables(), fold_bn=True,
+                             quantize="int8", layout="nhwc",
+                             dtype=torch.bfloat16, device="cuda")
+    x = torch.from_numpy(gen.standard_normal((1, 544, 960, 16)).astype(np.float32)
+                         ).to(dev, torch.bfloat16)
+    with torch.inference_mode():
+        engine.model.forward_entered(x)
+        reset_launch_counts()
+        out = engine.model.forward_entered(x)
+    torch.cuda.synchronize()
+    assert out.shape == (1, 1088, 1920, 1) and torch.isfinite(out).all()
+    assert kres.banded_resize.launches == 8
+
+
+def test_banded_resize_train_forward_and_backward_match_dense(dev, monkeypatch):
+    """A float32 train forward and backward of a small UNet on the card
+    through the banded kernel against the same with the kernel swapped for
+    the dense product of the matrix its tables describe: the loss and every
+    gradient agree to float32 sum-order noise, and the kernel ran on both
+    passes."""
+    from pcss_unet_tpu_torch.models.unet import UNet
+    from pcss_unet_tpu_torch.ops import resize as tres
+    from pcss_unet_tpu_torch.ops.kernels import reset_launch_counts
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.standard_normal((2, 64, 96, 4)).astype(np.float32)).to(dev)
+        y = torch.from_numpy(rng.random((2, 64, 96, 1)).astype(np.float32)).to(dev)
+        torch.manual_seed(0)
+        model = UNet(encoder_widths=(16, 32, 64), dropout_rate=0.0).to(dev).train()
+        dense_calls = []
+
+        def dense(x, fwd, axis):
+            dense_calls.append(axis)
+            m = kres.dense_of(fwd.start.cpu().numpy(), fwd.weight.cpu().numpy(),
+                              fwd.in_size)
+            return tres.apply_matrix_dense(x, m, axis)
+
+        class DenseResize:
+            @staticmethod
+            def apply(x, fwd, bwd, axis):
+                return dense(x, fwd, axis)
+
+        runs = {}
+        for route in ("banded", "dense"):
+            if route == "dense":
+                monkeypatch.setattr(tres, "banded_resize", dense)
+                monkeypatch.setattr(tres.kresize, "BandedResize", DenseResize)
+            reset_launch_counts()
+            out, _ = model.forward_train(x, {})
+            loss = (out - y).abs().mean()
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            runs[route] = (loss.item(), grads, kres.banded_resize.launches)
+        (lb, gb, nb), (ld, gd, nd) = runs["banded"], runs["dense"]
+        dd = len(dense_calls)
+        assert nd == 0 and dd > 0
+        assert nb == 2 * dd      # each forward resize once more in backward
+        assert abs(lb - ld) <= 1e-6 * abs(ld)
+        # each leaf against max(its own size, the median leaf's): the conv
+        # biases in front of a BatchNorm have a zero true gradient (noise)
+        sizes = [b.abs().max().item() for b in gd]
+        floor = float(np.median(sizes))
+        for a, b, size in zip(gb, gd, sizes):
+            assert (a - b).abs().max().item() <= 1e-4 * max(size, floor)
+    finally:
+        torch.backends.cudnn.deterministic = saved
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -905,10 +1163,10 @@ def test_temporal_score_on_the_card_matches_the_cpu(dev, tmp_path, monkeypatch,
 
 # ------------------------------------------- devices and data parallelism
 def test_kernels_launch_on_their_tensors_device(dev, gen):
-    """With cuda:0 current, K1–K6 on cuda:1 tensors launch on cuda:1 (each
-    wrapper runs under its tensors' device, so the stream, the
-    shared-memory opt-in and the SM count are cuda:1's) and equal their
-    plain versions there."""
+    """With cuda:0 current, K1–K6 and the banded resize on cuda:1 tensors
+    launch on cuda:1 (each wrapper runs under its tensors' device, so the
+    stream, the shared-memory opt-in and the SM count are cuda:1's) and
+    equal their plain versions there."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
     d1 = torch.device("cuda", 1)
@@ -937,6 +1195,12 @@ def test_kernels_launch_on_their_tensors_device(dev, gen):
     x128 = t(gen.standard_normal((1, 16, 24, 128)), torch.bfloat16)
     got = kc128.fused_block128_nhwc(x128, *ops128)
     _close(got, kc128.block128_nhwc_plain(x128, *ops128), 2e-2)
+    from pcss_unet_tpu_torch.ops.resize import interp_matrix
+
+    xr = t(gen.standard_normal((1, 8, 6, 40)), torch.bfloat16)
+    bands = kres.bands_on(interp_matrix(6, 12), torch.bfloat16, d1)
+    assert torch.equal(kres.banded_resize(xr, bands, 2),
+                       kres.banded_resize_plain(xr, bands, 2))
     torch.cuda.synchronize(d1)
     assert got.device == d1 and torch.cuda.current_device() == 0
 
