@@ -11,12 +11,13 @@ one JSON line:
 1. ``build``: the card (name, power limit), the kernels' build time and the
    ``ptxas`` register/spill report.  For the bf16 tensor-core kernels (K2's
    ``convblock_chw_tc_kernel``, K6's ``block128_tc_kernel``) and each int8
-   kernel (the 3×3 and 1×1 ``int8_taps_kernel`` instantiations) it prints
-   the registers, spill bytes, shared memory per block (K6 at the recorded
-   w64 ``dec_2`` shape) and the count of ``HMMA``, ``IMMA`` and ``IDP4A``
-   instructions in the library's SASS (``cuobjdump``); it fails if any of
-   them spills, if a bf16 kernel has no ``HMMA`` or an int8 kernel no
-   ``IMMA``, or if any function has an ``IDP4A``.
+   kernel (the 3×3 ``int8_taps_kernel_wgmma`` and 1×1 ``int8_taps_kernel``
+   instantiations) it prints the registers, spill bytes, shared memory per
+   block (K6 at the recorded w64 ``dec_2`` shape, K5's 3×3 at four chunks)
+   and the count of ``HMMA``, ``IMMA``, ``IGMMA`` and ``IDP4A`` instructions
+   in the library's SASS (``cuobjdump``); it fails if any of them spills, if
+   a bf16 kernel has no ``HMMA``, the 1×1 no ``IMMA`` or the 3×3 no
+   ``IGMMA`` (warpgroup MMA), or if any function has an ``IDP4A``.
 Then the training phases (before the kernel phase, which also holds the
 trained net's kernel calls), each freeing what it used:
 
@@ -316,8 +317,8 @@ def ptxas_entries(log: str, kernel: str) -> list[dict]:
 
 
 def sass_counts(lib_path: str) -> dict:
-    """{function: {"HMMA": n, "IMMA": n, "IDP4A": n}} over the library's
-    SASS."""
+    """{function: {"HMMA": n, "IMMA": n, "IGMMA": n, "IDP4A": n}} over the
+    library's SASS."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "--dump-sass", lib_path], capture_output=True,
                           text=True, timeout=300, check=True).stdout
@@ -326,10 +327,11 @@ def sass_counts(lib_path: str) -> dict:
         m = re.search(r"Function : (\S+)", ln)
         if m:
             fn = m.group(1)
-            counts[fn] = {"HMMA": 0, "IMMA": 0, "IDP4A": 0}
+            counts[fn] = {"HMMA": 0, "IMMA": 0, "IGMMA": 0, "IDP4A": 0}
         elif fn is not None:
             counts[fn]["HMMA"] += len(re.findall(r"\bHMMA\b", ln))
             counts[fn]["IMMA"] += len(re.findall(r"\bIMMA\b", ln))
+            counts[fn]["IGMMA"] += len(re.findall(r"\bIGMMA\b", ln))
             counts[fn]["IDP4A"] += len(re.findall(r"\bIDP\.?4A\b", ln))
     return counts
 
@@ -3021,7 +3023,7 @@ def main() -> int:
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
     sass = sass_counts(str(_build._target()))
-    no_ops = {"HMMA": 0, "IMMA": 0, "IDP4A": 0}
+    no_ops = {"HMMA": 0, "IMMA": 0, "IGMMA": 0, "IDP4A": 0}
     bf16_tc = []
     for kernel, src, smem in (
             ("convblock_chw_tc_kernel", "convblock.cu", None),
@@ -3033,13 +3035,14 @@ def main() -> int:
                         **sass.get(e["name"], no_ops)})
     int8 = ptxas_entries(log, "int8_taps_kernel")
     for e, pretty in zip(int8, demangle([e["name"] for e in int8])):
-        m = re.search(r"int8_taps_kernel<[^>]*>", pretty)
+        m = re.search(r"int8_taps_kernel\w*<[^>]*>", pretty)
         src = "block_int8.cu" if "block_int8_cu" in e["name"] else "conv3x3_int8.cu"
         e["kernel"] = f"{src}: {m.group(0) if m else e['name']}"
         e.update(sass.get(e["name"], no_ops))
-        # K5's chunked 3x3 (four chunks at w64 dec_0), the others one chunk
+        # the 3x3 on wgmma (K5's chunked one at four chunks, w64 dec_0), the 1x1
+        e["mma"] = "IGMMA" if "wgmma" in e["name"] else "IMMA"
         e["smem_bytes_per_block"] = _build.library().pcss_int8_smem_bytes(
-            1 if "Li1ELb" in e["name"] else 9, 4 if "Lb1E" in e["name"] else 1)
+            9 if "wgmma" in e["name"] else 1, 4 if "Lb1E" in e["name"] else 1)
     dp4a = {f: c["IDP4A"] for f, c in sass.items() if c["IDP4A"]}
     own = kernel_names(log)
     emit({"phase": "build", "card": card, "seconds": build_s,
@@ -3048,12 +3051,13 @@ def main() -> int:
           "kernel_names": sorted(own),
           "ptxas": ptxas, "bf16_tc_kernels": bf16_tc,
           "int8_kernels": [{k: e[k] for k in ("kernel", "registers", "spill_bytes",
-                                              "smem_bytes_per_block", "IMMA", "IDP4A")}
+                                              "smem_bytes_per_block", "IMMA", "IGMMA",
+                                              "IDP4A")}
                            for e in int8]})
     bad = ([e["kernel"] for e in bf16_tc if e["spill_bytes"] != [0, 0] or not e["HMMA"]]
-           + [e["kernel"] for e in int8 if e["spill_bytes"] != [0, 0] or not e["IMMA"]])
+           + [e["kernel"] for e in int8 if e["spill_bytes"] != [0, 0] or not e[e["mma"]]])
     if bad or dp4a:
-        raise AssertionError(f"tensor-core kernels spilling or without HMMA / IMMA: "
+        raise AssertionError(f"tensor-core kernels spilling or without HMMA / IMMA / IGMMA: "
                              f"{bad}; functions with IDP4A: {dp4a}")
 
     # every kernel wrapper the forwards call, by the name they call it

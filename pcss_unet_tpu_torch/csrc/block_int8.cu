@@ -17,20 +17,25 @@
 // Both scales reduce over a whole band, and blocks run in no order, so the
 // block is three launches on one stream (all in int8_conv.cuh):
 //   1. rowmax_kernel: max|x| of every (row, chunk), and zero the per-band max |h|;
-//   2. int8_taps_kernel, 9 taps: the 3x3 on the int8 tensor cores, chunks
-//      folded in order so the float32 sum order is fixed, h into a scratch
-//      tensor, per-band max |h|;
-//   3. int8_taps_kernel, 1 tap: quantize h by a2, the 1x1 on the same
-//      tensor-core tile, dequantize, bias, leaky, store.
+//   2. int8_taps_kernel_wgmma: the 3x3 on warpgroup MMA, 126 pixels x 256
+//      channels a block in clusters of two that share the weights, a ring of
+//      6 stages (3 for K5) fed by multicast bulk copies and the producer
+//      warpgroup's quantization, chunks folded in order so the float32 sum
+//      order is fixed, h into a scratch tensor, per-band max |h|;
+//   3. int8_taps_kernel: quantize h by a2, the 1x1 on mma.sync (128 x 128
+//      a block), dequantize, bias, leaky, store.
 //
 // What bounds them on the H100: at w16 dec_0 (K3, x [1,128,256,256], Cmid
-// 256, Cout 128) 20.4 G int8 multiply-adds, at w64 dec_0 (K5, x
-// [1,136,240,1024], Cmid 1024, Cout 512) 325 G: operations (0.02 / 0.33 ms
-// at the 1979 TOP/s int8 tensor-core rate) far above the bytes (~25 / ~135 MB).
-// The tensor-core tile (taps.cuh, int8_conv.cuh) keeps every integer sum
-// exact and every float32 step in the plain version's order, so the results
-// equal the plain versions bit for bit.  The h scratch round trip adds 2 x 16
-// MB (K3) and 2 x 134 MB (K5, float32 h).
+// 256, Cout 128) 20.4 G int8 multiply-adds, at w64 dec_1 (K3, x
+// [1,272,480,512], Cmid 512, Cout 128) 317 G, at w64 dec_0 (K5, x
+// [1,136,240,1024], Cmid 1024, Cout 512) 325 G: operations (0.02 / 0.32 /
+// 0.33 ms at the 1979 TOP/s int8 tensor-core rate) far above the bytes (~25
+// / ~170 / ~110 MB).  The 3x3 is 90-95 % of the operations, so it is the
+// stage on wgmma (int8_conv.cuh says what bounds its loop); the 1x1 stayed
+// on mma.sync.  Both keep every integer sum exact and every float32 step in
+// the plain version's order, so the results equal the plain versions bit
+// for bit.  The h scratch round trip adds 2 x 134 MB (K3 at w64 dec_1, bf16
+// h) and 2 x 134 MB (K5, float32 h).
 #include "int8_conv.cuh"
 
 namespace {
@@ -46,7 +51,7 @@ int launch(const void* x, const void* w1p, const void* s1, const void* b1, const
   const I8Args A{hbuf, (const int4*)w2p, (const float*)s2, (const float*)b2, nullptr,
                  (const unsigned*)bandmax, nullptr, out, h, w, cmid, cmid, cout, cout, k_rows,
                  1, slope};
-  return launch_taps<HT, T, 1, false>(A, n, stream);
+  return launch_pointwise<HT, T>(A, n, stream);
 }
 
 }  // namespace
@@ -81,11 +86,12 @@ int pcss_block_int8_nhwc(const void* x, const void* w1p, const void* s1, const v
                                       n, h, w, c, c_chunk, cmid, cout, k_rows, slope, s);
 }
 
-// Dynamic shared memory of one int8_taps_kernel block (taps 9 or 1) with
-// `nchunks` contraction chunks, for reports.
+// Dynamic shared memory of one int8 kernel block: the 3x3
+// (int8_taps_kernel_wgmma, taps 9) with `nchunks` contraction chunks, or the
+// 1x1 (int8_taps_kernel, taps 1), for reports.
 size_t pcss_int8_smem_bytes(int taps, int nchunks) {
-  if (taps != 9) return taps_smem_bytes<1, false>(nchunks);
-  return nchunks > 1 ? taps_smem_bytes<9, true>(nchunks) : taps_smem_bytes<9, false>(nchunks);
+  if (taps != 9) return pointwise_smem_bytes();
+  return nchunks > 1 ? wg_smem_bytes<true>(nchunks) : wg_smem_bytes<false>(nchunks);
 }
 
 }  // extern "C"

@@ -8,10 +8,11 @@
 //         LeakyReLU if asked, stored as out_dtype
 //
 // It is the first half of K3 with its own epilogue, so it runs the same two
-// launches (int8_conv.cuh): row maxima, then the 3x3 on the int8 tensor
-// cores.  The reference grids over output-channel tiles (pick_tiles); the
-// band scale is the same in every tile, so co_tile only groups the blocks'
-// 128-channel tiles and each block takes the scale from the shared row maxima.
+// launches (int8_conv.cuh): row maxima, then the 3x3 on warpgroup MMA
+// (int8_taps_kernel_wgmma).  The reference grids over output-channel tiles
+// (pick_tiles); the band scale is the same in every tile, so co_tile only
+// groups the blocks' 256-channel tiles and each block takes the scale from
+// the shared row maxima.
 //
 // What bounds it on the H100: at the w64 dec_1a shape (x [1,272,480,512],
 // Co 512) 308 G int8 multiply-adds, 0.31 ms at the 1979 TOP/s int8

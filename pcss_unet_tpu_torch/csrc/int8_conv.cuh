@@ -10,46 +10,61 @@
 // from a separate launch of per-row, per-chunk maxima (rowmax_kernel) on the
 // same stream, and each block takes the max of k_rows + 2 of them.
 //
-// int8_taps_kernel<.., 9, ..> then computes, for one output row of TM pixels
-// and TN output channels, an implicit GEMM on the int8 tensor cores
-// (taps.cuh): the input channels are staged in slices of 32, quantized with
-// their chunk's scale, and the nine taps of each slice run against its
-// weights; the chunks' int32 sums are folded into float32 in order:
+// int8_taps_kernel_wgmma then computes, for one output row of TM = 126
+// pixels and TN = 256 output channels, the 3x3 as an implicit GEMM on
+// Hopper's warpgroup MMA (taps.cuh, i8wg): the input channels are staged in
+// slices of 32, one input row (dy) at a time, quantized with their chunk's
+// scale, and each stage runs its three dx taps as wgmma m64n256k32, each
+// consumer warpgroup on 64 rows of pixels; the chunks' int32 sums are folded
+// into float32 in order:
 //   f = sum_j (f32(int32 tap sum of chunk j) * (a_j * s[m]))   (j = 0, 1, ...)
 //   v = f + b[m], LeakyReLU if asked, stored as OT
 // With one chunk this is exactly K3's and K7's f32(acc) * (a * s) + b.  When
 // given a bandmax buffer it also takes the band's max |stored value| with an
 // atomicMax on the float bits (non-negative floats order like their bits):
-// the second scale of the whole-block kernels.  int8_taps_kernel<.., 1, ..>
-// is the whole-block kernels' 1x1 on the same tile: one tap, slices of 128
-// channels, the scale a2 = bandmax / 127 + 1e-12, and the same epilogue.
+// the second scale of the whole-block kernels.
 //
-// Design (what bounds it: operations, see block_int8.cu / conv3x3_int8.cu):
-// - warp-specialized: 8 consumer warps (4 x 2, each 32 pixels x 64 channels:
-//   16 mma per two A and four B ldmatrix, the int32 fragment in registers)
-//   and two producer warpgroups that stage the next slice meanwhile; 512
-//   threads of 128 registers, one block per SM.  K5's float32 chunk sums
-//   live in shared memory (64 KB), not in registers;
-// - weight slices (9 taps x 32 channels x TN, 36 KB; 16 KB for the 1x1) come
-//   by bulk asynchronous copies (cp.async.bulk, one per tap and 16-channel
-//   word, spread over one warp's lanes, completing on an mbarrier) into two
-//   buffers;
-// - activation slices, double-buffered too, are read 16 channels a thread
-//   at a time, several units' loads in flight together, and quantized as the
-//   plain version does, bit for bit, without a division per value
-//   (quant16_i8, common.cuh); producers and consumers hand buffers over
-//   through hardware named barriers;
+// Design of the 3x3 (what bounds it: operations, see block_int8.cu /
+// conv3x3_int8.cu; what bounds this kernel, measured: the producers'
+// activation loads, PERF.md):
+// - warp-specialized, 384 threads, one block per SM: two consumer
+//   warpgroups, each with its 64 x 256 int32 accumulator in registers (128
+//   a thread), and one producer warpgroup of two teams that stage alternate
+//   stages; setmaxnreg gives the consumers 176 registers and the producers
+//   152 (the producers need theirs: at 104 they spill);
+// - clusters of two CTAs on adjacent pixel tiles: each stage's weights are
+//   read from L2 once for both, by bulk copies multicast to both CTAs;
+// - a ring of stages in shared memory (6 for one chunk, 3 for K5, whose
+//   float32 chunk sums take 128 KB beside it), each one dy row of a 32-channel
+//   slice: the weights of its three taps (24 KB, the packed [9][C/16][Cmid][16]
+//   layout copied unchanged, completing on the stage's "full" mbarrier) and
+//   the activations (128 columns x 32 channels, read as 16-byte pieces by
+//   the producers, the lanes of a column on its contiguous channels, and
+//   quantized bit for bit as the plain version, without a division per
+//   value: quant_i8, common.cuh) in the K-major core-matrix layout wgmma
+//   reads without swizzle: a dx shift is 16 bytes of the descriptor's start;
+// - consumers wait on a stage's "full" mbarrier, issue its three wgmma,
+//   keep one stage's group in flight (wgmma.wait_group 1) and hand the
+//   previous stage back on the "empty" mbarriers of both CTAs of the cluster;
+// - the tensor cores' m64n256k32 takes 128 cycles of an SM and reads 10 KB
+//   of shared memory (80 cycles); the producers' loads and quantization of
+//   4,096 values a stage take longer;
 // - ragged edges: columns past W and channels past the chunk are staged as
 //   zeros, weight rows past the tile's channels are zeroed once and never
 //   copied, and the epilogue writes only real pixels and channels.
+//
+// int8_taps_kernel (the whole-block kernels' 1x1) stays on mma.sync: the
+// scale a2 = bandmax / 127 + 1e-12, slices of 128 channels, 8 consumer warps
+// (4 x 2, each 32 pixels x 64 channels) and two producer warpgroups over
+// double buffers handed over through hardware named barriers, and the same
+// epilogue.  It is under a fifth of the 3x3's operations.
 #pragma once
 
 #include "common.cuh"
 #include "taps.cuh"
 
-namespace {
 
-using namespace i8mma;
+namespace {
 
 // 16 consecutive channels as float32 (16-byte aligned source), read as
 // VW 16-byte words
@@ -134,18 +149,13 @@ __device__ __forceinline__ Quant make_quant(float a) {
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
 }
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
 __device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
 }
-// hardware named barriers: a waiting warp takes no instruction slots
-__device__ __forceinline__ void named_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id, int count) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-enum : int { kFull = 1, kEmpty = 3, kConsumers = 5 };  // named barrier ids (+ buffer)
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   asm volatile(
       "{\n"
@@ -165,6 +175,56 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
+// the same, with the data and its completion multicast to the same shared
+// memory offsets of every CTA of the cluster in cta_mask
+__device__ __forceinline__ void bulk_copy_multicast(uint32_t dst, const void* src, uint32_t bytes,
+                                                    uint32_t bar, uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(cta_mask)
+      : "memory");
+}
+// arrive on the mbarrier at local offset `bar` of CTA `cta` of the cluster
+// (the default .release.cta: a cluster-scope release on every stage costs
+// more than the whole stage)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+// ask for `bytes` of global memory at src to be brought into L2
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every CTA of the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
+// generic-proxy writes to shared memory, made visible to the async proxy
+// (bulk copies, wgmma) before the barrier that hands them over
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// hardware named barriers: a waiting warp takes no instruction slots
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+enum : int { kFull = 1, kEmpty = 3, kConsumers = 5 };  // named barrier ids (+ buffer)
 
 struct I8Args {
   const void* x;              // [n, h, w, c] T
@@ -179,92 +239,168 @@ struct I8Args {
   float slope;
 };
 
-// Dynamic shared memory: two activation slices, two weight slices, the
-// chunked kernel's float32 chunk sums (one fragment of 64 per consumer
-// thread), then float32 s[TN], b[TN] and one scale per chunk.
-template <int TAPS, bool CHUNKED>
-__host__ __device__ constexpr size_t taps_smem_bytes(int nchunks) {
-  using S = Slice<TAPS>;
-  return 2 * (size_t)S::XS_BYTES + 2 * (size_t)S::WS_BYTES +
-         sizeof(float) * ((CHUNKED ? 64 * NT : 0) + 2 * TN + (size_t)nchunks);
+// Store channels m, m + 1 of one pixel at dst (those below nlim; one paired
+// store where `pairs` says the pair is aligned) and return max |stored|.
+template <typename OT>
+__device__ __forceinline__ float store_pair(OT* dst, const OT (&o)[2], int m, int nlim,
+                                            bool pairs) {
+  if (m + 1 < nlim && pairs) {
+    if constexpr (sizeof(OT) == 4) {
+      *reinterpret_cast<float2*>(dst) = make_float2(to_float(o[0]), to_float(o[1]));
+    } else {
+      __nv_bfloat162 p2;
+      p2.x = o[0];
+      p2.y = o[1];
+      *reinterpret_cast<__nv_bfloat162*>(dst) = p2;
+    }
+    return fmaxf(fabsf(to_float(o[0])), fabsf(to_float(o[1])));
+  }
+  float mx = 0.f;
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    if (m + e < nlim) {
+      dst[e] = o[e];
+      mx = fmaxf(mx, fabsf(to_float(o[e])));
+    }
+  return mx;
 }
 
-// Stage activation slice words [wlo, wlo + KW) (zero at or past whi) of the
-// rows and columns around (row, col0) into xs [ROWS][KW][XW][16], quantized
-// by q; zero outside the frame.  Thread tid of NTHR takes units tid + NTHR*i,
-// UB at a time: their loads are in flight together before any is quantized.
-template <typename T, int TAPS, int UB, int NTHR>
-__device__ __forceinline__ void stage_slice(int8_t* xs, const T* xn, int h, int w, int c,
-                                            int row, int col0, int wlo, int whi,
-                                            const Quant& q, int tid) {
-  constexpr int KW = Slice<TAPS>::KW, UNITS = Slice<TAPS>::ROWS * KW * XW;
-  constexpr int NU = (UNITS + NTHR - 1) / NTHR, VW = Words<T>::VW;
-#pragma unroll 1
-  for (int b0 = 0; b0 < NU; b0 += UB) {
-    uint4 raw[UB][VW];
-    bool ok[UB];
-#pragma unroll
-    for (int i = 0; i < UB; ++i) {
-      const int u = tid + NTHR * (b0 + i);
-      const int k = u % KW, col = (u / KW) % XW, r = u / (KW * XW);
-      const int gr = TAPS == 9 ? row + r - 1 : row, gc = col0 + col - 1;
-      ok[i] = u < UNITS && gr >= 0 && gr < h && gc >= 0 && gc < w && wlo + k < whi &&
-              (TAPS == 9 || (col >= 1 && col <= TM));
-      if (ok[i]) load_words(xn + ((size_t)gr * w + gc) * c + (size_t)(wlo + k) * 16, raw[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < UB; ++i) {
-      const int u = tid + NTHR * (b0 + i);
-      if (u < UNITS) {
-        const int k = u % KW, col = (u / KW) % XW, r = u / (KW * XW);
-        uint4 o = make_uint4(0, 0, 0, 0);
-        if (ok[i]) {
-          float v[16];
-          unpack16(raw[i], v);
-          o = quant16_i8(v, q.a, q.y, q.a24);
-        }
-        *reinterpret_cast<uint4*>(xs + ((size_t)(r * KW + k) * XW + col) * 16) = o;
-      }
-    }
+// The max of omax over consumer threads 0 .. nthreads into *dst (float bits)
+__device__ __forceinline__ void band_max_atomic(float omax, float* warp_max, int nthreads,
+                                                unsigned* dst) {
+  for (int off = 16; off > 0; off >>= 1)
+    omax = fmaxf(omax, __shfl_xor_sync(0xffffffffu, omax, off));
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = omax;
+  named_sync(kConsumers, nthreads);
+  if (threadIdx.x == 0) {
+    for (int i = 1; i < nthreads / 32; ++i) omax = fmaxf(omax, warp_max[i]);
+    atomicMax(dst, __float_as_uint(omax));
   }
 }
 
-// grid (n * (co / split) * ceil(split / TN), ceil(w / TM), h): block (z, x,
-// row) computes output row `row`, columns x*TM .., channels [n0, n1) of
+// ------------------------------------------------------------ the 3x3 (wgmma)
+
+template <bool CHUNKED>
+__host__ __device__ constexpr int wg_stages() {
+  return CHUNKED ? 3 : 6;
+}
+
+// Dynamic shared memory: the ring, the chunked kernel's float32 chunk sums
+// (128 per consumer thread), then float32 s[TN], b[TN] and one scale per
+// chunk.
+template <bool CHUNKED>
+__host__ __device__ constexpr size_t wg_smem_bytes(int nchunks) {
+  return (size_t)wg_stages<CHUNKED>() * i8wg::STAGE_BYTES +
+         sizeof(float) * ((CHUNKED ? 128 * i8wg::NC : 0) + 2 * i8wg::TN + (size_t)nchunks);
+}
+
+// Activations of one stage: words [wlo, wlo + KW) (zero at or past whi) of
+// input row gr, columns col0 - 1 .. col0 + TM, as 16-byte pieces (8 bf16 or
+// 4 float32 channels).  Piece e = column * PPC + p is the column's p-th
+// piece of its KW * 16 channels; producer thread tid takes pieces tid + NP *
+// i, so the PPC threads of a column read its channels' contiguous bytes and
+// a warp's load touches 32 / PPC columns; NB pieces in flight together.
+template <typename T>
+struct RowLoad {
+  static constexpr int PPC = i8wg::KW * (int)sizeof(T);     // pieces a column
+  static constexpr int VPP = 16 / (int)sizeof(T);           // values a piece
+  static constexpr int TT = i8wg::NP / i8wg::TEAMS;         // threads of a team
+  static constexpr int NL = i8wg::XS_COLS * PPC / TT;        // pieces a producer thread
+  static constexpr int NB = 16 / (int)sizeof(T);             // loads in flight: 8 (4 float32)
+  static_assert(NL * TT == i8wg::XS_COLS * PPC && NL % NB == 0, "whole batches a thread");
+  uint4 raw[NB];
+  bool ok[NB];
+};
+
+// load pieces b0 .. b0 + NB of producer thread tid
+template <typename T>
+__device__ __forceinline__ void load_row(RowLoad<T>& ld, const T* xn, int h, int w, int c, int gr,
+                                         int col0, int wlo, int whi, int b0, int tid) {
+  using L = RowLoad<T>;
+  const bool row_ok = gr >= 0 && gr < h;
+  const T* xr = xn + (size_t)(row_ok ? gr : 0) * w * c + (size_t)wlo * 16;
+#pragma unroll
+  for (int i = 0; i < L::NB; ++i) {
+    const int e = tid + L::TT * (b0 + i), p = e % L::PPC, gc = col0 + e / L::PPC - 1;
+    ld.ok[i] = row_ok && gc >= 0 && gc < w && wlo + p * L::VPP / 16 < whi;
+    if (ld.ok[i]) ld.raw[i] = __ldg(reinterpret_cast<const uint4*>(xr + (size_t)gc * c) + p);
+  }
+}
+
+// quantize them by q into xs [KW][XW][16] (zeros where nothing was loaded)
+template <typename T>
+__device__ __forceinline__ void quant_row(int8_t* xs, const RowLoad<T>& ld, const Quant& q,
+                                          int b0, int tid) {
+  using L = RowLoad<T>;
+#pragma unroll
+  for (int i = 0; i < L::NB; ++i) {
+    const int e = tid + L::TT * (b0 + i), p = e % L::PPC, col = e / L::PPC;
+    uint32_t o[L::VPP / 4] = {};
+    if (ld.ok[i]) {
+      const uint32_t u[4] = {ld.raw[i].x, ld.raw[i].y, ld.raw[i].z, ld.raw[i].w};
+      float v[L::VPP];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if constexpr (sizeof(T) == 2) {  // bf16 -> float32 is exact: the bits, shifted
+          v[2 * k] = __uint_as_float(u[k] << 16);
+          v[2 * k + 1] = __uint_as_float(u[k] & 0xffff0000u);
+        } else {
+          v[k] = __uint_as_float(u[k]);
+        }
+      }
+      quant_i8<L::VPP>(v, q.a, q.y, q.a24, o);
+    }
+    // channel p * VPP of the column's KW words
+    int8_t* dst = xs + ((size_t)(p * L::VPP / 16) * i8wg::XW + col) * 16 + p * L::VPP % 16;
+    if constexpr (L::VPP == 8)
+      *reinterpret_cast<uint2*>(dst) = make_uint2(o[0], o[1]);
+    else
+      *reinterpret_cast<uint32_t*>(dst) = o[0];
+  }
+}
+
+// grid (n * (co / split) * ceil(split / TN), ceil(w / TM) rounded up to
+// whole clusters, h): block (z, x, row) computes output row `row`, columns
+// x*TM .. x*TM + TM (those inside the frame), channels [n0, n1) of
 // output channel group `split` (K7's co_tile; the whole co otherwise).  The
 // channel tiles of one row tile are neighbours in launch order, so they find
 // its input rows in L2.
 //
-// Warp roles, over the slices g (chunk g / spc; 32 input channels, 128 for
-// the 1x1), each in buffer g & 1 of two:
-// - producer warpgroups (threads NT .. NT + NP): once the consumers are done
-//   with buffer g & 1 (named barrier kEmpty), one warp asks for weight slice
-//   g by bulk copies, one per (tap, word) and lane, that complete on mbarrier
-//   wbar; all NP threads read, quantize and store activation slice g; one
-//   thread waits for the weights; then they arrive on named barrier kFull;
-// - consumers (8 warps, threads 0 .. NT): wait on kFull, run the nine taps
-//   (or one) of slice g on the tensor cores, arrive on kEmpty, fold a
-//   finished chunk (K5); then the epilogue.
-// Waiting warps sleep in the hardware barriers rather than spin, so the
-// producers keep their instruction slots.
-template <typename T, typename OT, int TAPS, bool CHUNKED>
-__global__ void __launch_bounds__(NT + NP, 1) int8_taps_kernel(const I8Args A) {
-  constexpr int KW = Slice<TAPS>::KW, XSB = Slice<TAPS>::XS_BYTES, WSB = Slice<TAPS>::WS_BYTES;
-  // staging batch: units whose loads are in flight together
-  constexpr int UB = sizeof(T) == 2 ? 4 : 2;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t wbar[2];  // weight slice of buffer b landed
-  __shared__ float warp_max[NT / 32];
-  int8_t* xsb = reinterpret_cast<int8_t*>(smem_raw);  // 2 x [ROWS][KW][XW][16]
-  int8_t* wsb = xsb + 2 * XSB;                        // 2 x [TAPS][KW][TN][16]
-  float* f_s = reinterpret_cast<float*>(wsb + 2 * WSB);  // CHUNKED: [64][NT]
-  float* s_s = f_s + (CHUNKED ? 64 * NT : 0);
+// Stage g is (slice g / 3, dy = g % 3); slice l holds words wlo .. wlo + 1
+// of chunk l / spc.  Stage g lives in ring buffer g % STAGES:
+// - the producer warpgroup (threads NC .. NC + NP) is TEAMS teams of two
+//   warps; team t stages the stages g = t (mod TEAMS), so two stages' loads
+//   are in flight at once.  Its first thread asks, once the consumers of the
+//   whole cluster have handed the buffer back (its "empty" mbarrier), for
+//   this CTA's share of the three taps' weight words by bulk copies
+//   multicast to both CTAs of the cluster, completing on each CTA's "full"
+//   mbarrier; the team's threads read, quantize and store the activations
+//   and arrive there too, one arrival a warp.  At the start the producers
+//   ask for the block's three input rows (its columns, every channel) in L2;
+// - each consumer warpgroup (threads 0 .. NC) waits on "full", issues the
+//   stage's three wgmma on its 64 pixels, waits until only this stage's are
+//   in flight, hands the previous buffer back to every CTA of the cluster,
+//   and at the end of a chunk (K5) folds its sums into f in order.  Then the
+//   epilogue.
+// The cluster's CTAs are adjacent pixel tiles of one row and channel tile,
+// so they read the same weights; each waits for the other before exiting.
+template <typename T, typename OT, bool CHUNKED>
+__global__ void __cluster_dims__(1, i8wg::CLUSTER, 1) __launch_bounds__(i8wg::NC + i8wg::NP, 1)
+    int8_taps_kernel_wgmma(const I8Args A) {
+  using namespace i8wg;
+  constexpr int STAGES = wg_stages<CHUNKED>(), RING_W = 3 * KW * TN;
+  extern __shared__ __align__(128) unsigned char smem_ring[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  __shared__ float warp_max[NC / 32];
+  unsigned char* ring = smem_ring;  // STAGES x {ws [3][KW][TN][16], xs [KW][XW][16]}
+  float* f_s = reinterpret_cast<float*>(ring + STAGES * STAGE_BYTES);  // CHUNKED: [128][NC]
+  float* s_s = f_s + (CHUNKED ? 128 * NC : 0);
   float* b_s = s_s + TN;
   float* a_s = b_s + TN;
 
   const int h = A.h, w = A.w, c = A.c, cc = A.cc, co = A.co;
-  const int nchunks = c / cc, cw16 = c / 16, ccw = (cc + 15) / 16;
-  const int spc = (ccw + KW - 1) / KW, nslices = nchunks * spc;  // slices per chunk, in all
+  const int nchunks = c / cc, cw16 = c / 16, ccw = cc / 16;
+  const int spc = (ccw + KW - 1) / KW, chunk_steps = 3 * spc, nsteps = nchunks * chunk_steps;
   const int tps = (A.split + TN - 1) / TN, ngroups = co / A.split;
   const int col0 = blockIdx.y * TM, row = blockIdx.z;
   const int n = blockIdx.x / (ngroups * tps), grp = (blockIdx.x / tps) % ngroups;
@@ -272,20 +408,259 @@ __global__ void __launch_bounds__(NT + NP, 1) int8_taps_kernel(const I8Args A) {
   const int n1 = min(n0 + TN, (grp + 1) * A.split), nlim = n1 - n0;
   const int band = row / A.k_rows, nbands = h / A.k_rows;
 
-  if (TAPS == 9) {
-    for (int j = threadIdx.x; j < nchunks; j += NT + NP)
-      a_s[j] = band_scale(A.rowmax, n, h, band, A.k_rows, nchunks, j);
-  } else if (threadIdx.x == 0) {
-    a_s[0] = __fadd_rn(__fdiv_rn(__uint_as_float(A.bandmax_in[n * nbands + band]), 127.f),
-                       1e-12f);
+  for (int j = threadIdx.x; j < nchunks; j += NC + NP)
+    a_s[j] = band_scale(A.rowmax, n, h, band, A.k_rows, nchunks, j);
+  for (int i = threadIdx.x; i < TN; i += NC + NP) {
+    const bool real = i < nlim;
+    s_s[i] = real ? A.s[n0 + i] : 0.f;
+    b_s[i] = real ? A.b[n0 + i] : 0.f;
   }
+  if (nlim < TN) {  // weight rows past the tile's channels: zero, never copied
+    for (int i = threadIdx.x; i < STAGES * RING_W; i += NC + NP)
+      if (i % TN >= nlim)
+        *reinterpret_cast<uint4*>(ring + (i / RING_W) * STAGE_BYTES + (i % RING_W) * 16) =
+            make_uint4(0, 0, 0, 0);
+    fence_async_smem();
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(&full[s]), NP / TEAMS / 32 + 1);  // a team's warps, its expect_tx
+      // one arrival per consumer warpgroup of the cluster: the buffer's
+      // weights are written into every CTA of it
+      mbar_init(smem_u32(&empty[s]), NC / 128 * CLUSTER);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();  // no CTA copies into or arrives on another's barriers before they exist
+  const uint32_t rank = cluster_rank();
+
+  if (threadIdx.x >= NC) {  // ---------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    using L = RowLoad<T>;
+    const int pt = threadIdx.x - NC, team = pt / L::TT, tt = pt % L::TT;
+    const T* xn = reinterpret_cast<const T*>(A.x) + (size_t)n * h * w * c;
+    if (pt < 3) {  // the three input rows' columns, every channel, into L2 at the start
+      const int gr = row + pt - 1, c_lo = max(col0 - 1, 0), c_hi = min(col0 + XS_COLS - 1, w);
+      if (gr >= 0 && gr < h && c_lo < c_hi)
+        prefetch_l2(xn + ((size_t)gr * w + c_lo) * c, (uint32_t)((c_hi - c_lo) * c * sizeof(T)));
+    }
+#pragma unroll 1
+    for (int g = team; g < nsteps; g += TEAMS) {  // team t stages every TEAMS-th stage
+      const int sl = g / 3, dy = g % 3, j = sl / spc;
+      const int wlo = j * ccw + (sl % spc) * KW, whi = (j + 1) * ccw;
+      unsigned char* st = ring + (g % STAGES) * STAGE_BYTES;
+      const uint32_t bar = smem_u32(&full[g % STAGES]);
+      if (g >= STAGES) mbar_wait(smem_u32(&empty[g % STAGES]), (g / STAGES - 1) & 1);
+      if (tt == 0) {  // weight words [wlo, wlo + nw) of taps 3 dy .. 3 dy + 2, channels [n0, n1):
+        // this CTA's share of the copies, multicast to the whole cluster
+        const int nw = min(KW, whi - wlo);
+        mbar_arrive_tx(bar, (uint32_t)(3 * nw * nlim * 16));
+        for (int i = rank; i < 3 * nw; i += CLUSTER) {
+          const int dx = i / nw, k = i % nw;
+          bulk_copy_multicast(smem_u32(st) + (dx * KW + k) * TN * 16,
+                              A.wp + ((size_t)(3 * dy + dx) * cw16 + wlo + k) * co + n0,
+                              nlim * 16, bar, (1u << CLUSTER) - 1);
+        }
+      }
+      const Quant qj = make_quant(a_s[j]);
+#pragma unroll
+      for (int b0 = 0; b0 < L::NL; b0 += L::NB) {
+        L ld;
+        load_row(ld, xn, h, w, c, row + dy - 1, col0, wlo, whi, b0, tt);
+        quant_row(reinterpret_cast<int8_t*>(st + WS_BYTES), ld, qj, b0, tt);
+      }
+      fence_async_smem();
+      __syncwarp();
+      if ((pt & 31) == 0) mbar_arrive(bar);  // one arrival per producer warp
+    }
+  } else {
+    // ------------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31, v = (threadIdx.x >> 5) & 3;
+    const int g4 = lane >> 2, q = lane & 3;
+    const bool leader = (threadIdx.x & 127) == 0;
+    const uint32_t ring_u = smem_u32(ring);
+    int d[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = 0;
+    int owed = -1;  // a buffer whose products are done but not yet handed back
+#pragma unroll 1
+    for (int g = 0; g < nsteps; ++g) {
+      const int s = g % STAGES;
+      mbar_wait(smem_u32(&full[s]), (g / STAGES) & 1);
+      const uint32_t st = ring_u + s * STAGE_BYTES;
+      wg_fence();
+      conv_row_taps(d, st + WS_BYTES, st, 64 * wg, g % chunk_steps == 0);
+      wg_commit();
+      wg_wait<1>();
+      if (owed >= 0 && leader)
+        for (int r = 0; r < CLUSTER; ++r) mbar_arrive_cluster(smem_u32(&empty[owed]), r);
+      owed = s;
+      if (CHUNKED && g % chunk_steps == chunk_steps - 1) {  // end of chunk j: fold into f in order
+        wg_wait<0>();
+        fence_operands(d);
+        if (leader)
+          for (int r = 0; r < CLUSTER; ++r) mbar_arrive_cluster(smem_u32(&empty[s]), r);
+        owed = -1;
+        const int j = g / chunk_steps;
+        const float a = a_s[j];
+#pragma unroll
+        for (int jj = 0; jj < 32; ++jj) {
+          const int m = 8 * jj + 2 * q;
+          const float sc0 = __fmul_rn(a, s_s[m]), sc1 = __fmul_rn(a, s_s[m + 1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * jj + e;
+            const float part = __fmul_rn(__int2float_rn(d[i]), (e & 1) ? sc1 : sc0);
+            float& fe = f_s[i * NC + threadIdx.x];
+            fe = j == 0 ? part : __fadd_rn(fe, part);
+          }
+        }
+      }
+    }
+    wg_wait<0>();
+    fence_operands(d);
+
+    // epilogue: + b, LeakyReLU, store as OT; max |stored| for the band
+    OT* out = reinterpret_cast<OT*>(A.out);
+    const int p = 64 * wg + 16 * v + g4;  // the thread's rows p, p + 8 (pixels below TM)
+    const bool pairs = ((co | n0) & 1) == 0;
+    float omax = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 32; ++jj) {
+      const int m = 8 * jj + 2 * q;  // channels m, m + 1 of the tile
+      const float sc0 = CHUNKED ? 0.f : __fmul_rn(a_s[0], s_s[m]);
+      const float sc1 = CHUNKED ? 0.f : __fmul_rn(a_s[0], s_s[m + 1]);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int col = col0 + p + 8 * hf;
+        OT o[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * jj + 2 * hf + e;
+          const float fv = CHUNKED ? f_s[i * NC + threadIdx.x]
+                                   : __fmul_rn(__int2float_rn(d[i]), e ? sc1 : sc0);
+          float val = __fadd_rn(fv, b_s[m + e]);
+          if (A.apply_leaky) val = leaky(val, A.slope);
+          o[e] = from_float<OT>(val);
+        }
+        if (p + 8 * hf < TM && col < w)
+          omax = fmaxf(omax, store_pair(out + (((size_t)n * h + row) * w + col) * co + n0 + m, o,
+                                        m, nlim, pairs));
+      }
+    }
+    if (A.bandmax_out != nullptr)  // uniform over the block; the consumers only
+      band_max_atomic(omax, warp_max, NC, &A.bandmax_out[n * nbands + band]);
+  }
+  cluster_sync();  // no CTA exits while another may still arrive on its barriers
+}
+
+// One int8_taps_kernel_wgmma launch over all of A's rows and channels.  The
+// largest plan (one scale per 16 channels of 1024) is allowed up front.
+template <typename T, typename OT, bool CHUNKED>
+int launch_taps_wgmma(const I8Args& A, int n, cudaStream_t stream) {
+  static unsigned done = 0;
+  auto kernel = int8_taps_kernel_wgmma<T, OT, CHUNKED>;
+  const int nchunks = A.c / A.cc;
+  if (nchunks > 64) return (int)cudaErrorInvalidValue;
+  const int e = allow_smem((const void*)kernel, wg_smem_bytes<CHUNKED>(64), done);
+  if (e) return e;
+  const int tps = (A.split + i8wg::TN - 1) / i8wg::TN;
+  // pixel tiles rounded up to whole clusters; a tile past the frame stores nothing
+  const int tiles = (A.w + i8wg::TM * i8wg::CLUSTER - 1) / (i8wg::TM * i8wg::CLUSTER);
+  const dim3 grid(n * (A.co / A.split) * tps, tiles * i8wg::CLUSTER, A.h);
+  kernel<<<grid, i8wg::NC + i8wg::NP, wg_smem_bytes<CHUNKED>(nchunks), stream>>>(A);
+  PCSS_CHECK_LAUNCH();
+  return 0;
+}
+
+// ------------------------------------------------------- the 1x1 (mma.sync)
+
+// Dynamic shared memory: two activation slices, two weight slices, then
+// float32 s[TN], b[TN].
+constexpr size_t pointwise_smem_bytes() {
+  return 2 * (size_t)i8mma::XS_BYTES + 2 * (size_t)i8mma::WS_BYTES + sizeof(float) * 2 * i8mma::TN;
+}
+
+// Stage words [wlo, wlo + KW) (zero at or past whi) of row xr's columns
+// col0 .. col0 + TM into columns 1 .. TM of xs [KW][XW][16], quantized by q;
+// zero past the frame.  Thread tid of NTHR takes units tid + NTHR*i, UB at
+// a time: their loads are in flight together before any is quantized.
+template <typename T, int UB, int NTHR>
+__device__ __forceinline__ void stage_pointwise(int8_t* xs, const T* xr, int w, int c, int col0,
+                                                int wlo, int whi, const Quant& q, int tid) {
+  using namespace i8mma;
+  constexpr int UNITS = KW * XW, NU = (UNITS + NTHR - 1) / NTHR, VW = Words<T>::VW;
+#pragma unroll 1
+  for (int b0 = 0; b0 < NU; b0 += UB) {
+    uint4 raw[UB][VW];
+    bool ok[UB];
+#pragma unroll
+    for (int i = 0; i < UB; ++i) {
+      const int u = tid + NTHR * (b0 + i);
+      const int k = u % KW, col = u / KW, gc = col0 + col - 1;
+      ok[i] = u < UNITS && col >= 1 && col <= TM && gc < w && wlo + k < whi;
+      if (ok[i]) load_words(xr + (size_t)gc * c + (size_t)(wlo + k) * 16, raw[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < UB; ++i) {
+      const int u = tid + NTHR * (b0 + i);
+      if (u < UNITS) {
+        const int k = u % KW, col = u / KW;
+        uint4 o = make_uint4(0, 0, 0, 0);
+        if (ok[i]) {
+          float v[16];
+          unpack16(raw[i], v);
+          o = quant16_i8(v, q.a, q.y, q.a24);
+        }
+        *reinterpret_cast<uint4*>(xs + ((size_t)k * XW + col) * 16) = o;
+      }
+    }
+  }
+}
+
+// grid (n * ceil(co / TN), ceil(w / TM), h): block (z, x, row) computes the
+// 1x1 of output row `row`, columns x*TM .., channels [n0, n0 + TN) of h's
+// quantization by the band's a2.  Warp roles, over the slices g of 128
+// channels, each in buffer g & 1 of two:
+// - producer warpgroups (threads NT .. NT + NP): once the consumers are done
+//   with buffer g & 1 (named barrier kEmpty), one warp asks for weight slice
+//   g by bulk copies, one per word and lane, that complete on mbarrier wbar;
+//   all NP threads read, quantize and store activation slice g; one thread
+//   waits for the weights; then they arrive on named barrier kFull;
+// - consumers (8 warps, threads 0 .. NT): wait on kFull, run slice g on the
+//   tensor cores, arrive on kEmpty; then the epilogue.
+// Waiting warps sleep in the hardware barriers rather than spin, so the
+// producers keep their instruction slots.
+template <typename T, typename OT>
+__global__ void __launch_bounds__(i8mma::NT + i8mma::NP, 1) int8_taps_kernel(const I8Args A) {
+  using namespace i8mma;
+  // staging batch: units whose loads are in flight together
+  constexpr int UB = sizeof(T) == 2 ? 4 : 2;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t wbar[2];  // weight slice of buffer b landed
+  __shared__ float warp_max[NT / 32];
+  __shared__ float a2;
+  int8_t* xsb = reinterpret_cast<int8_t*>(smem_raw);  // 2 x [KW][XW][16]
+  int8_t* wsb = xsb + 2 * XS_BYTES;                   // 2 x [KW][TN][16]
+  float* s_s = reinterpret_cast<float*>(wsb + 2 * WS_BYTES);
+  float* b_s = s_s + TN;
+
+  const int h = A.h, w = A.w, c = A.c, co = A.co, cw16 = c / 16;
+  const int nslices = (cw16 + KW - 1) / KW, tiles = (co + TN - 1) / TN;
+  const int col0 = blockIdx.y * TM, row = blockIdx.z;
+  const int n = blockIdx.x / tiles, n0 = (blockIdx.x % tiles) * TN, nlim = min(TN, co - n0);
+  const int band = row / A.k_rows, nbands = h / A.k_rows;
+
+  if (threadIdx.x == 0)
+    a2 = __fadd_rn(__fdiv_rn(__uint_as_float(A.bandmax_in[n * nbands + band]), 127.f), 1e-12f);
   for (int i = threadIdx.x; i < TN; i += NT + NP) {
     const bool real = i < nlim;
     s_s[i] = real ? A.s[n0 + i] : 0.f;
     b_s[i] = real ? A.b[n0 + i] : 0.f;
   }
   if (nlim < TN) {  // weight rows past the tile's channels: zero, never copied
-    for (int i = threadIdx.x; i < 2 * TAPS * KW * TN; i += NT + NP)
+    for (int i = threadIdx.x; i < 2 * KW * TN; i += NT + NP)
       if (i % TN >= nlim) reinterpret_cast<uint4*>(wsb)[i] = make_uint4(0, 0, 0, 0);
   }
   if (threadIdx.x == 0) {
@@ -297,26 +672,23 @@ __global__ void __launch_bounds__(NT + NP, 1) int8_taps_kernel(const I8Args A) {
 
   if (threadIdx.x >= NT) {  // ---------------------------------------- producers
     const int pt = threadIdx.x - NT;
-    const T* xn = reinterpret_cast<const T*>(A.x) + (size_t)n * h * w * c;
+    const T* xr = reinterpret_cast<const T*>(A.x) + ((size_t)n * h + row) * w * c;
+    const Quant qa = make_quant(a2);
 #pragma unroll 1
     for (int g = 0; g < nslices; ++g) {
-      const int j = g / spc, wlo = j * ccw + (g % spc) * KW, whi = (j + 1) * ccw;
+      const int wlo = g * KW;
       const uint32_t bar = smem_u32(&wbar[g & 1]);
       if (g >= 2) named_sync(kEmpty + (g & 1), NT + NP);  // consumers are done with slice g - 2
-      if (pt < 32) {  // weight words [wlo, wlo + nw) of every tap, channels [n0, n1)
-        const int nw = min(KW, whi - wlo);
-        const uint32_t dst = smem_u32(wsb + (g & 1) * WSB);
-        if (pt == 0) mbar_arrive_tx(bar, (uint32_t)(TAPS * nw * nlim * 16));
+      if (pt < 32) {  // weight words [wlo, wlo + nw), channels [n0, n0 + nlim)
+        const int nw = min(KW, cw16 - wlo);
+        const uint32_t dst = smem_u32(wsb + (g & 1) * WS_BYTES);
+        if (pt == 0) mbar_arrive_tx(bar, (uint32_t)(nw * nlim * 16));
         __syncwarp();
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        for (int i = pt; i < TAPS * nw; i += 32) {  // one copy per (tap, word), by lane
-          const int t = i / nw, k = i % nw;
-          bulk_copy(dst + (t * KW + k) * TN * 16,
-                    A.wp + ((size_t)t * cw16 + wlo + k) * co + n0, nlim * 16, bar);
-        }
+        fence_async_smem();
+        if (pt < nw)  // one copy per word, by lane
+          bulk_copy(dst + pt * TN * 16, A.wp + (size_t)(wlo + pt) * co + n0, nlim * 16, bar);
       }
-      stage_slice<T, TAPS, UB, NP>(
-          xsb + (g & 1) * XSB, xn, h, w, c, row, col0, wlo, whi, make_quant(a_s[j]), pt);
+      stage_pointwise<T, UB, NP>(xsb + (g & 1) * XS_BYTES, xr, w, c, col0, wlo, cw16, qa, pt);
       if (pt == 0) mbar_wait(bar, (g >> 1) & 1);  // the weights have landed
       __syncwarp();
       named_arrive(kFull + (g & 1), NT + NP);
@@ -337,38 +709,20 @@ __global__ void __launch_bounds__(NT + NP, 1) int8_taps_kernel(const I8Args A) {
 
 #pragma unroll 1
   for (int g = 0; g < nslices; ++g) {
-    const int j = g / spc, wlo = j * ccw + (g % spc) * KW;
     named_sync(kFull + (g & 1), NT + NP);
-    conv_band_taps_mma<TAPS>(acc, xsb + (g & 1) * XSB, wsb + (g & 1) * WSB,
-                                 min(KW, (j + 1) * ccw - wlo), pm, nb0, nlim, lane);
+    conv_1x1_mma(acc, xsb + (g & 1) * XS_BYTES, wsb + (g & 1) * WS_BYTES,
+                 min(KW, cw16 - g * KW), pm, nb0, nlim, lane);
     if (g + 2 < nslices) named_arrive(kEmpty + (g & 1), NT + NP);
-    if (CHUNKED && g % spc == spc - 1) {  // end of chunk j: fold into f in order
-      const float a = a_s[j];
-#pragma unroll
-      for (int nj = 0; nj < 8; ++nj) {
-        const int m = nb0 + nj * 8 + 2 * q;
-        const float sc0 = __fmul_rn(a, s_s[m]), sc1 = __fmul_rn(a, s_s[m + 1]);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float part = __fmul_rn(__int2float_rn(acc[mi][nj][e]), (e & 1) ? sc1 : sc0);
-            float& fe = f_s[((mi * 8 + nj) * 4 + e) * NT + threadIdx.x];
-            fe = j == 0 ? part : __fadd_rn(fe, part);
-            acc[mi][nj][e] = 0;
-          }
-      }
-    }
   }
 
   // epilogue: + b, LeakyReLU, store as OT; max |stored| for the band
   OT* out = reinterpret_cast<OT*>(A.out);
+  const bool pairs = ((co | n0) & 1) == 0;
   float omax = 0.f;
 #pragma unroll
   for (int nj = 0; nj < 8; ++nj) {
     const int m = nb0 + nj * 8 + 2 * q;  // channels m, m + 1 of the tile
-    const float sc0 = CHUNKED ? 0.f : __fmul_rn(a_s[0], s_s[m]);
-    const float sc1 = CHUNKED ? 0.f : __fmul_rn(a_s[0], s_s[m + 1]);
+    const float sc0 = __fmul_rn(a2, s_s[m]), sc1 = __fmul_rn(a2, s_s[m + 1]);
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -377,61 +731,30 @@ __global__ void __launch_bounds__(NT + NP, 1) int8_taps_kernel(const I8Args A) {
         OT o[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float fv =
-              CHUNKED ? f_s[((mi * 8 + nj) * 4 + 2 * hf + e) * NT + threadIdx.x]
-                      : __fmul_rn(__int2float_rn(acc[mi][nj][2 * hf + e]), e ? sc1 : sc0);
-          float v = __fadd_rn(fv, b_s[m + e]);
+          float v = __fadd_rn(__fmul_rn(__int2float_rn(acc[mi][nj][2 * hf + e]), e ? sc1 : sc0),
+                              b_s[m + e]);
           if (A.apply_leaky) v = leaky(v, A.slope);
           o[e] = from_float<OT>(v);
         }
-        if (col < w) {
-          OT* dst = out + (((size_t)n * h + row) * w + col) * co + n0 + m;
-          if (m + 1 < nlim && ((co | n0) & 1) == 0) {  // an aligned pair
-            if constexpr (sizeof(OT) == 4) {
-              *reinterpret_cast<float2*>(dst) = make_float2(to_float(o[0]), to_float(o[1]));
-            } else {
-              __nv_bfloat162 p2;
-              p2.x = o[0];
-              p2.y = o[1];
-              *reinterpret_cast<__nv_bfloat162*>(dst) = p2;
-            }
-            omax = fmaxf(omax, fmaxf(fabsf(to_float(o[0])), fabsf(to_float(o[1]))));
-          } else {
-#pragma unroll
-            for (int e = 0; e < 2; ++e)
-              if (m + e < nlim) {
-                dst[e] = o[e];
-                omax = fmaxf(omax, fabsf(to_float(o[e])));
-              }
-          }
-        }
+        if (col < w)
+          omax = fmaxf(omax, store_pair(out + (((size_t)n * h + row) * w + col) * co + n0 + m,
+                                        o, m, nlim, pairs));
       }
   }
-  if (A.bandmax_out != nullptr) {  // uniform over the block; the consumers only
-    for (int off = 16; off > 0; off >>= 1)
-      omax = fmaxf(omax, __shfl_xor_sync(0xffffffffu, omax, off));
-    if (lane == 0) warp_max[warp] = omax;
-    named_sync(kConsumers, NT);
-    if (threadIdx.x == 0) {
-      for (int i = 1; i < NT / 32; ++i) omax = fmaxf(omax, warp_max[i]);
-      atomicMax(&A.bandmax_out[n * nbands + band], __float_as_uint(omax));
-    }
-  }
+  if (A.bandmax_out != nullptr)  // uniform over the block; the consumers only
+    band_max_atomic(omax, warp_max, NT, &A.bandmax_out[n * nbands + band]);
 }
 
-// One int8_taps_kernel launch over all of A's rows and channels.  The
-// largest plan (one scale per 16 channels of 1024) is allowed up front.
-template <typename T, typename OT, int TAPS, bool CHUNKED>
-int launch_taps(const I8Args& A, int n, cudaStream_t stream) {
+// One 1x1 int8_taps_kernel launch over all of A's rows and channels.
+template <typename T, typename OT>
+int launch_pointwise(const I8Args& A, int n, cudaStream_t stream) {
   static unsigned done = 0;
-  auto kernel = int8_taps_kernel<T, OT, TAPS, CHUNKED>;
-  const int nchunks = A.c / A.cc;
-  if (nchunks > 64) return (int)cudaErrorInvalidValue;
-  const int e = allow_smem((const void*)kernel, taps_smem_bytes<TAPS, CHUNKED>(64), done);
+  auto kernel = int8_taps_kernel<T, OT>;
+  const int e = allow_smem((const void*)kernel, pointwise_smem_bytes(), done);
   if (e) return e;
-  const int tps = (A.split + TN - 1) / TN;
-  const dim3 grid(n * (A.co / A.split) * tps, (A.w + TM - 1) / TM, A.h);
-  kernel<<<grid, NT + NP, taps_smem_bytes<TAPS, CHUNKED>(nchunks), stream>>>(A);
+  const dim3 grid(n * ((A.co + i8mma::TN - 1) / i8mma::TN), (A.w + i8mma::TM - 1) / i8mma::TM,
+                  A.h);
+  kernel<<<grid, i8mma::NT + i8mma::NP, pointwise_smem_bytes(), stream>>>(A);
   PCSS_CHECK_LAUNCH();
   return 0;
 }
@@ -451,9 +774,9 @@ int launch_conv3x3_int8(const void* x, const void* wp, const void* s, const void
   const I8Args A{x, (const int4*)wp, (const float*)s, (const float*)b, (const float*)rowmax,
                  nullptr, (unsigned*)bandmax, out, h, w, c, cc, co, split, k_rows,
                  apply_leaky, slope};
-  if (nchunks == 1) return launch_taps<T, OT, 9, false>(A, n, stream);
+  if (nchunks == 1) return launch_taps_wgmma<T, OT, false>(A, n, stream);
   if (!MAY_CHUNK) return (int)cudaErrorInvalidValue;
-  return launch_taps<T, OT, 9, MAY_CHUNK>(A, n, stream);
+  return launch_taps_wgmma<T, OT, MAY_CHUNK>(A, n, stream);
 }
 
 }  // namespace

@@ -175,8 +175,9 @@ def block_int8_kchunked_plain(x, w1q, s1, b1, w2q, s2, b2, *, k_rows: int,
 def pack_taps_i8(wq: torch.Tensor) -> torch.Tensor:
     """[9, C, Co] int8 → the kernels' [9, C/16, Co, 16]: 16 input channels
     per 16-byte word, output channel minor.  For one (tap, word), eight
-    consecutive output channels are 128 contiguous bytes: the rows of one
-    ``ldmatrix`` B fragment of the tensor-core tile (``csrc/taps.cuh``)."""
+    consecutive output channels are 128 contiguous bytes: one core matrix of
+    the 3×3's ``wgmma`` B operand and the rows of one ``ldmatrix`` B fragment
+    of the 1×1 (``csrc/taps.cuh``)."""
     taps, c, co = wq.shape
     return wq.reshape(taps, c // 16, 16, co).permute(0, 1, 3, 2).contiguous()
 

@@ -467,8 +467,16 @@ def test_banded_resize_train_forward_and_backward_match_dense(dev, monkeypatch):
     (256, 64, 2, 3, 130),      # N = 2, W two columns over one tile, k_rows = H
     (128, 192, 1, 4, 96),      # Cout 192: a full and a half channel tile
     (384, 64, 1, 5, 12),       # six 64-channel slices, one band of 5 rows
+    # the 3x3's wgmma tile (128 pixels x 256 channels, 32-channel stages):
+    (384, 64, 1, 4, 136),      # Cmid 384: a full and a half channel tile, W past one tile
+    (256, 128, 1, 8, 16),      # the picker's largest band (8 rows) and k_rows = 1
+    # the w64 frame's dec_1 (K3: 512 -> 512 -> 128 at 480 x 272), N = 1 and 4
+    (512, 128, 1, 272, 480),
+    (512, 128, 4, 272, 480),
 ])
 def test_block_int8_kernel(dev, gen, dtype, c, co, n, h, w):
+    """K3 ≡ its plain version exactly at k_rows 1, 2, 4, H and the
+    picker's choice (those that divide H)."""
     params = {
         "conv_a": {"kernel": gen.standard_normal((3, 3, c, c)) * 0.05,
                    "bias": gen.standard_normal(c) * 0.1},
@@ -477,7 +485,8 @@ def test_block_int8_kernel(dev, gen, dtype, c, co, n, h, w):
     }
     ops = kb8.pack_block_int8_params(params, device=dev)
     x = torch.from_numpy(gen.standard_normal((n, h, w, c)).astype(np.float32)).to(dev, dtype)
-    for k in sorted({2, 4, h}):  # k_rows = H: one band touches both frame edges
+    # k_rows = H: one band touches both frame edges
+    for k in sorted({1, 2, 4, h, kb8.pick_k_rows_int8(h, w, c, co) or h}):
         if h % k:
             continue
         before = kb8.fused_block_int8_nhwc.launches
@@ -507,6 +516,12 @@ def _int8_block_operands(gen, dev, dtype, n, h, w, c, co):
     (512, 128, 2, 4, 16, 2, 256),    # batched
     (768, 64, 1, 4, 240, 4, 256),    # three chunks, W = 240, k_rows = H
     (1024, 64, 2, 2, 20, 2, 256),    # four chunks, N = 2, k_rows = H
+    (384, 64, 1, 3, 20, 1, 128),     # k_rows = 1; Cmid 384 past one 256-channel tile
+    (512, 128, 1, 4, 130, 2, 16),    # 16-channel chunks: stages of one word
+    # the w64 frame's dec_0 (K5: 1024 -> 1024 -> 512 at 240 x 136, the
+    # (k_rows, c_chunk) deploy.py picks), N = 1 and 4
+    (1024, 512, 1, 136, 240, 2, 256),
+    (1024, 512, 4, 136, 240, 2, 256),
 ])
 def test_block_int8_kchunked_kernel(dev, gen, dtype, c, co, n, h, w, k, cc):
     x, ops = _int8_block_operands(gen, dev, dtype, n, h, w, c, co)
@@ -625,6 +640,8 @@ def test_convblock_nhwc_kernel(dev, gen, dtype, rel):
     (2, 12, 40, 256, 256, 4, 128, None),   # two Co tiles, no activation
     (1, 6, 240, 128, 64, 6, 64, 0.2),      # Co 64 below the channel tile, k_rows = H
     (2, 4, 130, 256, 384, 2, 192, None),   # two co_tiles of 192: 128 + 64 channels each
+    (1, 3, 20, 384, 320, 1, 320, 0.2),     # k_rows = 1; a full and a 64-channel tile
+    (1, 272, 480, 512, 512, 2, 256, 0.2),  # the w64 dec_1a shape, pick_tiles' choice
 ])
 def test_conv3x3_int8_kernel(dev, gen, dtype, out_dtype, n, h, w, c, co, k,
                              cot, slope):
@@ -693,15 +710,19 @@ def test_convblock_kernel_batch_of_tiles(dev, gen, dtype, rel, cin, cmid, cout, 
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_block_int8_kernel_batch_of_tiles(dev, gen, dtype):
-    """K3 on a batch of two tiles at a 256-pixel tile's dec_0 shape (256 →
-    128 at 16×16) ≡ its plain version exactly, and each image ≡ the kernel
-    on that image alone: band scales are per image."""
-    x, ops = _int8_block_operands(gen, dev, dtype, 2, 16, 16, 256, 128)
-    k = kb8.pick_k_rows_int8(16, 16, 256, 128)
+@pytest.mark.parametrize("n,h,w,c,co", [
+    (2, 16, 16, 256, 128),      # a 256-pixel tile's dec_0 (256 -> 128 at 16x16)
+    (4, 272, 480, 512, 128),    # the serving batch's w64 dec_1
+])
+def test_block_int8_kernel_batch_of_tiles(dev, gen, dtype, n, h, w, c, co):
+    """K3 on a batch of tiles or frames ≡ its plain version exactly, and
+    each image ≡ the kernel on that image alone: band scales are per
+    image."""
+    x, ops = _int8_block_operands(gen, dev, dtype, n, h, w, c, co)
+    k = kb8.pick_k_rows_int8(h, w, c, co)
     got = kb8.fused_block_int8_nhwc(x, *ops, k_rows=k)
     assert torch.equal(got, kb8.block_int8_nhwc_plain(x, *ops, k_rows=k))
-    for i in range(2):
+    for i in range(n):
         assert torch.equal(got[i:i + 1],
                            kb8.fused_block_int8_nhwc(x[i:i + 1], *ops, k_rows=k))
 

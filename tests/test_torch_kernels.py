@@ -448,31 +448,145 @@ def test_packed_taps_einsum_equals_plain_sums(rng, k_rows, w, c, co):
     assert torch.equal(got.double(), want)
 
 
-def test_int8_tile_fits_shared_memory():
-    """The tensor-core tile's shared-memory plan, from the constants in
-    ``csrc/taps.cuh`` and the layout of ``csrc/int8_conv.cuh`` (two
-    activation and two weight slices, the chunked kernel's float32 chunk sums,
-    scales and biases), fits one H100 block (232,448 bytes, less the static
-    mbarriers and per-warp maxima) at the largest chunk count the launcher
-    admits (64), for the 3×3, the chunked 3×3 and the 1×1."""
+def _taps_constants() -> dict:
+    """The int8 tiles' integer constants from ``csrc/taps.cuh``, per
+    namespace (``i8wg``: the 3×3 on wgmma; ``i8mma``: the 1×1), with the
+    expressions evaluated in order."""
     import re
     from pathlib import Path
 
     src = (Path(tb8.__file__).resolve().parents[2] / "csrc" / "taps.cuh").read_text()
-    const = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (\w+) = (\d+);", src)}
-    kw9, kw1 = (int(v) for v in re.search(r"KW = TAPS == 9 \? (\d+) : (\d+);", src).groups())
-    tm, tn, nt, np_ = const["TM"], const["TN"], const["NT"], const["NP"]
-    for taps, rows, kw, chunked in ((9, 3, kw9, False), (9, 3, kw9, True),
-                                    (1, 1, kw1, False)):
-        xs = rows * kw * (tm + 2) * 16
-        ws = taps * kw * tn * 16
-        f = 64 * nt if chunked else 0
-        total = 2 * xs + 2 * ws + 4 * (f + 2 * tn + 64)
-        assert total + 4 * 8 + 4 * nt // 32 <= 232_448, (taps, chunked, total)
-    # 8 consumer warps of 32 x 64 cover the 128 x 128 tile; producers are
+    out = {}
+    for ns in ("i8wg", "i8mma"):
+        body = src[src.index(f"namespace {ns} {{"):src.index(f"}}  // namespace {ns}")]
+        env = {}
+        for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", body):
+            env[name] = eval(expr.replace("/", "//"), {}, dict(env))
+        out[ns] = env
+    return out
+
+
+def test_int8_tile_fits_shared_memory():
+    """The int8 tiles' shared-memory plans, from the constants in
+    ``csrc/taps.cuh`` and the layout of ``csrc/int8_conv.cuh``, fit one H100
+    block (232,448 bytes, less the static mbarriers and per-warp maxima) at
+    the largest chunk count the launcher admits (64): the 3×3's ring of 6
+    stages, and of 3 beside the chunked kernel's float32 chunk sums (128 a
+    consumer thread); the 1×1's two activation and two weight slices."""
+    k = _taps_constants()
+    wg, mma = k["i8wg"], k["i8mma"]
+    assert wg["STAGE_BYTES"] % 128 == 0 and wg["WS_BYTES"] % 128 == 0
+    for stages, chunked in ((6, False), (3, True)):
+        ring = stages * wg["STAGE_BYTES"]
+        total = ring + 4 * ((128 * wg["NC"] if chunked else 0) + 2 * wg["TN"] + 64)
+        static = 2 * stages * 8 + 4 * wg["NC"] // 32
+        assert total + static <= 232_448, (stages, chunked, total)
+    xs = mma["KW"] * (mma["TM"] + 2) * 16
+    total = 2 * xs + 2 * mma["KW"] * mma["TN"] * 16 + 4 * 2 * mma["TN"]
+    assert total + 2 * 8 + 4 + 4 * mma["NT"] // 32 <= 232_448
+    # the 3×3: two consumer warpgroups of 64 rows × TN channels (wgmma
+    # m64nTNk32, 128 int32 accumulators a thread) cover TM pixels, whose three
+    # taps read XW columns; the producers stage XS_COLS = TM + 2 of them, two
+    # units of 16 channels, 128 a producer warp (one stage each); setmaxnreg
+    # moves registers within the 168 a thread that 384 threads are launched
+    # with
+    assert wg["TM"] + 2 <= 64 * wg["NC"] // 128 and wg["TN"] * 64 // 128 == 128
+    assert wg["XW"] == 64 * wg["NC"] // 128 + 2 and wg["XS_COLS"] == wg["TM"] + 2
+    assert wg["KW"] * wg["XS_COLS"] % 32 == 0
+    assert wg["NP"] == 128 and wg["KW"] * 16 == 32
+    threads = wg["NC"] + wg["NP"]
+    launch = 65536 // threads // 8 * 8
+    assert (wg["PRODUCER_REGS"] * wg["NP"] + wg["CONSUMER_REGS"] * wg["NC"]
+            <= launch * threads)
+    assert wg["CONSUMER_REGS"] % 8 == 0 and wg["PRODUCER_REGS"] % 8 == 0
+    # the 1×1: 8 consumer warps of 32 × 64 cover 128 × 128; producers are
     # whole warpgroups; every thread keeps 128 registers (65536 / 512)
-    assert (tm // 32) * (tn // 64) * 32 == nt and np_ % 128 == 0
-    assert 65536 // (nt + np_) >= 128 and kw9 % 2 == 0 and kw1 % 2 == 0
+    assert (mma["TM"] // 32) * (mma["TN"] // 64) * 32 == mma["NT"] and mma["NP"] % 128 == 0
+    assert 65536 // (mma["NT"] + mma["NP"]) >= 128 and mma["KW"] % 2 == 0
+
+
+def _gmma_operand(smem: np.ndarray, start: int, lbo: int, sbo: int, rows: int) -> np.ndarray:
+    """The rows × 32 int8 operand a wgmma reads through a descriptor without
+    swizzle (K-major): element (r, k) at start + (r // 8)·sbo + (r % 8)·16 +
+    (k // 16)·lbo + k % 16."""
+    r, k = np.arange(rows)[:, None], np.arange(32)[None, :]
+    return smem[start + (r // 8) * sbo + (r % 8) * 16 + (k // 16) * lbo + k % 16].astype(np.int64)
+
+
+def _wgmma_conv3x3(q: np.ndarray, packed: np.ndarray, *, cc: int, split: int,
+                   rng) -> list[np.ndarray]:
+    """The 3×3 stage of ``int8_taps_kernel_wgmma`` modelled byte for byte on
+    its shared memory: every block's ring stages (the producer's staged
+    rows, the bulk copies of the packed weights, zeroed rows past the tile,
+    stale words past a chunk's end), read through the consumers' descriptors
+    as wgmma reads them.  q [H, W, C] int8 (one image, one band), packed
+    [9, C/16, Co, 16].  Returns each chunk's int32 sums [H, W, Co]."""
+    k = _taps_constants()["i8wg"]
+    tm, tn, xw, kw, ws_bytes = k["TM"], k["TN"], k["XW"], k["KW"], k["WS_BYTES"]
+    cols = k["XS_COLS"]
+    h, w, c = q.shape
+    co, cw16, ccw = packed.shape[2], c // 16, cc // 16
+    spc = (ccw + kw - 1) // kw
+    sums = [np.zeros((h, w, co), np.int64) for _ in range(c // cc)]
+    tiles = [(g * split + t * tn, min(g * split + (t + 1) * tn, (g + 1) * split))
+             for g in range(co // split) for t in range((split + tn - 1) // tn)]
+    for row in range(h):
+        for col0 in range(0, w, tm):
+            for n0, n1 in tiles:
+                nlim = n1 - n0
+                stage = rng.integers(-128, 128, k["STAGE_BYTES"]).astype(np.int8)  # stale
+                stage[:ws_bytes].reshape(3, kw, tn, 16)[:, :, nlim:] = 0
+                d = np.zeros((2, 64, tn), np.int64)
+                for g in range(c // cc * 3 * spc):
+                    sl, dy = divmod(g, 3)
+                    j = sl // spc
+                    wlo, whi = j * ccw + (sl % spc) * kw, (j + 1) * ccw
+                    nw = min(kw, whi - wlo)
+                    ws = stage[:ws_bytes].reshape(3, kw, tn, 16)
+                    for dx in range(3):
+                        ws[dx, :nw, :nlim] = packed[3 * dy + dx, wlo:wlo + nw, n0:n1]
+                    xs = stage[ws_bytes:ws_bytes + kw * xw * 16].reshape(kw, xw, 16)
+                    gr = row + dy - 1
+                    for word in range(kw):
+                        xs[word, :cols] = 0
+                        for cl in range(cols):
+                            gc = col0 + cl - 1
+                            if 0 <= gr < h and 0 <= gc < w and wlo + word < whi:
+                                xs[word, cl] = q[gr, gc, (wlo + word) * 16:(wlo + word + 1) * 16]
+                    if g % (3 * spc) == 0:
+                        d[:] = 0
+                    for wg in range(2):
+                        for dx in range(3):
+                            a = _gmma_operand(stage, ws_bytes + (64 * wg + dx) * 16, xw * 16,
+                                              128, 64)
+                            b = _gmma_operand(stage, dx * kw * tn * 16, tn * 16, 128, tn)
+                            d[wg] += a @ b.T
+                    if g % (3 * spc) == 3 * spc - 1:
+                        px = min(tm, w - col0)
+                        sums[j][row, col0:col0 + px, n0:n1] = d.reshape(128, tn)[:px, :nlim]
+    return sums
+
+
+@pytest.mark.parametrize("h,w,c,co,cc,split", [
+    (3, 20, 64, 24, 64, 24),       # one chunk, a ragged channel tile
+    (2, 130, 48, 16, 48, 16),      # two pixel tiles; a slice with one word
+    (2, 12, 96, 272, 32, 272),     # three chunks; a full and a 16-channel tile
+    (1, 9, 32, 384, 32, 192),      # K7's split: two groups of 192 channels
+])
+def test_wgmma_stage_schedule_equals_plain_sums(rng, h, w, c, co, cc, split):
+    """The 3×3 as ``int8_taps_kernel_wgmma`` schedules it (stages of one dy
+    row and 32 channels, three dx descriptors a stage, each consumer
+    warpgroup on its 64 pixels, chunk by chunk) gives each chunk's integer
+    3×3 sums of the plain version exactly."""
+    q = rng.integers(-127, 128, (h, w, c)).astype(np.int8)
+    wq = rng.integers(-127, 128, (9, c, co)).astype(np.int8)
+    packed = tb8.pack_taps_i8(torch.from_numpy(wq)).numpy()
+    got = _wgmma_conv3x3(q, packed, cc=cc, split=split, rng=rng)
+    ext = torch.from_numpy(np.pad(q, ((1, 1), (0, 0), (0, 0)))[None]).double()
+    for j, sums in enumerate(got):
+        want = t_taps(ext[..., j * cc:(j + 1) * cc],
+                      torch.from_numpy(wq[:, j * cc:(j + 1) * cc]).double(), h)
+        np.testing.assert_array_equal(sums.reshape(h * w, co), want[0].numpy())
 
 
 _PICKER_SHAPES = [
