@@ -45,6 +45,16 @@ trained net's kernel calls), each freeing what it used:
 - ``train_parity``: 3 train steps of the w64 net (batch 2, 128×128,
   dropout 0, float32, TF32 off) on the card and on the CPU: losses within
   1e-4, each parameter's change at cosine > 0.995 and norm within 2 %.
+- ``bn_tail``: the train-mode BatchNorm → LeakyReLU → Dropout2d kernel
+  pair (``ops/kernels/bn_train.py``) on the inputs one w64 bf16 train
+  forward and backward at batch 8 of 2048×1024 gives it: every block routed
+  to it, its launches (3 a conv output forward, 3 backward, 3 more a conv
+  output of the bottleneck's recompute), each call's forward and backward
+  against the plain versions (output and dx within one bf16 rounding, two
+  for a dropout's output; the running statistics within 1e-5, dγ and dβ
+  within 1e-4), the storage of
+  each conv output and incoming gradient, wrapper, device, plain and bound
+  ms (bytes at 3.35 TB/s: 6 an element forward, 10 backward).
 - ``dp_train``: two gloo ranks on cuda:0 (each ``python3 chip_smoke.py
   --dp-rank R WORK``, joined from the environment as ``--multihost`` joins)
   at w64 on a global batch of 8 512×1024 frames, float32 with TF32 off: the
@@ -1846,6 +1856,151 @@ def train_parity_phase() -> float:
     return time.perf_counter() - t0
 
 
+def storage(t) -> str:
+    import torch
+
+    if t.is_contiguous():
+        return "nchw"
+    return "channels_last" if t.is_contiguous(memory_format=torch.channels_last) else \
+        f"strides {list(t.stride())}"
+
+
+def bf16_bound_err(got, want, roundings=1) -> tuple[float, float, float]:
+    """(max |d|, the largest |d| over its bound: ``roundings`` bf16
+    roundings of the value plus 1e-5 of the largest value (sum-order noise
+    that cancels), the share of values that differ)."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    over = d / (roundings * 2 ** -7 * want.abs() + 1e-5 * want.abs().max() + 1e-30)
+    return d.max().item(), over.max().item(), (d > 0).float().mean().item()
+
+
+def bn_tail_phase(card: str, own) -> dict:
+    """The train-mode BatchNorm tail (``ops/kernels/bn_train.py``) on the
+    main path's inputs: one w64 bf16 ``forward_train`` and backward at
+    batch 8 of 2048×1024, dropout 0.2 (config.ini's), records every call's
+    conv output, mask and, in the backward, incoming gradient; then each
+    call's kernels against the plain versions on those inputs.  Forward:
+    the output codes within one bf16 rounding (two with the dropout's
+    second; plus 1e-5 of the largest) of ``bn_act_dropout_plain``'s, the
+    running statistics within 1e-5.  Backward, from the kernel forward's
+    statistics:
+    ``bn_act_dropout_backward_plain``'s dx within the same bound, dγ and dβ
+    within 1e-4 of the largest.  One ``bn_tail_call`` line a call: the
+    storage of x and of the incoming gradient (as the convolutions hand
+    them over), wrapper ms from CUDA events (20 calls), device ms of the
+    library's kernels (torch.profiler), plain ms, bound ms: bytes at 3.35
+    TB/s, 6 an element forward, 10 backward.  Also the step's launches of
+    the op (3 a conv output forward, 3 backward, and 3 a conv output of the
+    checkpointed bottleneck's recompute) and every block's route."""
+    import torch
+
+    from pcss_unet_tpu_torch.models.unet import UNet
+    from pcss_unet_tpu_torch.ops.kernels import bn_train as kbn
+    from pcss_unet_tpu_torch.ops.kernels import reset_launch_counts
+
+    t0 = time.perf_counter()
+    mine = {k for k in own if k.startswith("tail_") or k.endswith("_final_kernel")}
+    torch.manual_seed(0)
+    model = UNet(encoder_widths=W64, dropout_rate=0.2, dtype=torch.bfloat16).to(DEVICE).train()
+    x = torch.from_numpy(np.stack([gbuffer(np.random.default_rng(i), i, FRAME_H, FRAME_W)[0]
+                                   for i in range(8)])).to(DEVICE)
+    masks = model.dropout_masks(8, torch.Generator(DEVICE).manual_seed(0), DEVICE)
+    fwd_calls, bwd_calls = [], []
+    orig_f, orig_b = kbn._forward, kbn._backward
+
+    def clone(a):
+        return a.detach().clone(memory_format=torch.preserve_format) if torch.is_tensor(a) else a
+
+    def rec_f(*a):
+        if not bwd_calls:                   # the recompute's calls are the forward's
+            fwd_calls.append(tuple(map(clone, a)))
+        return orig_f(*a)
+
+    def rec_b(*a):
+        bwd_calls.append(tuple(map(clone, a)))
+        return orig_b(*a)
+
+    names = [f"{b}.{c}" for b in model.blocks() for c in ("conv_a", "conv_b")]
+    reset_launch_counts()
+    with swapped([(kbn, "_forward", rec_f), (kbn, "_backward", rec_b)]):
+        out, _ = model.forward_train(x, masks)
+        fwd_launches = kbn.bn_act_dropout_train.launches
+        torch.autograd.grad(out.mean(), list(model.parameters()))
+    step_launches = kbn.bn_act_dropout_train.launches
+    routes = model.routes()
+    del model, out, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    want_launches = (3 * len(names), 3 * len(names) + 3 * len(names) + 3 * 2)
+    if (set(routes.values()) != {"bn_act_dropout_train"} or len(fwd_calls) != len(names)
+            or (fwd_launches, step_launches) != want_launches):
+        raise AssertionError(f"bn_tail: routes {routes}, {len(fwd_calls)} forward calls, "
+                             f"launches {fwd_launches}, {step_launches} (want {want_launches})")
+    per = {"forward": [0.0] * 4, "backward": [0.0] * 4}   # ms, device ms, plain ms, bound ms
+    worst = {"forward": 0.0, "backward": 0.0, "stats": 0.0, "dgamma_dbeta": 0.0}
+    for name, a in zip(names, fwd_calls):
+        got, stats = kbn._forward(*a)
+        want, pstats = kbn.bn_act_dropout_plain(*a)
+        # the dropout rounds twice: a flip of the first carries through
+        d, over, share = bf16_bound_err(got, want, 1 if a[5] is None else 2)
+        run_err = max(((stats[k] - pstats[k]).abs() / (1e-5 * pstats[k].abs() + 1e-6)).max().item()
+                      for k in (4, 5))
+        worst["forward"], worst["stats"] = max(worst["forward"], over), max(worst["stats"], run_err)
+        xb = a[0]
+        t = cuda_ms(lambda: kbn._forward(*a))
+        td, _ = kernel_device_ms(lambda: kbn._forward(*a), mine)
+        tp = cuda_ms(lambda: kbn.bn_act_dropout_plain(*a), iters=3, warmup=1)
+        b = 6 * xb.numel() / PEAK_BYTES_PER_S * 1e3
+        for k, v in enumerate((t, td or 0.0, tp, b)):
+            per["forward"][k] += v
+        emit({"phase": "bn_tail_call", "pass": "forward", "call": name, "shape": list(xb.shape),
+              "x_storage": storage(xb), "dropout": a[5] is not None, "ms": t, "device_ms": td,
+              "plain_ms": tp, "bound_ms": b, "bound_by": "bytes", "device_bound_share":
+              None if not td else b / td, "max_abs_err": d, "err_over_bound": over,
+              "codes_differing": share, "running_err_over_1e-5": run_err})
+        del got, stats, want, pstats
+    for j, a in enumerate(bwd_calls):
+        xb, g = a[0], a[1]
+        dx, dw, db = kbn._backward(*a)
+        pdx, pdw, pdb = kbn.bn_act_dropout_backward_plain(g, xb, *a[2:])
+        d, over, share = bf16_bound_err(dx, pdx)
+        gerr = max(((u - v).abs().max() / v.abs().max()).item() for u, v in ((dw, pdw), (db, pdb)))
+        worst["backward"] = max(worst["backward"], over)
+        worst["dgamma_dbeta"] = max(worst["dgamma_dbeta"], gerr)
+        t = cuda_ms(lambda: kbn._backward(*a))
+        td, _ = kernel_device_ms(lambda: kbn._backward(*a), mine)
+        tp = cuda_ms(lambda: kbn.bn_act_dropout_backward_plain(g, xb, *a[2:]), iters=3, warmup=1)
+        b = 10 * xb.numel() / PEAK_BYTES_PER_S * 1e3
+        for k, v in enumerate((t, td or 0.0, tp, b)):
+            per["backward"][k] += v
+        emit({"phase": "bn_tail_call", "pass": "backward", "call": j, "shape": list(xb.shape),
+              "x_storage": storage(xb), "grad_storage": storage(g), "dropout": a[4] is not None,
+              "ms": t, "device_ms": td, "plain_ms": tp, "bound_ms": b, "bound_by": "bytes",
+              "device_bound_share": None if not td else b / td, "max_abs_err": d,
+              "err_over_bound": over, "codes_differing": share, "dgamma_dbeta_rel_err": gerr})
+        del dx, dw, db, pdx, pdw, pdb
+    del fwd_calls, bwd_calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = {"phase": "bn_tail", "card": card, "path": "w64_train_b8",
+            "routes": routes, "launches_forward": fwd_launches, "launches_step": step_launches,
+            **{f"{p}_{k}": v[i] for p, v in per.items()
+               for i, k in enumerate(("ms", "device_ms", "plain_ms", "bound_ms"))},
+            "err_over_bound": worst, "seconds": time.perf_counter() - t0}
+    emit(line)
+    if max(worst["forward"], worst["backward"], worst["stats"]) > 1.0 or \
+            worst["dgamma_dbeta"] > 1e-4:
+        raise AssertionError(f"bn_tail: {worst}")
+    return {"name": "bn_act_dropout_train", "route": "cuda",
+            "source": "pcss_unet_tpu_torch/csrc/bn_train.cu",
+            "replaces": "none (the plain batch_norm_train, activation, cast and where chain)",
+            "launches": step_launches,
+            **{k: line[k] for k in ("forward_ms", "forward_device_ms", "forward_plain_ms",
+                                    "forward_bound_ms", "backward_ms", "backward_device_ms",
+                                    "backward_plain_ms", "backward_bound_ms")}}
+
+
 def train_to_serve_phase(npz, stats, data, plain, card, own):
     """The trained net (``export_reference_checkpoint``'s ``.npz``) through
     ``load_variables`` and both deployment engines (fold_bn, int8, bf16) at
@@ -3089,6 +3244,9 @@ def main() -> int:
             npz, train_stats, train_s = train_phase(train_work, card)
             bench_s = train_bench_phase(card)
             parity_s = train_parity_phase()
+            t_bn = time.perf_counter()
+            bn_entry = bn_tail_phase(card, own)
+            bn_s = time.perf_counter() - t_bn
             t_dp = time.perf_counter()
             os.makedirs(os.path.join(train_work, "dp"))
             dp_single = dp_train_phase(os.path.join(train_work, "dp"), card)
@@ -3098,7 +3256,7 @@ def main() -> int:
             train_to_serve_phase(npz, train_stats, os.path.join(train_work, "data"),
                                  plain, card, own)
         emit({"phase": "train_phases_seconds", "train": train_s, "train_bench": bench_s,
-              "train_parity": parity_s, "dp_train": dp_s,
+              "train_parity": parity_s, "bn_tail": bn_s, "dp_train": dp_s,
               "train_to_serve": time.perf_counter() - t_serve})
     finally:
         shutil.rmtree(train_work, ignore_errors=True)
@@ -3376,6 +3534,7 @@ def main() -> int:
     emit({"resize_kernel": dict(resize_entry, route="cuda",
                                 source="pcss_unet_tpu_torch/csrc/resize.cu",
                                 replaces="none (the dense apply_matrix product)")})
+    emit({"bn_tail_kernel": bn_entry})
     emit({"kernels": [{k: e[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

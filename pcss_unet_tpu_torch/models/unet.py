@@ -43,7 +43,13 @@ bottleneck runs under ``torch.utils.checkpoint`` (the reference's
 ``remat_bottleneck``) with its mask drawn outside the checkpointed region,
 so the recompute applies the same mask.  Given a ``torch.distributed``
 process group (the reference's ``bn_axis_name``), the train-mode BatchNorm
-takes its statistics over the group's whole batch.
+takes its statistics over the group's whole batch.  On the card, a bf16 net
+with ``batch_norm`` and ``leaky_relu`` or ``relu`` runs each convolution's
+train-mode tail (BatchNorm → activation → bf16 → Dropout2d) through
+``ops/kernels/bn_train.py::bn_act_dropout_train``, forward and backward
+(route ``bn_act_dropout_train``); every other net, and the data-parallel
+and row-sharded paths, whose statistics are all-reduced, run the plain
+chain (``batch_norm_train``).
 
 Window mode is the reference's ``spatial_window`` for spatially sharded
 inference (``infer.tiled.infer_sharded_halo``): ``forward`` and
@@ -76,6 +82,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from pcss_unet_tpu_torch.ops.kernels.bn_train import bn_act_dropout_train
 from pcss_unet_tpu_torch.ops.kernels.convblock import fused_conv_block_nhwc
 from pcss_unet_tpu_torch.ops.kernels.deploy import block_kernel_nhwc
 from pcss_unet_tpu_torch.ops.pixelshuffle import (pixel_shuffle_nhwc,
@@ -92,11 +99,12 @@ from pcss_unet_tpu_torch.utils.profiling import span
 
 
 ACTIVATIONS = ("leaky_relu", "relu", "gelu")
+SLOPES = {"leaky_relu": 0.2, "relu": 0.0}     # the activations the tail kernel takes
 
 
 def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     if name == "leaky_relu":
-        return F.leaky_relu(x, 0.2)
+        return F.leaky_relu(x, SLOPES[name])
     if name == "relu":
         return F.relu(x)
     return F.gelu(x, approximate="tanh")
@@ -306,13 +314,24 @@ class ConvBlock(nn.Module):
         [B, C, 1, 1] (None: no dropout), the reference's flax Dropout.
         ``running``: (mean_a, var_a, mean_b, var_b), the running statistics
         to update (batch_norm only).  → (output, updated running stats, or
-        () for other norms)."""
-        self.route = "plain"
+        () for other norms).  Where ``_tail_fusable``, the BatchNorm →
+        activation → cast → dropout after each conv is one
+        ``bn_act_dropout_train`` (route ``bn_act_dropout_train``)."""
+        fused = self._tail_fusable(x, group, rows)
+        self.route = "bn_act_dropout_train" if fused else "plain"
         bn_dtype = torch.promote_types(torch.float32, self.dtype)
         new = []
         for i, (conv, norm) in enumerate(((self.conv_a, self.norm_a),
                                           (self.conv_b, self.norm_b))):
             x = _conv(conv, x, self.dtype, rows)
+            drop = mask if conv is self.conv_a else None
+            if fused:
+                x, *stats = bn_act_dropout_train(
+                    x, norm.weight, norm.bias, *running[2 * i:2 * i + 2], drop,
+                    1.0 - self.dropout.p, SLOPES[self.activation], norm.eps,
+                    BN_MOMENTUM)
+                new += stats
+                continue
             if self.normalization == "batch_norm":
                 x, stats = batch_norm_train(x, norm, running[2 * i:2 * i + 2],
                                             bn_dtype, group)
@@ -320,10 +339,21 @@ class ConvBlock(nn.Module):
             elif self.normalization != "none":
                 x = norm(x.to(bn_dtype), rows)
             x = _act(self.activation, x).to(self.dtype)
-            if conv is self.conv_a and mask is not None:
+            if drop is not None:
                 keep = 1.0 - self.dropout.p
-                x = torch.where(mask, x / keep, torch.zeros_like(x))
+                x = torch.where(drop, x / keep, torch.zeros_like(x))
         return x, tuple(new)
+
+    def _tail_fusable(self, x: torch.Tensor, group, rows) -> bool:
+        """Whether the train-mode tails go through the kernel: a card
+        tensor, a bf16 net with float32 BatchNorm parameters and an
+        activation the kernel takes, and neither a process group nor a row
+        shard (whose statistics and gradient sums are all-reduced)."""
+        return (x.is_cuda and self.dtype == torch.bfloat16
+                and self.normalization == "batch_norm"
+                and self.activation in SLOPES
+                and self.norm_a.weight.dtype == torch.float32
+                and group is None and rows is None)
 
 
 def _pool2x(x: torch.Tensor) -> torch.Tensor:

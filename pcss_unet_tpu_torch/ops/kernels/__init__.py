@@ -8,11 +8,14 @@ are built by ``_build`` at first use.  ``deploy`` turns a folded block's
 weights into the int8 and 128-channel kernels' operands for both forwards.
 ``resize`` holds the banded resize behind ``ops/resize.py::apply_matrix``,
 a kernel with no TPU counterpart: it is not in ``KERNELS`` (the ported
-ones), and ``reset_launch_counts`` zeroes its ``launches`` too.
+ones), and ``reset_launch_counts`` zeroes its ``launches`` too.  So does
+``bn_train``: the train-mode BatchNorm → activation → Dropout2d tail of a
+ConvBlock, forward and backward, which no TPU kernel computes either.
 """
 
 from pcss_unet_tpu_torch.ops.kernels.block_int8 import (fused_block_int8_kchunked,
                                                         fused_block_int8_nhwc)
+from pcss_unet_tpu_torch.ops.kernels.bn_train import bn_act_dropout_train
 from pcss_unet_tpu_torch.ops.kernels.conv3x3_int8 import conv3x3_int8_nhwc
 from pcss_unet_tpu_torch.ops.kernels.convblock import (fused_conv_block_chw,
                                                        fused_conv_block_nhwc)
@@ -30,3 +33,4 @@ def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
     banded_resize.launches = 0
+    bn_act_dropout_train.launches = 0

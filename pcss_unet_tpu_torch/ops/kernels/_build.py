@@ -46,6 +46,10 @@ _SIGNATURES = {
     "pcss_conv3x3_int8_nhwc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _F, _I, _I, _I, _P),
     "pcss_band_resize": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "pcss_bn_train_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _F, _F, _F, _F, _F, _P),
+    "pcss_bn_train_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _F, _F, _P),
 }
 
 _lock = threading.Lock()

@@ -1060,6 +1060,189 @@ def test_batchnorm_stats_after_one_w64_step_match_the_cpu(dev):
         torch.testing.assert_close(cs[name], hs[name], rtol=1e-4, atol=1e-5)
 
 
+# ------------------------------------ the train-mode BatchNorm tail kernel
+def _bn_tail_case(dev, shape, layout, rate, seed=0):
+    """A bf16 conv output of ``shape`` in ``layout``, a float32 BatchNorm
+    away from the identity, running statistics and a keep-mask of ``rate``
+    (None for 0)."""
+    from torch import nn
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n, c = shape[:2]
+    x = (torch.randn(shape, generator=g, device=dev) * 1.5 + 0.3).to(torch.bfloat16)
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    norm = nn.BatchNorm2d(c).to(dev)
+    with torch.no_grad():
+        norm.weight.uniform_(0.5, 1.5, generator=g)
+        norm.bias.uniform_(-0.5, 0.5, generator=g)
+    running = (torch.rand(c, generator=g, device=dev),
+               torch.rand(c, generator=g, device=dev) + 0.5)
+    mask = (torch.rand((n, c, 1, 1), generator=g, device=dev) >= rate) if rate else None
+    return x, norm, running, mask
+
+
+def _bn_tail_chain(x, norm, running, mask, keep):
+    """The plain chain ``ConvBlock.forward_train`` runs without the kernel,
+    and its float32 y (where LeakyReLU's branch is decided)."""
+    from pcss_unet_tpu_torch.models.unet import _act, batch_norm_train
+
+    y, new = batch_norm_train(x, norm, running, torch.float32)
+    a = _act("leaky_relu", y).to(x.dtype)
+    if mask is not None:
+        a = torch.where(mask, a / keep, torch.zeros_like(a))
+    return a, new, y.detach()
+
+
+def _bf16_close(got, want, where=None, roundings=1):
+    """Within ``roundings`` bf16 roundings of each value (the dropout's
+    output is rounded twice: a flip of the first, from the statistics'
+    float32 sums in another order, carries through the second), plus a
+    floor of 1e-5 of the largest for values that cancel (float32 noise
+    before the rounding); ``where``: the elements held.  → the share of
+    codes that differ."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    ok = d <= roundings * 2 ** -7 * want.abs() + 1e-5 * want.abs().max()
+    if where is not None:
+        ok |= ~where
+    assert bool(ok.all()), (d.max().item(), int((~ok).sum()))
+    return (d > 0).float().mean().item()
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+@pytest.mark.parametrize("case,shape,rate", [
+    ("L0_conv_b_64", (8, 64, 512, 1024), 0.0),      # enc_0 / dec_2 conv_b at L0
+    ("dec_1_conv_a_512", (8, 512, 256, 512), 0.2),  # dec_1 conv_a at L1, dropout
+])
+def test_bn_tail_kernel_against_the_plain_chain(dev, case, shape, rate, layout):
+    """The kernel pair at w64 batch-8 training shapes against the plain
+    chain in bf16, both storages: output codes within one bf16 rounding
+    (the statistics' float32 sums in another order; two with the dropout's
+    second rounding), the running statistics within 1e-5, dx within one bf16 rounding (elements whose
+    float32 y is within 1e-6 of the largest |y| of 0, where LeakyReLU's
+    branch may fall either way, are left out and counted), dγ and dβ within
+    1e-4 of the largest (float32 sums of N·H·W products in another order);
+    output and dx in x's storage; three launches a pass."""
+    from pcss_unet_tpu_torch.models.unet import BN_MOMENTUM
+    from pcss_unet_tpu_torch.ops.kernels import bn_train as kbn
+
+    x, norm, running, mask = _bn_tail_case(dev, shape, layout, rate)
+    keep = 1.0 - rate
+    xa = x.detach().clone().requires_grad_()
+    want, want_new, y = _bn_tail_chain(xa, norm, running, mask, keep)
+    g = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev).to(torch.bfloat16)
+    want_grads = torch.autograd.grad(want, [xa, norm.weight, norm.bias], g)
+    before = kbn.bn_act_dropout_train.launches
+    xb = x.detach().clone().requires_grad_()
+    got, *got_new = kbn.bn_act_dropout_train(xb, norm.weight, norm.bias, *running,
+                                             mask, keep, 0.2, norm.eps, BN_MOMENTUM)
+    assert kbn.bn_act_dropout_train.launches == before + 3
+    assert got.stride() == x.stride() and got.dtype == torch.bfloat16
+    _bf16_close(got, want, roundings=1 if mask is None else 2)
+    for a, b in zip(got_new, want_new):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    got_grads = torch.autograd.grad(got, [xb, norm.weight, norm.bias], g)
+    assert kbn.bn_act_dropout_train.launches == before + 6
+    assert got_grads[0].stride() == x.stride()
+    decided = y.abs() > 1e-6 * y.abs().max()
+    assert (~decided).float().mean().item() < 1e-5
+    _bf16_close(got_grads[0], want_grads[0], decided)
+    for a, b in zip(got_grads[1:], want_grads[1:]):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+def test_bn_tail_kernel_in_the_checkpointed_bottleneck(dev, layout):
+    """The w64 bottleneck block (512 → 1024 at L3, batch 8, dropout) under
+    torch.utils.checkpoint, as the train forward runs it: the kernel route,
+    the same output and gradients as without the checkpoint exactly (the
+    recompute runs the same kernels), and within bf16 noise of the block's
+    plain chain (the output within 2 % of its largest, each leaf's gradient
+    within 1 % in norm, running statistics within 1e-4); the recompute
+    launches the forward's kernels again."""
+    from torch.utils.checkpoint import checkpoint
+
+    from pcss_unet_tpu_torch.models.unet import ConvBlock
+    from pcss_unet_tpu_torch.ops.kernels import bn_train as kbn
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.manual_seed(0)
+        blk = ConvBlock(512, 1024, 0.2, dtype=torch.bfloat16).to(dev).train()
+        x, _, _, mask = _bn_tail_case(dev, (8, 512, 64, 128), layout, 0.2)
+        running = tuple(b.detach() for b in blk.buffers() if b.is_floating_point())
+        g = torch.randn((8, 1024, 64, 128), device=dev).to(torch.bfloat16)
+        runs = {}
+        for mode in ("checkpoint", "direct", "plain"):
+            xi = x.detach().clone().requires_grad_()
+            if mode == "plain":
+                blk._tail_fusable = lambda *a: False
+            before = kbn.bn_act_dropout_train.launches
+            if mode == "checkpoint":
+                out, st = checkpoint(blk.forward_train, xi, mask, running, None, None,
+                                     use_reentrant=False, preserve_rng_state=False)
+            else:
+                out, st = blk.forward_train(xi, mask, running)
+            fwd = kbn.bn_act_dropout_train.launches - before
+            grads = torch.autograd.grad(out, [xi] + list(blk.parameters()), g)
+            runs[mode] = (blk.route, out, st, grads, fwd,
+                          kbn.bn_act_dropout_train.launches - before - fwd)
+        ck, di, pl = runs["checkpoint"], runs["direct"], runs["plain"]
+        assert ck[0] == di[0] == "bn_act_dropout_train" and pl[0] == "plain"
+        assert (di[4:], ck[4:], pl[4:]) == ((6, 6), (6, 12), (0, 0))
+        assert torch.equal(ck[1], di[1])
+        assert all(torch.equal(a, b) for a, b in zip(ck[2] + ck[3], di[2] + di[3]))
+        # conv_b reads conv_a's tail, which the two chains round apart in
+        # some values (twice with the dropout): the block's output and its
+        # running statistics agree to that noise, not to one rounding
+        d = (di[1].float() - pl[1].float()).abs().max().item()
+        assert d <= 2e-2 * pl[1].float().abs().max().item()
+        for a, b in zip(di[2], pl[2]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        # every leaf's gradient within 1 % in norm of max(its norm, the
+        # median leaf's): the two bf16 chains round some activations apart,
+        # and the convolutions' bf16 weight gradients sum 65,536 such
+        # products each; the conv biases in front of a BatchNorm have a zero
+        # true gradient (noise)
+        sizes = [b.float().norm().item() for b in pl[3]]
+        floor = float(np.median(sizes))
+        for a, b, size in zip(di[3], pl[3], sizes):
+            assert (a.float() - b.float()).norm().item() <= 1e-2 * max(size, floor)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def test_bf16_train_forward_routes_every_block_to_the_tail_kernel(dev):
+    """A bf16 ``forward_train`` on the card routes every block to
+    ``bn_act_dropout_train`` (three launches a conv output; the backward
+    three more, and three a conv output of the checkpointed bottleneck's
+    recompute); a float64 one, and a float32 one, still route ``plain``."""
+    from pcss_unet_tpu_torch.models.unet import UNet
+    from pcss_unet_tpu_torch.ops.kernels import bn_train as kbn
+    from pcss_unet_tpu_torch.ops.kernels import reset_launch_counts
+
+    x = torch.rand((2, 64, 96, 4), device=dev)
+    model = UNet(encoder_widths=(16, 32, 64), dtype=torch.bfloat16).to(dev).train()
+    masks = model.dropout_masks(2, torch.Generator(dev).manual_seed(0), dev)
+    convs = 2 * len(model.blocks())
+    reset_launch_counts()
+    with torch.no_grad():
+        model.forward_train(x, masks)
+    assert set(model.routes().values()) == {"bn_act_dropout_train"}
+    assert kbn.bn_act_dropout_train.launches == 3 * convs
+    reset_launch_counts()
+    out, _ = model.forward_train(x, masks)
+    torch.autograd.grad(out.sum(), list(model.parameters()))
+    assert kbn.bn_act_dropout_train.launches == 3 * convs + 3 * convs + 3 * 2
+    for dtype in (torch.float64, torch.float32):
+        m = UNet(encoder_widths=(16, 32, 64), dtype=dtype).to(dev, dtype).train()
+        m.forward_train(x.to(dtype), {})
+        assert set(m.routes().values()) == {"plain"}
+
+
 # ------------------------------------------------------ governor and cache
 def _probe_net(dev, **kw):
     from pcss_unet_tpu_torch.config import Config
