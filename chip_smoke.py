@@ -3439,12 +3439,13 @@ def main() -> int:
               xbf, wbf.contiguous(memory_format=torch.channels_last), padding=1))})
 
     # the constant weight preparation every w64 frame repeats: the int8
-    # quantization of the int8 blocks' weights, as ConvBlock calls it
+    # quantization of the int8 blocks' weights, as deploy.block_nhwc calls it
     int8_blocks = [getattr(e64_nhwc.model, b) for b in ("dec_0", "dec_1")]
     emit({"phase": "weight_prep", "blocks": ["dec_0", "dec_1"],
-          "ms_per_frame": cuda_ms(lambda: [deploy.int8_weights(
-              b.conv_a.weight.permute(2, 3, 1, 0),
-              b.conv_b.weight.permute(2, 3, 1, 0)) for b in int8_blocks])})
+          "ms_per_frame": cuda_ms(lambda: [deploy.int8_operands(
+              b.conv_a.weight.permute(2, 3, 1, 0), b.conv_a.bias,
+              b.conv_b.weight.permute(2, 3, 1, 0), b.conv_b.bias)
+              for b in int8_blocks])})
 
     # the w64 forward through the kernels against every kernel's plain version
     for engine64 in (e64_nhwc, e64_chw):

@@ -14,16 +14,13 @@ whole forward:
   epilogue
 - pools, upsamples, the folded head resize and the skip-adds work on the
   padded tensor (resize matrices are zero-padded, so pad columns stay zero)
-- wide stages with no channels-major kernel are plain convolutions, except
-  where the int8 gate sends them through the NHWC int8 kernels (K3
-  ``fused_block_int8_nhwc``, or K5 ``fused_block_int8_kchunked`` where K3's
-  weights would not fit) in a local NHWC interlude; with ``wide="nhwc"``
-  the 128-channel stages there take K6 ``fused_block128_nhwc``
+- wide stages are plain convolutions, or go through the NHWC kernels (K3,
+  K5, and with ``wide="nhwc"`` K6) in a local NHWC interlude
 - exit: slice, pixel shuffle, sigmoid back to [N, H, W, out_ch]
 
 Semantics match ``UNet`` at inference on BN-folded variables; pinned against
-the reference engine by ``tests/test_torch_chw_engine.py``.  The stage
-routing is the reference's: the same gates pick the same kernels.
+the reference engine by ``tests/test_torch_chw_engine.py``.  Each stage's
+kernel is the reference's, from ``ops/kernels/deploy.py::route``.
 """
 
 from __future__ import annotations
@@ -34,7 +31,8 @@ import torch.nn.functional as F
 
 from pcss_unet_tpu_torch.models.unet import widths_from_params
 from pcss_unet_tpu_torch.ops.kernels.convblock import fused_conv_block_chw
-from pcss_unet_tpu_torch.ops.kernels.deploy import block_kernel_nhwc
+from pcss_unet_tpu_torch.ops.kernels.deploy import (block_nhwc, chw_operands,
+                                                    nhwc_interlude, route)
 from pcss_unet_tpu_torch.ops.pixelshuffle import padded_width as _wp
 from pcss_unet_tpu_torch.ops.pixelshuffle import pixel_unshuffle_chw_padded
 from pcss_unet_tpu_torch.ops.resize import (apply_matrix, matrix_on,
@@ -61,6 +59,13 @@ def _param(p, device) -> torch.Tensor:
     if isinstance(p, torch.Tensor):
         return p.to(device)
     return torch.tensor(p, device=device)
+
+
+def _weights(p, device) -> tuple[torch.Tensor, ...]:
+    """A block's HWIO ``(kernel_a, bias_a, kernel_b, bias_b)`` on
+    ``device``."""
+    return tuple(_param(p[conv][leaf], device)
+                 for conv in ("conv_a", "conv_b") for leaf in ("kernel", "bias"))
 
 
 def _exit_nhwc(x: torch.Tensor, w: int, out_ch: int) -> torch.Tensor:
@@ -100,14 +105,14 @@ def _block_chw_plain(x, p, *, dtype, residual=None):
     float32 on dtype-rounded operands (the reference's nine shifted einsums,
     ``_block_chw_einsum``).  Pad columns of the output are not zero; every
     consumer of a wide stage (pool, upsample) filters them."""
-    dev = x.device
-    ka = _param(p["conv_a"]["kernel"], dev).to(dtype).float()   # HWIO
-    hid = F.conv2d(x.float(), ka.permute(3, 2, 0, 1), padding=1)
-    hid = hid + _param(p["conv_a"]["bias"], dev).float()[None, :, None, None]
+    ka, b1, kb, b2 = _weights(p, x.device)                      # HWIO
+    hid = F.conv2d(x.float(), ka.to(dtype).float().permute(3, 2, 0, 1),
+                   padding=1)
+    hid = hid + b1.float()[None, :, None, None]
     hid = _leaky(hid).to(dtype).float()
-    w2 = _param(p["conv_b"]["kernel"], dev)[0, 0].to(dtype).float()  # [Cm, Co]
+    w2 = kb[0, 0].to(dtype).float()                              # [Cm, Co]
     out = torch.einsum("cm,nchw->nmhw", w2, hid)
-    out = out + _param(p["conv_b"]["bias"], dev).float()[None, :, None, None]
+    out = out + b2.float()[None, :, None, None]
     out = _leaky(out).to(dtype)
     return out if residual is None else out + residual
 
@@ -115,60 +120,23 @@ def _block_chw_plain(x, p, *, dtype, residual=None):
 def _block_chw(x, p, w, *, taps: str, dtype, residual=None):
     """Folded ConvBlock through the K2 kernel, no layout change.  Pad-column
     re-zeroing and the additive skip run in the kernel's epilogue."""
-    dev = x.device
-    with span("ops.weight_prep"):
-        ka = _param(p["conv_a"]["kernel"], dev).to(dtype)       # [3,3,Cin,Cm]
-        w1 = ka.permute(0, 1, 3, 2).reshape(9, ka.shape[3], ka.shape[2])
-        w2 = _param(p["conv_b"]["kernel"], dev)[0, 0].T.to(dtype)
-        b1 = _param(p["conv_a"]["bias"], dev).float()[:, None]
-        b2 = _param(p["conv_b"]["bias"], dev).float()[:, None]
+    w1, b1, w2, b2 = chw_operands(*_weights(p, x.device), dtype)
     return fused_conv_block_chw(
         x.to(dtype), w1, b1, w2, b2, negative_slope=0.2, taps=taps, true_w=w,
         residual=None if residual is None else residual.to(dtype))
 
 
-def _block_nhwc_plain(x, p, dtype):
-    """Folded ConvBlock as plain NHWC convolutions (the NHWC interlude)."""
-    hid = _block_chw_plain(x.permute(0, 3, 1, 2), p, dtype=dtype)
-    return hid.permute(0, 2, 3, 1)
-
-
-def _int8_stage(cin: int, cout: int) -> bool:
-    """The reference's int8 gate on a block's channel counts."""
-    return cin >= 256 and (cin * cout < 2 ** 18 or cin >= 1024)
-
-
-def _block_nhwc_dispatch(x, p, *, dtype, int8: bool):
-    """NHWC-interlude block dispatch with the reference's gates: the int8
-    whole-block kernels for the int8 stages, the 128-channel kernel (K6)
-    for the 128-in stages, each where its shape pick fits
-    (``ops.kernels.deploy``); plain convolutions otherwise."""
-    cin = x.shape[3]
-    cout = p["conv_b"]["kernel"].shape[-1]
-    dev = x.device
-    hit = block_kernel_nhwc(
-        x, _param(p["conv_a"]["kernel"], dev), _param(p["conv_a"]["bias"], dev),
-        _param(p["conv_b"]["kernel"], dev), _param(p["conv_b"]["bias"], dev),
-        dtype=dtype, int8=int8 and _int8_stage(cin, cout),
-        block128=cin == 128 and cout <= 128)
-    return _block_nhwc_plain(x, p, dtype) if hit is None else hit[1]
-
-
-def _to_nhwc(x: torch.Tensor, w: int) -> torch.Tensor:
-    return x[..., :w].permute(0, 2, 3, 1).contiguous()
-
-
-def _to_chw(x: torch.Tensor) -> torch.Tensor:
-    w = x.shape[2]
-    return F.pad(x.permute(0, 3, 1, 2), (0, _wp(w) - w)).contiguous()
-
-
-def _chw_fusable(cin: int, cout: int, use128: bool) -> bool:
-    """Which blocks stay channels-major through K2: the ≤64-in stages, plus
-    (``use128``) the 128-in stages."""
-    if cin <= 64 and cout <= 128:
-        return True
-    return use128 and cin == 128 and cout <= 128
+def _block_interlude(x, p, w, name, dtype):
+    """Folded ConvBlock in a local NHWC interlude: the true ``w`` columns
+    as NHWC through the kernel ``name`` (``ops.kernels.deploy``), or plain
+    convolutions where it is None, then repadded channels-major."""
+    xh = x[..., :w].permute(0, 2, 3, 1).contiguous()
+    if name is None:
+        out = _block_chw_plain(xh.permute(0, 3, 1, 2), p, dtype=dtype)
+    else:
+        out = block_nhwc(name, xh, *_weights(p, x.device),
+                         dtype=dtype).permute(0, 3, 1, 2)
+    return F.pad(out, (0, _wp(w) - w)).contiguous()
 
 
 def _check(h: int, w: int, depth: int, movers: str, wide: str) -> None:
@@ -229,14 +197,15 @@ def chw_forward_entered(variables: dict, x: torch.Tensor, w: int, *,
         t = (taps.get(name, taps.get("*", "stack"))
              if isinstance(taps, dict) else taps)
         with span(f"unet.{name}"):
-            if _chw_fusable(cin, cout, use128_chw):
+            kernel = route(cin, cout, x.shape[2], cur_w, layout="chw",
+                           int8=int8, use128_chw=use128_chw, wide=wide)
+            if kernel == "fused_conv_block_chw":
                 return _block_chw(x, p, cur_w, taps=t, dtype=dtype,
                                   residual=residual)
-            int8_stage = int8 and _int8_stage(cin, cout)
-            if wide == "einsum" or (wide == "auto" and not int8_stage):
+            if kernel is None and not nhwc_interlude(cin, cout, int8=int8,
+                                                     wide=wide):
                 return _block_chw_plain(x, p, dtype=dtype, residual=residual)
-            out = _to_chw(_block_nhwc_dispatch(_to_nhwc(x, cur_w), p,
-                                               dtype=dtype, int8=int8))
+            out = _block_interlude(x, p, cur_w, kernel, dtype)
             return out if residual is None else out + residual
 
     skips = []

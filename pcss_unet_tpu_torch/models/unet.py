@@ -23,13 +23,10 @@ modules run NCHW.  This is the forward of ``layout="nhwc"`` and the tests'
 reference for the channels-major engine.
 
 The deployment posture (``fused_inference`` / ``int8_inference`` on a
-BN-folded net at eval) routes each ConvBlock as the reference's gates do
-(``_int8able``, ``_fusable128``, ``_fusable``, same precedence): int8
-whole-block kernels (K3, or K5 where K3's weights would not fit) for the
-≥256-channel inputs, the NHWC 128-channel kernel (K6), the channels-major
-kernel through its NHWC wrapper (K2′) for ≤64-channel inputs, plain
-convolutions otherwise.  As in the reference, only a LeakyReLU block
-without dilation takes a kernel.  The kernels take NHWC; the NCHW
+BN-folded net at eval) routes each LeakyReLU ConvBlock without dilation
+as the reference does (``ops/kernels/deploy.py::route``): K3 or K5 for
+the int8 stages, K6 for the 128-channel ones, K2′ for ≤64-channel inputs,
+plain convolutions otherwise.  The kernels take NHWC; the NCHW
 activations reach them as permuted views.
 
 Training runs ``UNet.forward_train``, the reference's ``train=True``
@@ -84,7 +81,8 @@ from torch.utils.checkpoint import checkpoint
 
 from pcss_unet_tpu_torch.ops.kernels.bn_train import bn_act_dropout_train
 from pcss_unet_tpu_torch.ops.kernels.convblock import fused_conv_block_nhwc
-from pcss_unet_tpu_torch.ops.kernels.deploy import block_kernel_nhwc
+from pcss_unet_tpu_torch.ops.kernels.deploy import (block_nhwc, chw_operands,
+                                                    route)
 from pcss_unet_tpu_torch.ops.pixelshuffle import (pixel_shuffle_nhwc,
                                                   pixel_unshuffle_nhwc)
 from pcss_unet_tpu_torch.ops.resize import (apply_matrix, interp_matrix,
@@ -239,55 +237,34 @@ class ConvBlock(nn.Module):
         self.conv_b = nn.Conv2d(in_ch, features, 1)
         self.norm_b = _norm(normalization, features)
 
-    # The reference's deployment gates (pcss_unet_tpu/models/unet.py:138-182)
-    # on the NCHW input's channel count: eval, folded, LeakyReLU, no dilation.
-    def _deployable(self) -> bool:
-        return (not self.training and self.normalization == "none"
+    def _deployed(self) -> bool:
+        """Whether the block asks ``deploy.route`` for a kernel: a
+        deployment switch on, eval, folded, LeakyReLU, no dilation."""
+        return ((self.fused_inference or self.int8_inference)
+                and not self.training and self.normalization == "none"
                 and self.activation == "leaky_relu" and not self.apply_dilation)
 
-    def _fusable128(self, x: torch.Tensor) -> bool:
-        return (self.fused_inference and self._deployable()
-                and x.shape[1] == 128 and self.features <= 128)
-
-    def _fusable(self, x: torch.Tensor) -> bool:
-        return (self.fused_inference and self._deployable()
-                and x.shape[1] <= 64 and self.features <= 128)
-
-    def _int8able(self, x: torch.Tensor) -> bool:
-        cin = x.shape[1]
-        return (self.int8_inference and self._deployable() and cin >= 256
-                and (cin * self.features < 2 ** 18 or cin >= 1024))
-
     def _kernel_block(self, x: torch.Tensor) -> torch.Tensor | None:
-        """The block through a deployment kernel (named in ``self.route``),
-        or None where the gates leave it to the plain convolutions."""
-        if not ((self.fused_inference or self.int8_inference)
-                and self._deployable()):
+        """The block through the kernel ``deploy.route`` picks (named in
+        ``self.route``), NHWC out, or None where it picks none."""
+        name = route(x.shape[1], self.features, x.shape[2], x.shape[3],
+                     int8=self.int8_inference, fused=self.fused_inference)
+        if name is None:
             return None
-        cin = x.shape[1]
+        self.route = name
         xh = x.to(self.dtype).permute(0, 2, 3, 1)              # NHWC view
-        b1, b2 = self.conv_a.bias.float(), self.conv_b.bias.float()
-        hit = block_kernel_nhwc(
-            xh, self.conv_a.weight.permute(2, 3, 1, 0), b1,    # HWIO
-            self.conv_b.weight.permute(2, 3, 1, 0), b2, dtype=self.dtype,
-            int8=self._int8able(x), block128=self._fusable128(x))
-        if hit is not None:
-            self.route, out = hit
-            return out
-        if self._fusable(x):
-            with span("ops.weight_prep"):
-                w1 = (self.conv_a.weight.permute(2, 3, 0, 1).reshape(9, cin, cin)
-                      .to(self.dtype))
-                w2 = self.conv_b.weight[:, :, 0, 0].to(self.dtype)
-            self.route = "fused_conv_block_nhwc"
-            return fused_conv_block_nhwc(xh, w1, b1[:, None], w2, b2[:, None],
+        w = (self.conv_a.weight.permute(2, 3, 1, 0), self.conv_a.bias,  # HWIO
+             self.conv_b.weight.permute(2, 3, 1, 0), self.conv_b.bias)
+        if name == "fused_conv_block_nhwc":
+            return fused_conv_block_nhwc(xh, *chw_operands(*w, self.dtype),
                                          negative_slope=0.2)
-        return None
+        return block_nhwc(name, xh, *w, dtype=self.dtype)
 
     def forward(self, x: torch.Tensor, rows=None) -> torch.Tensor:
         """``rows``: x is a row shard (plain convolutions; no kernel takes
         a shard)."""
-        out = self._kernel_block(x) if rows is None else None
+        out = (self._kernel_block(x) if rows is None and self._deployed()
+               else None)
         if out is not None:
             return out.permute(0, 3, 1, 2)
         self.route = "plain"

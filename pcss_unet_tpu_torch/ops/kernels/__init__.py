@@ -4,8 +4,8 @@ module, each with its plain PyTorch version beside it.
 Every wrapper takes the plain version for a CPU tensor and launches its
 kernel (or raises) for a CUDA tensor, and counts kernel launches in a
 ``launches`` attribute.  Sources live in ``pcss_unet_tpu_torch/csrc/`` and
-are built by ``_build`` at first use.  ``deploy`` turns a folded block's
-weights into the int8 and 128-channel kernels' operands for both forwards.
+are built by ``_build`` at first use.  ``deploy`` is both inference
+forwards' dispatch: which kernel takes a folded block, and its operands.
 ``resize`` holds the banded resize behind ``ops/resize.py::apply_matrix``,
 a kernel with no TPU counterpart: it is not in ``KERNELS`` (the ported
 ones), and ``reset_launch_counts`` zeroes its ``launches`` too.  So does

@@ -92,21 +92,26 @@ def test_nhwc_posture_render_u8(rng):
     assert np.abs(u8.astype(int) - ref.astype(int)).max() <= 1
 
 
-@pytest.mark.parametrize("cin,cout,hw,int8,block128,route", [
+@pytest.mark.parametrize("cin,cout,hw,int8,fused,route", [
     (256, 128, (8, 16), True, False, "fused_block_int8_nhwc"),
     (1024, 64, (8, 16), True, False, "fused_block_int8_kchunked"),
     (128, 64, (16, 32), False, True, "fused_block128_nhwc"),
     (256, 32, (8, 16), True, True, None),      # Cout % 64: no pick fits
 ])
-def test_block_kernel_nhwc_routes(rng, cin, cout, hw, int8, block128, route):
-    """The shared dispatch of both forwards: the route its picks choose, and
-    an output equal (exactly: the same operands, the same plain versions on
-    the CPU) to the wrapper called on operands packed by the reference's
-    host-side ``pack_block_int8_params`` / ``pack_block128_params``."""
+def test_block_kernel_nhwc_routes(rng, cin, cout, hw, int8, fused, route):
+    """The deployment dispatch of both forwards: the route ``deploy.route``
+    picks, and ``deploy.block_nhwc``'s output on it equal (exactly: the same
+    operands, the same plain versions on the CPU) to the wrapper called on
+    operands packed by the reference's host-side ``pack_block_int8_params``
+    / ``pack_block128_params``."""
     from pcss_unet_tpu_torch.ops.kernels import block_int8 as kb8
     from pcss_unet_tpu_torch.ops.kernels import convblock128 as kc128
-    from pcss_unet_tpu_torch.ops.kernels.deploy import block_kernel_nhwc
+    from pcss_unet_tpu_torch.ops.kernels import deploy
 
+    name = deploy.route(cin, cout, *hw, int8=int8, fused=fused)
+    assert name == route
+    if route is None:
+        return
     p = {"conv_a": {"kernel": 0.05 * rng.standard_normal((3, 3, cin, cin)),
                     "bias": 0.1 * rng.standard_normal(cin)},
          "conv_b": {"kernel": 0.05 * rng.standard_normal((1, 1, cin, cout)),
@@ -114,13 +119,9 @@ def test_block_kernel_nhwc_routes(rng, cin, cout, hw, int8, block128, route):
     p = {k: {n: v.astype(np.float32) for n, v in d.items()} for k, d in p.items()}
     x = torch.from_numpy(rng.standard_normal((1, *hw, cin)).astype(np.float32))
     t = {k: {n: torch.from_numpy(v) for n, v in d.items()} for k, d in p.items()}
-    hit = block_kernel_nhwc(x, t["conv_a"]["kernel"], t["conv_a"]["bias"],
+    got = deploy.block_nhwc(name, x, t["conv_a"]["kernel"], t["conv_a"]["bias"],
                             t["conv_b"]["kernel"], t["conv_b"]["bias"],
-                            dtype=torch.float32, int8=int8, block128=block128)
-    if route is None:
-        assert hit is None
-        return
-    assert hit[0] == route
+                            dtype=torch.float32)
     if route == "fused_block128_nhwc":
         want = kc128.fused_block128_nhwc(
             x, *kc128.pack_block128_params(p, dtype=torch.float32))
@@ -132,7 +133,125 @@ def test_block_kernel_nhwc_routes(rng, cin, cout, hw, int8, block128, route):
         k, cc = kb8.pick_kchunked(*hw, cin, cout)
         want = kb8.fused_block_int8_kchunked(
             x, *kb8.pack_block_int8_params(p), k_rows=k, c_chunk=cc)
-    torch.testing.assert_close(hit[1], want, rtol=0, atol=0)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _reference_route(cin, cout, h, w, *, layout, int8, fused=True,
+                     use128_chw=True, wide="auto"):
+    """The reference's routing of a folded block, from the JAX package's
+    own gates and picks: ``ConvBlock.__call__``'s order for the NHWC model,
+    ``chw_forward``'s ``any_block`` and ``_block_nhwc_dispatch`` for the
+    channels-major engine."""
+    from pcss_unet_tpu.infer.chw_engine import _chw_fusable
+    from pcss_unet_tpu.models.unet import ConvBlock as JBlock
+    from pcss_unet_tpu.ops.pallas.block_int8 import (pick_k_rows_int8,
+                                                     pick_kchunked)
+    from pcss_unet_tpu.ops.pallas.convblock128 import pick_k_rows_128
+
+    x = jax.ShapeDtypeStruct((1, h, w, cin), jnp.float32)
+    block = JBlock(features=cout, normalization="none", int8_inference=int8,
+                   fused_inference=fused)
+    # the int8 gate as both reference forwards write it
+    int8_stage = JBlock(features=cout, normalization="none",
+                        int8_inference=True)._int8able(x, False)
+    if layout == "chw":
+        if _chw_fusable(cin, cout, use128_chw):
+            return "fused_conv_block_chw"
+        if wide == "einsum" or (wide == "auto" and not (int8 and int8_stage)):
+            return None
+        int8_gate, gate128 = int8 and int8_stage, cin == 128 and cout <= 128
+    else:
+        int8_gate = block._int8able(x, False)
+        gate128 = block._fusable128(x, False)
+    if int8_gate:
+        if pick_k_rows_int8(h, w, cin, cout):
+            return "fused_block_int8_nhwc"
+        if pick_kchunked(h, w, cin, cout):
+            return "fused_block_int8_kchunked"
+    if gate128 and pick_k_rows_128(h, w, cin, cout):
+        return "fused_block128_nhwc"
+    if layout == "nhwc" and block._fusable(x, False):
+        return "fused_conv_block_nhwc"
+    return None
+
+
+# (cin, cout, h, w) → the route of the NHWC model with both switches on,
+# and of the channels-major engine with int8 and its defaults
+ROUTE_CASES = [
+    ((512, 128, 272, 480), "fused_block_int8_nhwc", "fused_block_int8_nhwc"),
+    ((256, 128, 8, 16), "fused_block_int8_nhwc", "fused_block_int8_nhwc"),
+    ((1024, 512, 136, 240), "fused_block_int8_kchunked",
+     "fused_block_int8_kchunked"),
+    ((1024, 64, 8, 16), "fused_block_int8_kchunked", "fused_block_int8_kchunked"),
+    ((512, 1024, 68, 120), None, None),        # enc_3's class: not an int8 stage
+    ((128, 64, 16, 32), "fused_block128_nhwc", "fused_conv_block_chw"),
+    ((128, 128, 544, 960), "fused_block128_nhwc", "fused_conv_block_chw"),
+    ((128, 256, 16, 32), None, None),          # 128-in, too wide out
+    ((64, 128, 32, 64), "fused_conv_block_nhwc", "fused_conv_block_chw"),
+    ((16, 64, 1088, 1920), "fused_conv_block_nhwc", "fused_conv_block_chw"),
+    ((64, 256, 32, 64), None, None),           # ≤64-in, too wide out
+    ((256, 32, 8, 16), None, None),            # an int8 stage no pick fits
+]
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "chw"])
+@pytest.mark.parametrize("shape,nhwc_route,chw_route", ROUTE_CASES)
+def test_route_matches_the_reference_gates(shape, nhwc_route, chw_route,
+                                           layout):
+    """``deploy.route`` ≡ the reference's gates and picks in every posture
+    of the layout: the NHWC model's two switches; the engine's ``int8``,
+    ``use128_chw`` and ``wide``."""
+    from pcss_unet_tpu_torch.ops.kernels.deploy import route
+
+    if layout == "nhwc":
+        postures = [dict(int8=i, fused=f) for i in (True, False)
+                    for f in (True, False) if i or f]
+        assert route(*shape, int8=True) == nhwc_route
+    else:
+        postures = [dict(int8=i, use128_chw=u, wide=wd) for i in (True, False)
+                    for u in (True, False) for wd in ("auto", "einsum", "nhwc")]
+        assert route(*shape, layout="chw", int8=True) == chw_route
+    for posture in postures:
+        assert (route(*shape, layout=layout, **posture)
+                == _reference_route(*shape, layout=layout, **posture)), posture
+
+
+def test_forwards_call_the_wrappers_the_benchmark_patches(rng, monkeypatch):
+    """Both inference forwards call each kernel wrapper through the module
+    name the benchmark's ``roofline/K*.py::WRAPPERS`` replace: each one,
+    replaced by a counting pass-through, is called on every route a net
+    takes (K2′, K3, K5 and K6 on the NHWC fused+int8 posture; K2, K3 and
+    K5 on the channels-major int8 engine), and the outputs are the
+    unpatched run's."""
+    import importlib
+
+    widths = (16, 64, 128, 256, 1024)
+    v = _variables(widths)
+    x = rng.standard_normal((1, 64, 128, 4)).astype(np.float32)
+    pairs = [(m, a) for k in range(1, 7) for m, a in importlib.import_module(
+        f"benchmark.roofline.K{k}").WRAPPERS]
+    for layout, routes in (
+            ("nhwc", {"fused_conv_block_nhwc", "fused_block_int8_nhwc",
+                      "fused_block_int8_kchunked", "fused_block128_nhwc"}),
+            ("chw", {"fused_conv_block_chw", "fused_block_int8_nhwc",
+                     "fused_block_int8_kchunked"})):
+        eng = InferenceEngine(None, v, dtype=torch.float32, fold_bn=True,
+                              quantize="int8", layout=layout, device="cpu")
+        want = eng(x)
+        calls = {}
+        for modname, attr in pairs:
+            fn = getattr(importlib.import_module(modname), attr)
+
+            def counted(*a, fn=fn, attr=attr, **k):
+                calls[attr] = calls.get(attr, 0) + 1
+                return fn(*a, **k)
+            monkeypatch.setattr(importlib.import_module(modname), attr, counted)
+        got = eng(x)
+        monkeypatch.undo()
+        if layout == "nhwc":
+            assert set(eng.model.routes().values()) == routes | {"plain"}
+        assert routes <= set(calls), (layout, calls)
+        np.testing.assert_array_equal(got, want)
 
 
 # ------------------------------------------------------------ deploy_w16
