@@ -127,10 +127,13 @@ Then the chain from renders to a trained net, every command through
    line per recorded call (each tensor argument's shape and strides, ms,
    ``ms_cold``: the mean of 10 calls each after a 128 MiB write that
    flushes the L2, CUDA events around the call alone, bound, its share of
-   the kernel's time, plain ms, max and signed mean of the difference), with ``device_ms``: the device time of the library's
-   kernels in the call, from torch.profiler over 20 more calls, and its
-   ``device_bound_share`` (``device_total_ms`` adds the wrapper's own
-   device copies and casts).  K1 is checked as each path calls it (entry
+   the kernel's time, plain ms, max and signed mean of the difference), with
+   ``device_total_ms``: the call's device time from CUDA events around 20
+   calls queued behind a device-side wait, ``device_ms``: that less the
+   wrapper's own device copies and casts (from torch.profiler over 20 more
+   calls), its ``device_bound_share``, and ``profile_kernel_events``: the
+   library's kernel events the profile kept a call; K2′'s lines name the
+   ``stage`` it took (``convblock.stage_of``).  K1 is checked as each path calls it (entry
    ``chw`` or ``nhwc``, bf16) and in the reference's layout (entry None).
    The headline path of K1–K4 is
    the w16 2048×1024 chw+int8 forward, that of K5 (w64 ``dec_0``), K6 (w64
@@ -170,7 +173,8 @@ Then the chain from renders to a trained net, every command through
 6. ``main_path_w64_nhwc``: 1920×1080 frames padded to 1920×1088 through the
    NHWC fused+int8 ``render_u8`` of the w64 net ``(64, 128, 512, 1024)``
    with seeded weights (per frame: K1 ×1, K2′ ×3 and so K2 ×3, K3 ×1,
-   K5 ×1, K6 ×1, K4 ×1; the stage routing is printed), then a profile.
+   K5 ×1, K6 ×1, K4 ×1; the stage routing is printed; K2′ copies none of
+   its inputs, as every main path must), then a profile.
 7. ``main_path_w64_chw``: the same frames through the chw+int8 engine (per
    frame: K1 ×1, K2 ×4, K3 ×1, K5 ×1, K4 ×1), then a profile.
    ``sharded_infer``: the spatially sharded forward (``infer_sharded``) on
@@ -461,9 +465,9 @@ def record_calls(run, patched):
     """Run ``run()`` (one forward) with the given kernel wrappers (module,
     name, key) recording their arguments (the inputs the main path gives
     each) as copies with the caller's strides, so that a wrapper is timed on
-    the layout the main path hands it (K2′, for one, gets an NHWC view of
-    NCHW storage, which its padding turns back into NCHW without a
-    transpose)."""
+    the layout the main path hands it (K2′, for one, stages channels-last
+    storage at ``enc_0`` and ``dec_final`` and channels-major storage at
+    ``enc_1`` in place, each its own way)."""
     import torch
 
     calls = {key: [] for _, _, key in patched}
@@ -543,13 +547,52 @@ def profile_frame(phase, engine, frames, frame_ms: float, own) -> dict:
             "top_device_ms": [[e.key[:70], dev_ms(e), e.count] for e in top]}
 
 
+QUEUE_CYCLES = 200_000_000     # the device-side wait ahead of queued calls (~0.1 s)
+
+
+def queued_device_ms(fn, iters: int = 20):
+    """Device time per call of ``fn`` from CUDA events around ``iters``
+    calls queued behind a device-side wait, so that the device never waits
+    for the host between them: the calls' device work alone (kernels,
+    copies, casts; warm L2).  None where enqueuing the calls took the host
+    longer than the wait lasted."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(QUEUE_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    if host_ms >= ev[0].elapsed_time(ev[1]):
+        return None
+    return ev[1].elapsed_time(ev[2]) / iters
+
+
 def kernel_device_ms(fn, own, iters: int = 20):
-    """Device time per call of ``fn`` from torch.profiler over ``iters``
-    calls: (the library's own kernels, every device event of the call),
-    ms; the first is None where the profile shows none of them."""
+    """Device time per call of ``fn``: (the library's own kernels, every
+    device operation of the call), ms, and the events of the library's
+    kernels that torch.profiler kept a call.  The whole is
+    :func:`queued_device_ms`; the library's kernels are the whole less the
+    other device operations of a profile of ``iters`` calls.  The profile's
+    own kernel times are not summed: late in this script it has kept about
+    half of K2's kernel events, which the count shows.  The first is None
+    where the profile shows none of the library's kernels, the first two
+    where the wait did not cover the calls."""
+    total = queued_device_ms(fn, iters)
     summed, _ = device_events(lambda: [fn() for _ in range(iters)], own)
-    mine = sum(dev_ms(e) for e in summed if any(k in e.key for k in own))
-    return (mine / iters if mine else None), sum(dev_ms(e) for e in summed) / iters
+    mine = [e for e in summed if any(k in e.key for k in own)]
+    other = (sum(dev_ms(e) for e in summed) - sum(dev_ms(e) for e in mine)) / iters
+    caught = sum(e.count for e in mine) / iters
+    if total is None:
+        return None, None, caught
+    return (max(total - other, 0.0) if mine else None), total, caught
 
 
 def kernel_names(log: str) -> set:
@@ -570,10 +613,10 @@ def check_kernel(name, kernel, plain, paths, tol_fn, work_fn, f32_case, own):
     float32 case with TF32 off.  Prints one ``kernel_call`` line per call
     (each tensor argument's shape and strides, times, bound, max and signed
     mean of the difference), so that a time can be put on a stage.  ``ms``
-    is the wrapper's time from CUDA events over 20 calls; ``device_ms`` the
-    device time of the library's kernels (``own``: their names) over 20 more
-    calls under torch.profiler, and ``device_total_ms`` that of every device
-    event of the call (the wrapper's own copies and casts too).  Returns the
+    is the wrapper's time from CUDA events over 20 calls; ``device_ms`` and
+    ``device_total_ms`` the device time of the library's kernels (``own``:
+    their names) and of every device operation of the call (the wrapper's
+    own copies and casts too), by :func:`kernel_device_ms`.  Returns the
     kernels-line entry: max |d| over every path, time, plain time and bound
     per frame of the headline path."""
     import torch
@@ -600,15 +643,16 @@ def check_kernel(name, kernel, plain, paths, tol_fn, work_fn, f32_case, own):
             t = cuda_ms(lambda: kernel(*args, **kw))
             tc = cuda_ms_cold(lambda: kernel(*args, **kw))
             ms_cold += tc
-            td, td_all = kernel_device_ms(lambda: kernel(*args, **kw), own)
+            td, td_all, caught = kernel_device_ms(lambda: kernel(*args, **kw), own)
             tp = cuda_ms(lambda: plain(*args, **pkw), iters=5, warmup=1)
             b, kind = work_fn(args, kw)
             ms, plain_ms, t_bound = ms + t, plain_ms + tp, t_bound + b
             dev = None if dev is None or td is None else dev + td
             by_ops += b if kind == "operations" else 0.0
             emit({"phase": "kernel_call", "name": name, "path": path,
+                  "stage": stage_name(name, args[0]),
                   "bound_share": b / t, "device_ms": td,
-                  "device_total_ms": td_all,
+                  "device_total_ms": td_all, "profile_kernel_events": caught,
                   "device_bound_share": None if td is None else b / td,
                   "call": i, "args": [[list(a.shape), list(a.stride())]
                                       for a in args if torch.is_tensor(a)],
@@ -641,6 +685,14 @@ def check_kernel(name, kernel, plain, paths, tol_fn, work_fn, f32_case, own):
     return {"name": name, "library_ms": None,
             "max_abs_err": max(p["max_abs_err"] for p in per_path.values()),
             **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+
+
+def stage_name(name, x):
+    """How K2′ stages x (``convblock.stage_of``: in place in one of its
+    stages, or ``copy``); None for the other kernels."""
+    from pcss_unet_tpu_torch.ops.kernels import convblock as kcb
+
+    return kcb.stage_of(x) if name == "fused_conv_block_nhwc" else None
 
 
 def f32(call):
@@ -888,10 +940,12 @@ def golden_phase(phase, variables, meta, xv, yv, layout):
 def main_path(phase, engine, frames, n_frames, want, card, own):
     """``n_frames`` frames through ``render_u8`` with every launch counter
     zeroed just before and read just after; every kernel must have launched
-    exactly ``want[name]`` times per frame (0 if absent)."""
+    exactly ``want[name]`` times per frame (0 if absent), and K2′ must have
+    read its input in place (``fused_conv_block_nhwc.copies`` 0)."""
     import torch
 
     from pcss_unet_tpu_torch.ops.kernels import (KERNELS, banded_resize,
+                                                 fused_conv_block_nhwc,
                                                  reset_launch_counts)
 
     engine.render_u8(frames)            # warm
@@ -909,6 +963,9 @@ def main_path(phase, engine, frames, n_frames, want, card, own):
     resize = {"launches_per_frame": banded_resize.launches / n_frames}
     if not resize["launches_per_frame"]:
         raise AssertionError(f"{phase}: no banded resize launched")
+    if fused_conv_block_nhwc.copies:
+        raise AssertionError(f"{phase}: K2′ copied its input "
+                             f"{fused_conv_block_nhwc.copies} times")
     out = outs[-1]
     b, h, w, _ = frames.shape
     if (tuple(out.shape) != (b, h, w, 1) or out.dtype != torch.uint8
@@ -916,6 +973,7 @@ def main_path(phase, engine, frames, n_frames, want, card, own):
         raise AssertionError(f"{phase}: bad output {tuple(out.shape)} {out.dtype}")
     line = {"phase": phase, "frames": n_frames, "frame_hw": [h, w],
             "ms_per_frame": frame_ms, "launches": launches,
+            "k2n_copies": fused_conv_block_nhwc.copies,
             "launches_per_frame_want": want, "banded_resize": resize, "card": card}
     if engine.model is not None:
         line["routes"] = engine.model.routes()
@@ -1949,7 +2007,7 @@ def bn_tail_phase(card: str, own) -> dict:
         worst["forward"], worst["stats"] = max(worst["forward"], over), max(worst["stats"], run_err)
         xb = a[0]
         t = cuda_ms(lambda: kbn._forward(*a))
-        td, _ = kernel_device_ms(lambda: kbn._forward(*a), mine)
+        td, *_ = kernel_device_ms(lambda: kbn._forward(*a), mine)
         tp = cuda_ms(lambda: kbn.bn_act_dropout_plain(*a), iters=3, warmup=1)
         b = 6 * xb.numel() / PEAK_BYTES_PER_S * 1e3
         for k, v in enumerate((t, td or 0.0, tp, b)):
@@ -1969,7 +2027,7 @@ def bn_tail_phase(card: str, own) -> dict:
         worst["backward"] = max(worst["backward"], over)
         worst["dgamma_dbeta"] = max(worst["dgamma_dbeta"], gerr)
         t = cuda_ms(lambda: kbn._backward(*a))
-        td, _ = kernel_device_ms(lambda: kbn._backward(*a), mine)
+        td, *_ = kernel_device_ms(lambda: kbn._backward(*a), mine)
         tp = cuda_ms(lambda: kbn.bn_act_dropout_backward_plain(g, xb, *a[2:]), iters=3, warmup=1)
         b = 10 * xb.numel() / PEAK_BYTES_PER_S * 1e3
         for k, v in enumerate((t, td or 0.0, tp, b)):

@@ -4,6 +4,11 @@
 // with ldmatrix fragments, cp.async copies, and the transposing stage that
 // turns three channels-major rows into a pixel-major A operand.
 //
+// Both stage their input in place from the storage the caller has (enum
+// Stage): channels-last (stage_rows_nhwc), channels-major with 16-byte reads
+// along W (stage_rows), channels-major element by element
+// (stage_rows_scalar; K6 only).
+//
 // Both kernels run kThreads threads (8 warps) on a tile of kTile output
 // columns, the GEMM M.  Shared-memory tiles keep a row stride of (a
 // multiple of 16) + 8 bf16 elements: the 8 rows of an ldmatrix then start 16
@@ -19,6 +24,12 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 256;       // threads per block: 8 warps
 constexpr int kTile = 128;          // output columns per block (GEMM M)
 constexpr int kStageW = kTile + 2;  // staged columns (one halo column each side)
+
+// How a kernel stages its input x: channels-last, 16-byte reads along C (C %
+// 8 == 0, x 16-byte aligned); channels-major, 16-byte reads along W (W % 8 ==
+// 0, x 16-byte aligned); channels-major element by element.  The wrappers
+// pick it from x's strides (ops/kernels/_build.py::stage_mode).
+enum Stage { kNhwc = 0, kCmajorVec = 1, kCmajorScalar = 2 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -101,15 +112,17 @@ __device__ __forceinline__ void mma_tile(float (&acc)[2][8][4], const bf16* a, i
 }
 
 // Stage the rows row-1..row+1, columns col0-1..col0+kTile of kp channels of
-// one channels-major image xn [C][H][W] (xn points at the first of them; W %
-// 8 == 0 and xn 16-byte aligned) into xs [3][kStageW][cs], pixel-major.
-// Channels >= cin, rows outside [0, H) and columns outside [0, W) are zero.
-// A unit is 8 channels x 8 pixels, read as one 16-byte vector along W per
-// channel and transposed in registers (prmt) into one 16-byte store per
-// pixel; W % 8 == 0 puts a unit wholly inside or wholly outside the image.
+// one channels-major image xn [C][H][W] (xn points at the first of them;
+// channel stride sc and row stride sh in elements, columns contiguous; W % 8
+// == 0, and xn, sc and sh 16-byte aligned) into xs [3][kStageW][cs],
+// pixel-major.  Channels >= cin, rows outside [0, H) and columns outside
+// [0, W) are zero.  A unit is 8 channels x 8 pixels, read as one 16-byte
+// vector along W per channel and transposed in registers (prmt) into one
+// 16-byte store per pixel; W % 8 == 0 puts a unit wholly inside or wholly
+// outside the image.
 __device__ __forceinline__ void stage_rows(bf16* xs, int cs, int kp, const bf16* xn, int cin,
-                                           int h, int w, int row, int col0) {
-  const size_t plane = (size_t)h * w;
+                                           int h, int w, int row, int col0, size_t sc,
+                                           size_t sh) {
   const int ncg = kp >> 3;
   for (int u = threadIdx.x; u < 3 * 16 * ncg; u += kThreads) {
     const int cg = u % ncg, pg = (u / ncg) & 15, r = u / (ncg * 16);
@@ -121,7 +134,7 @@ __device__ __forceinline__ void stage_rows(bf16* xs, int cs, int kp, const bf16*
       const int c = cg * 8 + j;
       uint4 q = make_uint4(0, 0, 0, 0);
       if (inside && c < cin)
-        q = *reinterpret_cast<const uint4*>(xn + (size_t)c * plane + (size_t)gr * w + col0 +
+        q = *reinterpret_cast<const uint4*>(xn + (size_t)c * sc + (size_t)gr * sh + col0 +
                                             pg * 8);
       v[j][0] = q.x;
       v[j][1] = q.y;
@@ -146,8 +159,45 @@ __device__ __forceinline__ void stage_rows(bf16* xs, int cs, int kp, const bf16*
     const int gr = row + r - 1, gc = s ? col0 + kTile : col0 - 1;
     bf16 val = __ushort_as_bfloat16((unsigned short)0);
     if (gr >= 0 && gr < h && gc >= 0 && gc < w && c < cin)
-      val = xn[(size_t)c * plane + (size_t)gr * w + gc];
+      val = xn[(size_t)c * sc + (size_t)gr * sh + gc];
     xs[(size_t)(r * kStageW + (s ? kStageW - 1 : 0)) * cs + c] = val;
+  }
+}
+
+// The same stage from channels-last storage xn [H][W][C] (row stride sh,
+// pixel stride sw in elements, channels contiguous; cin % 8 == 0, and xn, sh
+// and sw 16-byte aligned): 8 channels of a pixel are one 16-byte cp.async
+// straight into their place in the stage, no transpose.  Channels >= cin,
+// rows outside [0, H) and columns outside [0, W) are stored as zeros.  The
+// caller commits the copies and waits for them before the stage is read.
+__device__ __forceinline__ void stage_rows_nhwc(bf16* xs, int cs, int kp, const bf16* xn,
+                                                int cin, int h, int w, int row, int col0,
+                                                size_t sh, size_t sw) {
+  const int ncg = kp >> 3;
+  for (int u = threadIdx.x; u < 3 * kStageW * ncg; u += kThreads) {
+    const int cg = u % ncg, col = (u / ncg) % kStageW, r = u / (ncg * kStageW);
+    const int gr = row + r - 1, gc = col0 + col - 1;
+    bf16* dst = xs + (size_t)(r * kStageW + col) * cs + cg * 8;
+    if (gr >= 0 && gr < h && gc >= 0 && gc < w && cg * 8 < cin)
+      cp_async16(dst, xn + (size_t)gr * sh + (size_t)gc * sw + cg * 8);
+    else
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// The same stage element by element from channels-major storage xn
+// [C][H][W] (channel stride sc, row stride sh, columns contiguous; no
+// alignment asked), zeros as above.
+__device__ __forceinline__ void stage_rows_scalar(bf16* xs, int cs, int kp, const bf16* xn,
+                                                  int cin, int h, int w, int row, int col0,
+                                                  size_t sc, size_t sh) {
+  for (int u = threadIdx.x; u < 3 * kStageW * kp; u += kThreads) {
+    const int col = u % kStageW, r = (u / kStageW) % 3, c = u / (3 * kStageW);
+    const int gr = row + r - 1, gc = col0 + col - 1;
+    bf16 val = __ushort_as_bfloat16((unsigned short)0);
+    if (gr >= 0 && gr < h && gc >= 0 && gc < w && c < cin)
+      val = xn[(size_t)c * sc + (size_t)gr * sh + gc];
+    xs[(size_t)(r * kStageW + col) * cs + c] = val;
   }
 }
 

@@ -5,8 +5,12 @@
 //   out = leaky(W2 · cast(leaky(conv3x3_SAME(x, W1) + b1)) + b2)
 //   then + residual (float32), then columns >= true_w set to zero, then cast.
 //
-// x [N, Cin, H, Wp] (Wp % 128 == 0; pad columns zero by contract), bf16 or
-// float32.  Rows outside [0, H) and columns outside [0, Wp) read as zero.
+// out [N, Cout, H, Wp] (Wp % 128 == 0), bf16 or float32.  x is the block's
+// input of Hx <= H rows and Wx <= Wp columns; rows outside [0, Hx) and
+// columns outside [0, Wx) read as zero (SAME padding, and the pad columns of
+// the output tiles).  K2 hands in x [N, Cin, H, Wp] itself (Hx = H, Wx = Wp,
+// pad columns zero by contract); K2' its NHWC input as it lies in memory
+// where that storage is dense.
 // The hidden value is rounded to the storage dtype before the 1x1, as the
 // reference does; every sum accumulates in float32.  Cin, Cmid, Cout <= 128
 // and Cmid, Cout % 4 == 0 (the C entry refuses anything else).  The entry
@@ -22,12 +26,16 @@
 // - one block (8 warps) per (n, row, 128-column tile): GEMM M = 128 pixels,
 //   N = Cmid (all of it, so the hidden tile never leaves the chip), K = 9 taps
 //   x Cin in slices of 16;
-// - the rows r-1..r+1 are staged once, pixel-major [3][130][Cin16 + 8] bf16:
-//   16-byte reads along W of 8 channels, transposed in registers (prmt) into
-//   one 16-byte store per pixel.  An A fragment row is then one pixel's 8
-//   consecutive channels, 16-byte aligned for every tap offset dx; the 8
-//   extra channels of stride put the 8 rows of an ldmatrix in distinct banks.
-//   Channels Cin..Cin16 are staged as zeros;
+// - the rows r-1..r+1 are staged once, pixel-major [3][130][Cin16 + 8] bf16,
+//   from the storage x has (bf16_mma.cuh, enum Stage, picked by the wrapper
+//   from x's strides): dense channels-major, 16-byte reads along W of 8
+//   channels transposed in registers (prmt) into one 16-byte store per pixel
+//   (K2's padded input, K2' enc_1's pooled input); dense channels-last, one
+//   16-byte cp.async of 8 channels straight into place (K2' enc_0 and
+//   dec_final).  K2' copies any other storage first.  An A fragment row is
+//   then one pixel's 8 consecutive channels, 16-byte aligned for every tap
+//   offset dx; the 8 extra channels of stride put the 8 rows of an ldmatrix
+//   in distinct banks.  Channels Cin..Cin16 are staged as zeros;
 // - the weights are used as given (w1 [9][Cmid][Cin], w2 [Cout][Cmid]: the
 //   K-contiguous B layout of mma .row.col).  One tap's [Cmid][Cin] slice is
 //   copied by cp.async into one of two buffers while the tensor cores work
@@ -46,8 +54,9 @@
 // next tile's staging overlaps this tile's epilogue, and overlap of the x
 // stage itself with the first taps.
 //
-// float32: convblock_chw_kernel on the CUDA cores (tensor cores would mean
-// TF32, which the float32 tolerance of 1e-4 does not allow).  One block per
+// float32: convblock_chw_kernel on the CUDA cores, dense x [N, Cin, H, Wp] only
+// (tensor cores would mean TF32, which the float32 tolerance of 1e-4 does not
+// allow).  One block per
 // (n, row, 128-column tile); the input rows are staged in shared memory 16
 // channels at a time; each warp owns 4-wide groups of hidden channels for 64
 // of the 128 pixels (2 per lane), keeps their float32 sums in registers and
@@ -220,6 +229,12 @@ using namespace tc;  // the bf16 mma helpers (bf16_mma.cuh)
 static_assert(NT == kThreads && TW == kTile && XW == kStageW, "bf16_mma.cuh tile");
 constexpr int OS = TW + 4;  // row stride of the float32 output tile (528-byte rows)
 
+// x as the bf16 kernel reads it: dense [N][Cin][h][w] (stage kCmajorVec, w
+// % 8 == 0) or dense [N][h][w][Cin] (kNhwc, Cin % 8 == 0), 16-byte aligned.
+struct XView {
+  int stage, h, w;
+};
+
 // Shared-memory plan of the bf16 kernel (bytes), shared by host and device.
 // Channel counts are padded to 16 (kp, mp, op); cs and hs are the row strides
 // (bf16) of the x stage / w1 slices and of the hidden tile / w2.  Region 0
@@ -245,7 +260,7 @@ __host__ __device__ __forceinline__ TcPlan tc_plan(int cin, int cmid, int cout) 
 }
 
 __global__ void __launch_bounds__(NT, 1)
-convblock_chw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+convblock_chw_tc_kernel(const bf16* __restrict__ x, const XView X, const bf16* __restrict__ w1,
                         const float* __restrict__ b1, const bf16* __restrict__ w2,
                         const float* __restrict__ b2, const bf16* __restrict__ residual,
                         bf16* __restrict__ out, int cin, int cmid, int cout, int h, int wp,
@@ -270,7 +285,13 @@ convblock_chw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   load_matrix(w1s, P.cs, w1, cmid, cin);  // tap 0
   cp_async_commit();
 
-  stage_rows(xs, P.cs, P.kp, x + (size_t)n * cin * h * wp, cin, h, wp, row, col0);
+  const size_t plane = (size_t)X.h * X.w;
+  const bf16* xn = x + (size_t)n * cin * plane;
+  if (X.stage == kNhwc)  // cp.async, waited with tap 0's weights
+    stage_rows_nhwc(xs, P.cs, P.kp, xn, cin, X.h, X.w, row, col0, (size_t)X.w * cin, cin);
+  else
+    stage_rows(xs, P.cs, P.kp, xn, cin, X.h, X.w, row, col0, plane, X.w);
+  cp_async_commit();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
@@ -383,16 +404,16 @@ convblock_chw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   }
 }
 
-int launch_tc(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-              const void* residual, void* out, int n, int cin, int cmid, int cout, int h, int wp,
-              int true_w, float slope, cudaStream_t stream) {
+int launch_tc(const void* x, const XView& X, const void* w1, const void* b1, const void* w2,
+              const void* b2, const void* residual, void* out, int n, int cin, int cmid,
+              int cout, int h, int wp, int true_w, float slope, cudaStream_t stream) {
   static unsigned done = 0;
   const int e = allow_smem((const void*)convblock_chw_tc_kernel, tc_plan(128, 128, 128).bytes,
                            done);
   if (e) return e;
   const dim3 grid(wp / TW, h, n);
   convblock_chw_tc_kernel<<<grid, NT, tc_plan(cin, cmid, cout).bytes, stream>>>(
-      (const bf16*)x, (const bf16*)w1, (const float*)b1, (const bf16*)w2, (const float*)b2,
+      (const bf16*)x, X, (const bf16*)w1, (const float*)b1, (const bf16*)w2, (const float*)b2,
       (const bf16*)residual, (bf16*)out, cin, cmid, cout, h, wp, true_w, slope);
   PCSS_CHECK_LAUNCH();
   return 0;
@@ -403,21 +424,27 @@ int launch_tc(const void* x, const void* w1, const void* b1, const void* w2, con
 extern "C" {
 
 // Dispatch by dtype; b1/b2 float32; residual may be null; true_w = Wp
-// disables the column mask.  All device pointers 16-byte aligned.
+// disables the column mask.  out [N][Cout][H][Wp]; x has xh <= H rows and
+// xw <= Wp columns, dense in the storage `stage` names (enum Stage: kNhwc or
+// kCmajorVec).  Device pointers 16-byte aligned.
 //   bf16 (is_bf16 = 1): tensor-core kernel; w1 [9][Cmid][Cin] and w2
 //     [Cout][Cmid] bf16 as packed (tap dy*3+dx);
-//   float32: CUDA-core kernel; w1 = w1t [9][Cin][Cmid], w2 = w2t [Cmid][Cout]
-//     float32.
+//   float32: CUDA-core kernel on dense x [N][Cin][H][Wp] only; w1 = w1t
+//     [9][Cin][Cmid], w2 = w2t [Cmid][Cout] float32.
 int pcss_convblock_chw(const void* x, const void* w1, const void* b1, const void* w2,
                        const void* b2, const void* residual, void* out, int n, int cin,
                        int cmid, int cout, int h, int wp, int true_w, float slope, int is_bf16,
-                       void* stream) {
+                       int stage, int xh, int xw, void* stream) {
   if (cin > 128 || cmid > 128 || cout > 128 || cmid % 4 || cout % 4 || wp % TW)
+    return (int)cudaErrorInvalidValue;
+  if ((stage != kNhwc && stage != kCmajorVec) || xh > h || xw > wp ||
+      (stage == kNhwc && cin % 8) || (stage == kCmajorVec && xw % 8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return launch_tc(x, w1, b1, w2, b2, residual, out, n, cin, cmid, cout, h, wp, true_w, slope,
-                     s);
+    return launch_tc(x, XView{stage, xh, xw}, w1, b1, w2, b2, residual, out, n, cin, cmid, cout,
+                     h, wp, true_w, slope, s);
+  if (stage != kCmajorVec || xh != h || xw != wp) return (int)cudaErrorInvalidValue;
   return launch_f32(x, w1, b1, w2, b2, residual, out, n, cin, cmid, cout, h, wp, true_w, slope,
                     s);
 }

@@ -21,10 +21,11 @@
 // - x is read in the storage the caller has.  The main path hands over an
 //   NHWC view of channels-major storage: the rows r-1..r+1 are staged from it
 //   in place, 16-byte reads along W transposed in registers into a
-//   pixel-major stage [3][130][kc + 8] (mode 1; bf16_mma.cuh::stage_rows),
+//   pixel-major stage [3][130][kc + 8] (kCmajorVec; bf16_mma.cuh::stage_rows),
 //   or element by element where W % 8 != 0 or x is not 16-byte aligned
-//   (mode 2).  Channels-last storage is staged by 16-byte cp.async along C
-//   (mode 0).  The output keeps the input's storage order;
+//   (kCmajorScalar; stage_rows_scalar).  Channels-last storage is staged by
+//   16-byte cp.async along C (kNhwc; stage_rows_nhwc).  The output keeps the
+//   input's storage order;
 // - the input channels come in chunks of kc (128 when the whole plan fits,
 //   else 64); the weights are packed once per call into contiguous B slices
 //   [128][kc] (K-contiguous, mma .col), consumed in one sequence: w1 (hidden
@@ -203,9 +204,8 @@ static_assert(NT == kThreads && TW == kTile && XW == kStageW, "bf16_mma.cuh tile
 constexpr int MB = 128;     // hidden / output channels per GEMM N block
 constexpr int OS = TW + 4;  // row stride of the float32 output tile (528-byte rows)
 
-// Storage of x and out: channels-last; channels-major with 16-byte accesses
-// along W (W % 8 == 0, 16-byte aligned); channels-major element by element.
-enum Mode { kNhwc = 0, kCmajorVec = 1, kCmajorScalar = 2 };
+// x and out lie in the storage `mode` names (bf16_mma.cuh, enum Stage): the
+// output is stored as the input was staged.
 
 // Shared-memory plan (bytes), shared by host and device.  kc is the input
 // chunk (128 when the plan fits, else 64), cs = kc + 8 and hs = C + 8 the row
@@ -237,32 +237,20 @@ __host__ __device__ __forceinline__ Plan plan128(int c, int cout) {
 
 // Stage input channels [c0, c0 + kc) of rows row-1..row+1, columns
 // col0-1..col0+TW into xs [3][XW][cs], pixel-major, zero outside the frame.
-// Mode kNhwc issues cp.async copies (committed here, waited with the next
-// weight slice); the channels-major modes store before returning.
+// kNhwc issues cp.async copies (committed here, waited with the next weight
+// slice); the channels-major stages store before returning.
 __device__ __forceinline__ void stage_x(bf16* xs, const Plan& P, const bf16* x, int mode, int n,
                                         int c, int h, int w, int row, int col0, int c0) {
+  const size_t plane = (size_t)h * w;
   if (mode == kCmajorVec) {
-    stage_rows(xs, P.cs, P.kc, x + ((size_t)n * c + c0) * h * w, P.kc, h, w, row, col0);
+    stage_rows(xs, P.cs, P.kc, x + ((size_t)n * c + c0) * plane, P.kc, h, w, row, col0, plane,
+               (size_t)w);
   } else if (mode == kCmajorScalar) {
-    for (int u = threadIdx.x; u < 3 * XW * P.kc; u += NT) {
-      const int col = u % XW, r = (u / XW) % 3, ci = u / (3 * XW);
-      const int gr = row + r - 1, gc = col0 + col - 1;
-      bf16 v = __ushort_as_bfloat16((unsigned short)0);
-      if (gr >= 0 && gr < h && gc >= 0 && gc < w)
-        v = x[(((size_t)n * c + c0 + ci) * h + gr) * w + gc];
-      xs[(size_t)(r * XW + col) * P.cs + ci] = v;
-    }
+    stage_rows_scalar(xs, P.cs, P.kc, x + ((size_t)n * c + c0) * plane, P.kc, h, w, row, col0,
+                      plane, (size_t)w);
   } else {
-    const int ncg = P.kc >> 3;
-    for (int u = threadIdx.x; u < 3 * XW * ncg; u += NT) {
-      const int cg = u % ncg, col = (u / ncg) % XW, r = u / (ncg * XW);
-      const int gr = row + r - 1, gc = col0 + col - 1;
-      bf16* dst = xs + (size_t)(r * XW + col) * P.cs + cg * 8;
-      if (gr >= 0 && gr < h && gc >= 0 && gc < w)
-        cp_async16(dst, x + (((size_t)n * h + gr) * w + gc) * c + c0 + cg * 8);
-      else
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-    }
+    stage_rows_nhwc(xs, P.cs, P.kc, x + (size_t)n * plane * c + c0, P.kc, h, w, row, col0,
+                    (size_t)w * c, (size_t)c);
     cp_async_commit();
   }
 }
@@ -445,16 +433,16 @@ int launch_tc(const void* x, const void* w1p, const void* b1, const void* w2p, c
 extern "C" {
 
 // Dispatch by dtype; b1 [C] / b2 [Cout] float32; device pointers 16-byte
-// aligned except x in mode 2.
+// aligned except x in mode kCmajorScalar.
 //   bf16 (is_bf16 = 1): tensor-core kernel; x and out in the storage `mode`
-//     names (0 channels-last, 1 channels-major with W % 8 == 0, 2
+//     names (enum Stage: 0 channels-last, 1 channels-major with W % 8 == 0, 2
 //     channels-major); w1p and w2p bf16 as packed (see block128_tc_kernel);
 //   float32: CUDA-core kernel, mode 0 only; w1t [9][C][C] float32 (tap
 //     dy*3+dx, input channel, hidden channel), w2t [C][Cout] float32.
 int pcss_block128_nhwc(const void* x, const void* w1, const void* b1, const void* w2,
                        const void* b2, void* out, int n, int c, int cout, int h, int w,
                        float slope, int is_bf16, int mode, void* stream) {
-  if (c % 128 || c > MAX_C || cout % 4 || cout <= 0 || cout > c || mode < 0 || mode > 2)
+  if (c % 128 || c > MAX_C || cout % 4 || cout <= 0 || cout > c || mode < kNhwc || mode > kCmajorScalar)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) return launch_tc(x, w1, b1, w2, b2, out, n, c, cout, h, w, mode, slope, s);

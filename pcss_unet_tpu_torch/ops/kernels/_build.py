@@ -38,7 +38,7 @@ _SIGNATURES = {
                                _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _P),
     "pcss_mask_to_u8": (_P, _P, _LL, _I, _P),
     "pcss_convblock_chw": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _I, _F, _I, _P),
+                           _I, _F, _I, _I, _I, _I, _P),
     "pcss_block_int8_nhwc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                              _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     "pcss_block128_nhwc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
@@ -142,6 +142,40 @@ def aligned(t):
     loads read (a contiguous view may start anywhere)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+# How a bf16 kernel stages an NHWC input x [N, H, W, C] in place
+# (csrc/bf16_mma.cuh, enum Stage): K2′ and K6 read these.
+NHWC, CMAJOR_VEC, CMAJOR_SCALAR = 0, 1, 2
+STAGES = ("nhwc", "cmajor_vec", "cmajor_scalar")
+
+
+def _dense(shape, strides, order) -> bool:
+    """Whether the dimensions ``order`` (outermost first) lay the elements
+    out densely; a dimension of one element may have any stride."""
+    step = 1
+    for d in reversed(order):
+        if shape[d] != 1 and strides[d] != step:
+            return False
+        step *= shape[d]
+    return True
+
+
+def stage_mode(shape, strides, offset: int) -> int | None:
+    """The stage a bf16 kernel reads x [N, H, W, C] in, a pure function of
+    its ``shape``, its ``strides`` (elements, in that order) and ``offset``,
+    its start modulo 16 bytes.  Dense channels-major storage (the NHWC view
+    of NCHW): ``CMAJOR_VEC`` (16 bytes along W a read) where W % 8 == 0 and
+    the start is 16-byte aligned, else ``CMAJOR_SCALAR`` (element by
+    element).  Dense channels-last storage with C % 8 == 0 and an aligned
+    start: ``NHWC`` (16 bytes of channels a read).  Anything else: None,
+    storage no stage reads, which the caller copies."""
+    _, _, w, c = shape
+    if _dense(shape, strides, (0, 3, 1, 2)):
+        return CMAJOR_VEC if w % 8 == 0 and offset % 16 == 0 else CMAJOR_SCALAR
+    if _dense(shape, strides, (0, 1, 2, 3)) and c % 8 == 0 and offset % 16 == 0:
+        return NHWC
+    return None
 
 
 def check_device(x, *operands) -> None:

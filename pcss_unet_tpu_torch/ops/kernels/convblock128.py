@@ -24,12 +24,11 @@ import torch
 import torch.nn.functional as F
 
 from pcss_unet_tpu_torch.ops.kernels import _build
+from pcss_unet_tpu_torch.ops.kernels._build import CMAJOR_SCALAR, CMAJOR_VEC, NHWC
 from pcss_unet_tpu_torch.utils.profiling import span
 
 _MAX_SMEM = 232448   # bytes of shared memory one block can use on the H100
 MAX_C = 384          # the widest C whose plan fits, on either card kernel
-# storage modes of the bf16 kernel (csrc/convblock128.cu, enum Mode)
-NHWC, CMAJOR_VEC, CMAJOR_SCALAR = 0, 1, 2
 
 
 def pick_k_rows_128(h: int, w: int, c: int, cout: int) -> int | None:
@@ -104,15 +103,14 @@ def smem_plan(c: int, cout: int) -> tuple[int, int]:
 
 
 def _storage(x: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """The tensor the bf16 kernel reads and its storage mode.  Channels-major
-    storage (the NHWC view of NCHW that the model hands over) goes in place:
-    16-byte reads along W where ``W % 8 == 0`` and x is 16-byte aligned,
-    else element by element.  Any other storage goes channels-last, copied
-    only where it is not already contiguous and aligned."""
-    if x.permute(0, 3, 1, 2).is_contiguous():
-        vec = x.shape[2] % 8 == 0 and x.data_ptr() % 16 == 0
-        return x, CMAJOR_VEC if vec else CMAJOR_SCALAR
-    return _build.aligned(x), NHWC
+    """The tensor the bf16 kernel reads and its storage mode
+    (:func:`_build.stage_mode`).  Channels-major storage (the NHWC view of
+    NCHW that the model hands over) and aligned channels-last storage go in
+    place; any other storage goes channels-last, by a copy."""
+    mode = _build.stage_mode(tuple(x.shape), x.stride(), x.data_ptr() % 16)
+    if mode is None:
+        return _build.aligned(x), NHWC
+    return x, mode
 
 
 def pack_tc_weights(w1: torch.Tensor, w2: torch.Tensor, kc: int):

@@ -197,7 +197,7 @@ def test_launch_error_raises(dev):
     with pytest.raises(RuntimeError, match="CUDA error"):
         _build.call("pcss_convblock_chw", None, None, None, None, None, None,
                     None, 1, 256, 16, 16, 8, 128, 128, 0.2, 1,
-                    torch.cuda.current_stream().cuda_stream)
+                    kcb.CMAJOR_VEC, 8, 128, torch.cuda.current_stream().cuda_stream)
 
 
 def test_band_resize_launch_error_raises(dev):
@@ -823,6 +823,153 @@ def test_convblock_nhwc_kernel_batch_of_frames(dev, gen, cin, cmid, cout, h, w):
     _close(got, kcb.conv_block_nhwc_plain(x, *ws), 2e-2)
     for i in range(2):
         assert torch.equal(got[i:i + 1], kcb.fused_conv_block_nhwc(x[i:i + 1], *ws))
+
+
+def _k2_weights(gen, dev, cin, cmid, cout):
+    params = {
+        "conv_a": {"kernel": gen.standard_normal((3, 3, cin, cmid)) * 0.2,
+                   "bias": gen.standard_normal(cmid) * 0.1},
+        "conv_b": {"kernel": gen.standard_normal((1, 1, cmid, cout)) * 0.2,
+                   "bias": gen.standard_normal(cout) * 0.1},
+    }
+    return kcb.pack_convblock_params(params, dtype=torch.bfloat16, device=dev)
+
+
+def _whole_storage(t: torch.Tensor) -> torch.Tensor:
+    """The flat storage under the view t (pad rows and columns too)."""
+    return torch.empty(0, dtype=t.dtype, device=t.device).set_(t.untyped_storage())
+
+
+def _in_place_vs_copy_route(x, ws, stage):
+    """K2′ on x, read in place in stage ``stage`` (no copy counted) or, for
+    ``"copy"``, through the copy route (one copy counted), ≡ its copy route
+    bit for bit, the whole output allocation included, with the same
+    strides."""
+    counts = (kcb.fused_conv_block_nhwc.launches, kcb.fused_conv_block_chw.launches,
+              kcb.fused_conv_block_nhwc.copies)
+    assert kcb.stage_of(x) == stage
+    got = kcb.fused_conv_block_nhwc(x, *ws)
+    assert (kcb.fused_conv_block_nhwc.launches, kcb.fused_conv_block_chw.launches,
+            kcb.fused_conv_block_nhwc.copies) == (counts[0] + 1, counts[1] + 1,
+                                                  counts[2] + (stage == "copy"))
+    want = kcb.copy_route(x, *ws)
+    torch.cuda.synchronize()
+    assert got.stride() == want.stride() and tuple(got.shape) == tuple(want.shape)
+    assert torch.equal(got, want)
+    assert torch.equal(_whole_storage(got), _whole_storage(want))
+
+
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("cin,cmid,cout,h,w,storage,stage", [
+    (16, 16, 64, 544, 960, "nhwc", "nhwc"),          # w64 enc_0: K1's NHWC output
+    (64, 64, 128, 272, 480, "cmajor", "cmajor_vec"),  # w64 enc_1: the pool's output
+    (64, 64, 16, 544, 960, "nhwc", "nhwc"),          # w64 dec_final: the head resize's
+])
+def test_convblock_nhwc_in_place_w64_calls(dev, gen, n, cin, cmid, cout, h, w,
+                                            storage, stage):
+    """K2′ at the three w64 calls, in the storage each gets on the main
+    path, for the batch of one and of four: read in place, ≡ the padded
+    copy route bit for bit."""
+    ws = _k2_weights(gen, dev, cin, cmid, cout)
+    x = torch.randn((n, h, w, cin), device=dev).to(torch.bfloat16)
+    _in_place_vs_copy_route(_in_storage(x, storage), ws, stage)
+
+
+@pytest.mark.parametrize("case", ["w_not_8", "w_not_8_cmajor", "w_not_128", "odd_h",
+                                  "odd_h_cmajor", "unaligned", "c_slice", "w_slice",
+                                  "every_other_column", "cin_not_8"])
+def test_convblock_nhwc_in_place_ragged(dev, gen, case):
+    """K2′ on storage off the main path: W not a multiple of 8 or of 128,
+    an odd H, a view starting 2 bytes past a 16-byte boundary, non-dense
+    views (a slice of the channels, of the columns, every other column),
+    Cin not a multiple of 8.  Dense channels-last storage and dense
+    channels-major storage with W % 8 == 0 and an aligned start are read in
+    place, any other storage through the copy route, counted; each ≡ the
+    copy route bit for bit.  A float32 x takes the copy route, counted."""
+    cin = 20 if case == "cin_not_8" else 16
+    ws = _k2_weights(gen, dev, cin, 16, 32)
+    x = torch.randn((2, 9, 130, 48), device=dev).to(torch.bfloat16)
+    x, stage = {
+        "w_not_8": (x[..., :cin].contiguous(), "nhwc"),
+        "w_not_8_cmajor": (_in_storage(x[..., :cin], "cmajor"), "copy"),
+        "w_not_128": (x[:, :, :100, :cin].contiguous(), "nhwc"),
+        "odd_h": (x[:, :7, :, :cin].contiguous(), "nhwc"),
+        "odd_h_cmajor": (_in_storage(x[:, :7, :64, :cin], "cmajor"), "cmajor_vec"),
+        "unaligned": (_in_storage(x[:, :, :64, :cin], "offset"), "copy"),
+        "c_slice": (x[..., 8:8 + cin], "copy"),
+        "w_slice": (_in_storage(x[:, :, :128, :cin], "cmajor")[:, :, 8:120], "copy"),
+        "every_other_column": (x[:, :, ::2, :cin], "copy"),
+        "cin_not_8": (x[..., :cin].contiguous(), "copy"),
+    }[case]
+    _in_place_vs_copy_route(x, ws, stage)
+    xf = x.float()
+    ws32 = tuple(t.float() for t in ws)
+    before = kcb.fused_conv_block_nhwc.copies
+    got = kcb.fused_conv_block_nhwc(xf, *ws32)
+    assert kcb.fused_conv_block_nhwc.copies == before + 1
+    assert torch.equal(got, kcb.copy_route(xf, *ws32))
+
+
+def _device_ops(fn) -> int:
+    """Device events (kernels, copies, memsets) of one ``fn()`` under
+    torch.profiler; the trace starts one step ahead, as a trace started
+    with the call can miss its first kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        prof.step()
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep"))
+
+
+def test_convblock_nhwc_w64_forward_copies_nothing(dev, gen, monkeypatch):
+    """One w64 NHWC fused+int8 bf16 forward (the render cells' posture):
+    K2′ launches 3 times, on channels-last (enc_0, dec_final) and
+    channels-major (enc_1) storage, and copies its input none; the padded
+    copy route for the same calls costs 8 more device operations (each pad
+    a fill and a copy, each channels-last pad then a transposing copy) and
+    gives the same mask, bit for bit."""
+    from pcss_unet_tpu_torch.infer import InferenceEngine
+    from pcss_unet_tpu_torch.models import unet as unet_mod
+    from pcss_unet_tpu_torch.models.init import seeded_variables
+    from pcss_unet_tpu_torch.ops.kernels import reset_launch_counts
+
+    engine = InferenceEngine(None, seeded_variables(), fold_bn=True,
+                             quantize="int8", layout="nhwc",
+                             dtype=torch.bfloat16, device="cuda")
+    x = torch.from_numpy(gen.standard_normal((1, 544, 960, 16)).astype(np.float32)
+                         ).to(dev, torch.bfloat16)
+    stages, real = [], unet_mod.fused_conv_block_nhwc
+
+    def watched(xh, *a, **k):
+        stages.append(kcb.stage_of(xh))
+        return real(xh, *a, **k)
+
+    with torch.inference_mode():
+        engine.model.forward_entered(x)
+        reset_launch_counts()
+        monkeypatch.setattr(unet_mod, "fused_conv_block_nhwc", watched)
+        got = engine.model.forward_entered(x)
+        torch.cuda.synchronize()
+        assert (kcb.fused_conv_block_nhwc.launches, kcb.fused_conv_block_nhwc.copies,
+                stages) == (3, 0, ["nhwc", "cmajor_vec", "nhwc"])
+        monkeypatch.setattr(unet_mod, "fused_conv_block_nhwc", real)
+        in_place = _device_ops(lambda: engine.model.forward_entered(x))
+        monkeypatch.setattr(unet_mod, "fused_conv_block_nhwc", kcb.copy_route)
+        want = engine.model.forward_entered(x)
+        copied = _device_ops(lambda: engine.model.forward_entered(x))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert copied - in_place == 8, (in_place, copied)
 
 
 def test_block_int8_kchunked_kernel_batch_of_frames(dev, gen):

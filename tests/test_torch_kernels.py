@@ -14,6 +14,7 @@ from pcss_unet_tpu.ops.pallas import convblock as jcb
 from pcss_unet_tpu.ops.pallas import convblock128 as jc128
 from pcss_unet_tpu.ops.pallas import fused as jfused
 from pcss_unet_tpu.ops.pallas.taps import conv3x3_band_taps as j_taps
+from pcss_unet_tpu_torch.ops.kernels import _build
 from pcss_unet_tpu_torch.ops.kernels import block_int8 as tb8
 from pcss_unet_tpu_torch.ops.kernels import conv3x3_int8 as tc7
 from pcss_unet_tpu_torch.ops.kernels import convblock as tcb
@@ -824,18 +825,20 @@ def test_block128_smem_plan_fits(c, kc, cout):
 
 def test_block128_smem_plan_mirrors_source():
     """``smem_plan`` mirrors ``csrc/convblock128.cu``: the same limits and
-    tile constants, and the w64 dec_2 plan the source header states."""
+    tile constants, and the w64 dec_2 plan the source header states; the
+    storage modes mirror ``csrc/bf16_mma.cuh``'s enum Stage."""
     import re
     from pathlib import Path
 
-    src = (Path(tc128.__file__).resolve().parents[2] / "csrc"
-           / "convblock128.cu").read_text()
+    csrc = Path(tc128.__file__).resolve().parents[2] / "csrc"
+    src = (csrc / "convblock128.cu").read_text()
+    stages = (csrc / "bf16_mma.cuh").read_text()
     const = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (\w+) = (\d+);", src)}
     assert const["MAX_SMEM"] == tc128._MAX_SMEM and const["MAX_C"] == tc128.MAX_C
     assert (const["TW"], const["MB"]) == (128, 128)
     assert "OS = TW + 4" in src and "p.hs = c + 8" in src and "p.cs = p.kc + 8" in src
-    assert (const.get("NHWC", 0), src.count("kCmajorVec = 1"),
-            src.count("kCmajorScalar = 2")) == (tc128.NHWC, 1, 1)
+    assert ("enum Stage { kNhwc = %d, kCmajorVec = %d, kCmajorScalar = %d };"
+            % (tc128.NHWC, tc128.CMAJOR_VEC, tc128.CMAJOR_SCALAR)) in stages
     assert tc128.smem_plan(128, 64) == (128, 210_528)
     assert "210,528 bytes at C = 128" in src
 
@@ -908,6 +911,61 @@ def test_convblock_nhwc_plain_matches(rng, n, cin, cmid, cout, h, w, k):
     plain = tcb.conv_block_nhwc_plain(
         _t(x), *tcb.pack_convblock_params(params, dtype=torch.float32), k_rows=k)
     assert torch.equal(plain, got)
+
+
+def _nhwc_of(nchw: torch.Tensor) -> torch.Tensor:
+    return nchw.permute(0, 2, 3, 1)
+
+
+# x [N, H, W, Cin] as each storage lays it out (smallest shapes, bf16 on the
+# card), the stage _build.stage_mode picks (None: storage no stage reads) and
+# whether K2′ reads it in place
+def _zeros(*shape):
+    return torch.zeros(*shape, dtype=torch.bfloat16)
+
+
+_STORAGES = {
+    "channels_last": (lambda: _zeros(2, 3, 8, 16), _build.NHWC, True),  # enc_0, dec_final
+    "channels_major": (lambda: _nhwc_of(_zeros(2, 16, 3, 8)), _build.CMAJOR_VEC, True),  # enc_1
+    "one_image": (lambda: _nhwc_of(_zeros(1, 16, 3, 8)), _build.CMAJOR_VEC, True),
+    "channels_last_w_not_8": (lambda: _zeros(1, 3, 12, 16), _build.NHWC, True),
+    "cmajor_w_not_8": (lambda: _nhwc_of(_zeros(1, 16, 3, 12)), _build.CMAJOR_SCALAR, False),
+    "cmajor_unaligned": (lambda: _nhwc_of(_zeros(1 + 16 * 3 * 8)[1:].view(1, 16, 3, 8)),
+                         _build.CMAJOR_SCALAR, False),
+    "cin_not_8": (lambda: _zeros(1, 3, 8, 12), None, False),
+    "unaligned_start": (lambda: _zeros(1 + 3 * 8 * 16)[1:].view(1, 3, 8, 16), None, False),
+    "channels_last_c_slice": (lambda: _zeros(1, 3, 8, 24)[..., 8:], None, False),
+    "cmajor_w_slice": (lambda: _nhwc_of(_zeros(1, 16, 3, 24)[..., 8:]), None, False),
+    "w_every_other": (lambda: _zeros(1, 3, 16, 16)[:, :, ::2], None, False),
+}
+
+
+@pytest.mark.parametrize("storage", list(_STORAGES))
+def test_convblock_nhwc_stage_pick(rng, storage):
+    """The stage is a pure function of x's shape, strides and start (in
+    elements here: the CPU's own start is not the card's); K2′ reads only
+    ``NHWC`` and ``CMAJOR_VEC`` in place and copies the rest; and the CPU's
+    plain route is the padded route it always was: no launch, no copy
+    counted, ≡ the plain version."""
+    make, want, in_place = _STORAGES[storage]
+    x = make()
+    offset = x.storage_offset() * x.element_size()
+    assert _build.stage_mode(tuple(x.shape), x.stride(), offset) == want
+    assert (tcb.stage_of(x) != "copy") == in_place
+    if in_place:
+        assert tcb.stage_of(x) == _build.STAGES[want]
+    assert tcb.stage_of(x.float()) == "copy"
+    x = x.float()
+    x.copy_(torch.from_numpy(rng.standard_normal(tuple(x.shape)).astype(np.float32)))
+    cin = x.shape[3]
+    w = tcb.pack_convblock_params(_convblock_params(rng, cin, 8, 4), dtype=torch.float32)
+    counts = (tcb.fused_conv_block_nhwc.launches, tcb.fused_conv_block_nhwc.copies,
+              tcb.fused_conv_block_chw.launches)
+    got = tcb.fused_conv_block_nhwc(x, *w)
+    assert (tcb.fused_conv_block_nhwc.launches, tcb.fused_conv_block_nhwc.copies,
+            tcb.fused_conv_block_chw.launches) == counts
+    assert torch.equal(got, tcb.conv_block_nhwc_plain(x.contiguous(), *w))
+    assert torch.equal(got, tcb.copy_route(x, *w))
 
 
 def test_pick_k_rows_equal_over_grid():
