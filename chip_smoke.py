@@ -18,6 +18,12 @@ one JSON line:
    in the library's SASS (``cuobjdump``); it fails if any of them spills, if
    a bf16 kernel has no ``HMMA``, the 1×1 no ``IMMA`` or the 3×3 no
    ``IGMMA`` (warpgroup MMA), or if any function has an ``IDP4A``.
+   ``band_copy``: the int8 blocks' band copy (``rowmax_kernel_quant_bands``,
+   each input quantized once) at the w64 ``dec_1`` (K3) and ``dec_0`` (K5)
+   shapes: equal to its plain version byte for byte, no spills, each block
+   call's device launches exactly the row maxima, the band copy, the 3×3
+   and the 1×1 (so one band copy per int8 block, 2 a w64 frame), the copy's
+   device ms against its bytes bound.
 Then the training phases (before the kernel phase, which also holds the
 trained net's kernel calls), each freeing what it used:
 
@@ -521,6 +527,84 @@ def device_events(fn, expect=(), tries: int = 3):
             break
     ordered = sorted(filter(on_device, prof.events()), key=lambda e: e.time_range.start)
     return summed, ordered
+
+
+def kernel_counts(summed) -> dict:
+    """Launches of each device kernel by its function's name (the word
+    before its template arguments), from :func:`device_events`' sums."""
+    counts = {}
+    for e in summed:
+        m = re.search(r"(\w+)<", e.key)
+        name = m.group(1) if m else e.key[:60]
+        counts[name] = counts.get(name, 0) + e.count
+    return counts
+
+
+# each int8 block call: the row maxima, the band copy, the 3×3, the 1×1
+INT8_BLOCK_LAUNCHES = {"rowmax_kernel": 1, "rowmax_kernel_quant_bands": 1,
+                       "int8_taps_kernel_wgmma": 1, "int8_taps_kernel": 1}
+
+
+def band_copy_phase(log: str, card: str, own) -> dict:
+    """The int8 blocks' band copy at the w64 frame's int8 blocks (K3 at
+    ``dec_1``, K5 at ``dec_0``, bf16, deploy's bands), early in a fresh
+    process, where torch.profiler keeps every kernel event: the copy equal
+    to its plain version byte for byte, each block call's device launches
+    (the library's kernels, ``own``; ``INT8_BLOCK_LAUNCHES``: one band copy
+    a call, so 2 a w64 frame, whose NHWC and chw forwards call K3 and K5
+    once each), the copy's device ms
+    (the profile's ``rowmax_kernel_quant_bands`` events) against its bytes
+    bound (x read once, the copy written once), and its ptxas report (no
+    spills)."""
+    import torch
+
+    from pcss_unet_tpu_torch.ops.kernels import block_int8 as kb8
+    from pcss_unet_tpu_torch.ops.kernels.taps import band_copy_shape
+
+    rep = ptxas_entries(log, "rowmax_kernel_quant_bands")
+    if any(e["spill_bytes"] != [0, 0] for e in rep):
+        raise AssertionError(f"band copy spills: {rep}")
+    gen = np.random.default_rng(0)
+    line = {"phase": "band_copy", "card": card, "registers": [e["registers"] for e in rep],
+            "blocks": []}
+    for name, (h, w, c, co), (k, cc) in (
+            ("fused_block_int8_nhwc", W64_DEC_1, (kb8.pick_k_rows_int8(*W64_DEC_1), W64_DEC_1[2])),
+            ("fused_block_int8_kchunked", W64_DEC_0, kb8.pick_kchunked(*W64_DEC_0))):
+        x = torch.from_numpy(gen.standard_normal((1, h, w, c), np.float32)).cuda().bfloat16()
+        params = {"conv_a": {"kernel": gen.standard_normal((3, 3, c, c)) * 0.05,
+                             "bias": gen.standard_normal(c) * 0.1},
+                  "conv_b": {"kernel": gen.standard_normal((1, 1, c, co)) * 0.05,
+                             "bias": gen.standard_normal(co) * 0.1}}
+        ops = kb8.pack_block_int8_params(params, device="cuda")
+        kw = dict(k_rows=k) if cc == c else dict(k_rows=k, c_chunk=cc)
+        block = getattr(kb8, name)
+        block(x, *ops, **kw)
+        summed, _ = device_events(lambda: block(x, *ops, **kw), ("int8_taps_kernel",))
+        launches = {k: v for k, v in kernel_counts(summed).items() if k in own}
+        if launches != INT8_BLOCK_LAUNCHES:
+            raise AssertionError(f"{name}: device launches {launches}, want "
+                                 f"{INT8_BLOCK_LAUNCHES}")
+        got = kb8.quantize_bands(x, k_rows=k, c_chunk=cc)
+        if not torch.equal(got, kb8.quantize_bands_plain(x, k_rows=k, c_chunk=cc)):
+            raise AssertionError(f"{name}: band copy differs from its plain version")
+        copy_bytes = math.prod(band_copy_shape(1, h, w, c, k, cc))
+        summed, _ = device_events(lambda: [kb8.quantize_bands(x, k_rows=k, c_chunk=cc)
+                                           for _ in range(20)], ("quant_bands",))
+        ms = sum(dev_ms(e) for e in summed if "rowmax_kernel_quant_bands" in e.key) / 20
+        b, _ = bound_ms(x.numel() * x.element_size() + copy_bytes, 0.0, PEAK_INT8_OPS)
+        line["blocks"].append({"name": name, "x": [1, h, w, c], "k_rows": k, "c_chunk": cc,
+                               "device_launches_per_call": launches,
+                               "copy_bytes": copy_bytes, "copy_device_ms": ms,
+                               "copy_bound_ms": b, "copy_bound_share": b / ms if ms else None})
+        del x, got
+    per_frame = sum(W64_NHWC_WANT[b["name"]] * b["device_launches_per_call"][
+        "rowmax_kernel_quant_bands"] for b in line["blocks"])
+    if per_frame != 2 or any(W64_CHW_WANT[b["name"]] != W64_NHWC_WANT[b["name"]]
+                             for b in line["blocks"]):
+        raise AssertionError(f"band copies a w64 frame: {per_frame}, want 2")
+    line["band_copies_per_w64_frame"] = per_frame
+    emit(line)
+    return line
 
 
 def profile_frame(phase, engine, frames, frame_ms: float, own) -> dict:
@@ -1147,6 +1231,8 @@ def cli_validate_phase(work, frame, stats):
 
 
 # per batch of the w64 NHWC fused+int8 forward (K2′ launches K2 once each)
+W64_DEC_1 = (272, 480, 512, 128)    # (H, W, C, Cout) of the w64 frame's K3 block
+W64_DEC_0 = (136, 240, 1024, 512)   # ... and of its K5 block
 W64_NHWC_WANT = {"fused_scrub_standardize": 1, "fused_conv_block_nhwc": 3,
                  "fused_conv_block_chw": 3, "fused_block_int8_nhwc": 1,
                  "fused_block_int8_kchunked": 1, "fused_block128_nhwc": 1,
@@ -3272,6 +3358,7 @@ def main() -> int:
     if bad or dp4a:
         raise AssertionError(f"tensor-core kernels spilling or without HMMA / IMMA / IGMMA: "
                              f"{bad}; functions with IDP4A: {dp4a}")
+    band_copy_phase(log, card, own)
 
     # every kernel wrapper the forwards call, by the name they call it
     # under, and each one's plain version

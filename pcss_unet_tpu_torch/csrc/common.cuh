@@ -55,15 +55,13 @@ __device__ __forceinline__ float quant_i8_near(float v, float a, float y, float 
   return fminf(fmaxf(k, -127.f), 127.f);
 }
 
-// q(v[i]) for NV values (a multiple of 4), packed as int8 into NV / 4 words
-// (v[0] in the low byte of w[0])
-template <int NV>
-__device__ __forceinline__ void quant_i8(const float (&v)[NV], float a, float y, float a24,
-                                         uint32_t (&w)[NV / 4]) {
-  uint32_t m[NV];
+// q(v[i]) for 16 values, packed as int8 into 16 bytes (v[0] in the low byte
+// of .x)
+__device__ __forceinline__ uint4 quant16_i8(const float (&v)[16], float a, float y, float a24) {
+  uint32_t m[16];
   bool near = false;
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
+  for (int i = 0; i < 16; ++i) {
     const float qc = fminf(fmaxf(__fmul_rn(v[i], y), -127.f), 127.f);
     const float r = __fadd_rn(qc, kRoundMagic);
     near |= fabsf(__fsub_rn(fabsf(__fsub_rn(qc, __fsub_rn(r, kRoundMagic))), 0.5f)) < 0x1p-14f;
@@ -71,17 +69,14 @@ __device__ __forceinline__ void quant_i8(const float (&v)[NV], float a, float y,
   }
   if (near) {  // rare: some value within 2^-14 of a tie
 #pragma unroll
-    for (int i = 0; i < NV; ++i)
+    for (int i = 0; i < 16; ++i)
       m[i] = __float_as_uint(__fadd_rn(quant_i8_near(v[i], a, y, a24), kRoundMagic));
   }
+  uint32_t w[4];
 #pragma unroll
-  for (int i = 0; i < NV / 4; ++i)
+  for (int i = 0; i < 4; ++i)
     w[i] = __byte_perm(__byte_perm(m[4 * i], m[4 * i + 1], 0x0040),
                        __byte_perm(m[4 * i + 2], m[4 * i + 3], 0x0040), 0x5410);
-}
-__device__ __forceinline__ uint4 quant16_i8(const float (&v)[16], float a, float y, float a24) {
-  uint32_t w[4];
-  quant_i8<16>(v, a, y, a24, w);
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 

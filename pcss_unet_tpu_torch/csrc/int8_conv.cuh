@@ -8,13 +8,23 @@
 // separately for each contraction chunk of cc channels (K5).  Blocks run in
 // no order, so a band-wide max cannot be taken inside one block: it comes
 // from a separate launch of per-row, per-chunk maxima (rowmax_kernel) on the
-// same stream, and each block takes the max of k_rows + 2 of them.
+// same stream, and the band's scale is the max of k_rows + 2 of them.
+//
+// A second launch (rowmax_kernel_quant_bands) then quantizes every input
+// once, into the band copy: for each band its k_rows + 2 rows (a row on a
+// band edge is in both bands' copies, each time with that band's scale),
+// each row as [words][wp][16] int8, the 16 channels of word k at column
+// col of input column col - 1, wp = ceil(w / TM) * TM + 2.  Column 0, the
+// columns past w and the halo rows outside the frame are zeros, exactly
+// SAME padding; each chunk's words are rounded up to whole stages of KW
+// words with zero words.  The quantization is the plain version's bit for
+// bit, without a division per value (quant16_i8, common.cuh).
 //
 // int8_taps_kernel_wgmma then computes, for one output row of TM = 126
 // pixels and TN = 256 output channels, the 3x3 as an implicit GEMM on
 // Hopper's warpgroup MMA (taps.cuh, i8wg): the input channels are staged in
-// slices of 32, one input row (dy) at a time, quantized with their chunk's
-// scale, and each stage runs its three dx taps as wgmma m64n256k32, each
+// slices of 32, one input row (dy) at a time, as bulk copies of the band
+// copy, and each stage runs its three dx taps as wgmma m64n256k32, each
 // consumer warpgroup on 64 rows of pixels; the chunks' int32 sums are folded
 // into float32 in order:
 //   f = sum_j (f32(int32 tap sum of chunk j) * (a_j * s[m]))   (j = 0, 1, ...)
@@ -25,33 +35,34 @@
 // the second scale of the whole-block kernels.
 //
 // Design of the 3x3 (what bounds it: operations, see block_int8.cu /
-// conv3x3_int8.cu; what bounds this kernel, measured: the producers'
-// activation loads, PERF.md):
-// - warp-specialized, 384 threads, one block per SM: two consumer
+// conv3x3_int8.cu; what bounds this kernel, measured: the weights' delivery
+// from L2 into each SM, a stage's time growing with the L2 bytes a CTA reads,
+// and each block's start and drain, PERF.md):
+// - warp-specialized, 288 threads, one block per SM: two consumer
 //   warpgroups, each with its 64 x 256 int32 accumulator in registers (128
-//   a thread), and one producer warpgroup of two teams that stage alternate
-//   stages; setmaxnreg gives the consumers 176 registers and the producers
-//   152 (the producers need theirs: at 104 they spill);
+//   a thread, of the 224 the launch bound leaves), and one producer warp
+//   whose first thread asks for every stage by bulk copies (an L2 prefetch
+//   of the block's rows at the start made K3 3-5 % slower, PERF.md);
 // - clusters of two CTAs on adjacent pixel tiles: each stage's weights are
 //   read from L2 once for both, by bulk copies multicast to both CTAs;
 // - a ring of stages in shared memory (6 for one chunk, 3 for K5, whose
 //   float32 chunk sums take 128 KB beside it), each one dy row of a 32-channel
 //   slice: the weights of its three taps (24 KB, the packed [9][C/16][Cmid][16]
-//   layout copied unchanged, completing on the stage's "full" mbarrier) and
-//   the activations (128 columns x 32 channels, read as 16-byte pieces by
-//   the producers, the lanes of a column on its contiguous channels, and
-//   quantized bit for bit as the plain version, without a division per
-//   value: quant_i8, common.cuh) in the K-major core-matrix layout wgmma
-//   reads without swizzle: a dx shift is 16 bytes of the descriptor's start;
+//   layout copied unchanged) and the activations (128 columns of two words
+//   of the band copy, 2 KB contiguous a word), all completing on the stage's
+//   "full" mbarrier, in the K-major core-matrix layout wgmma reads without
+//   swizzle: a dx shift is 16 bytes of the descriptor's start;
 // - consumers wait on a stage's "full" mbarrier, issue its three wgmma,
 //   keep one stage's group in flight (wgmma.wait_group 1) and hand the
 //   previous stage back on the "empty" mbarriers of both CTAs of the cluster;
 // - the tensor cores' m64n256k32 takes 128 cycles of an SM and reads 10 KB
-//   of shared memory (80 cycles); the producers' loads and quantization of
-//   4,096 values a stage take longer;
-// - ragged edges: columns past W and channels past the chunk are staged as
-//   zeros, weight rows past the tile's channels are zeroed once and never
-//   copied, and the epilogue writes only real pixels and channels.
+//   of shared memory (80 cycles); a stage brings 12 KB of weights from L2 (the
+//   other 12 by the cluster's other CTA) and 4 KB of activations;
+// - ragged edges: the band copy's zeros stand for columns past W and words
+//   past a chunk, weight rows past the tile's channels are zeroed once and
+//   never copied, and the epilogue writes only real pixels and channels; a
+//   pixel tile past the frame (clusters round the tiles up) copies no
+//   activations and stores nothing.
 //
 // int8_taps_kernel (the whole-block kernels' 1x1) stays on mma.sync: the
 // scale a2 = bandmax / 127 + 1e-12, slices of 128 channels, 8 consumer warps
@@ -145,12 +156,69 @@ __device__ __forceinline__ Quant make_quant(float a) {
   return Quant{a, __frcp_rn(a), __fmul_rn(a, 0x1p-24f)};
 }
 
+// The band copy's 16-byte words a row (each chunk's cc / 16 rounded up to
+// whole stages) and its columns a row (whole pixel tiles and the two SAME
+// columns).
+__host__ __device__ constexpr int band_words(int c, int cc) {
+  return c / cc * ((cc / 16 + i8wg::KW - 1) / i8wg::KW * i8wg::KW);
+}
+__host__ __device__ constexpr int band_cols(int w) {
+  return (w + i8wg::TM - 1) / i8wg::TM * i8wg::TM + 2;
+}
+
+// grid (n * (h / k_rows) * (k_rows + 2) * ceil(words / 4)): block (R, q)
+// writes words 4q .. 4q + 3 of row R = (n * nbands + band) * (k_rows + 2) + r
+// of the band copy xq: input row band * k_rows + r - 1 quantized by the
+// band's scale for each word's chunk, every column of band_cols(w).  Lane l
+// of a warp takes word 4q + l % 4 of column 8i + l / 4, so a warp reads 128
+// contiguous bytes of each of 8 pixels (bf16) and writes 128 contiguous
+// bytes of each of its 4 words; QB columns a thread in flight.
+template <typename T>
+__global__ void __launch_bounds__(128) rowmax_kernel_quant_bands(
+    const T* __restrict__ x, const float* __restrict__ rowmax, uint4* __restrict__ xq, int h,
+    int w, int c, int cc, int k_rows) {
+  constexpr int QB = 4;
+  const int words = band_words(c, cc), wp = band_cols(w), nchunks = c / cc;
+  const int quads = (words + 3) / 4, cpw = words / nchunks;
+  const int k = blockIdx.x % quads * 4 + threadIdx.x % 4, rr = blockIdx.x / quads;
+  const int r = rr % (k_rows + 2), nb = rr / (k_rows + 2), nbands = h / k_rows;
+  const int n = nb / nbands, band = nb % nbands, j = k / cpw, kk = k % cpw;
+  const int gr = band * k_rows + r - 1;
+  if (k >= words) return;
+  uint4* dst = xq + ((size_t)rr * words + k) * wp;
+  // a word past the chunk, or a row outside the frame: zeros
+  const bool live = kk * 16 < cc && gr >= 0 && gr < h;
+  const Quant q = make_quant(live ? band_scale(rowmax, n, h, band, k_rows, nchunks, j) : 1.f);
+  const T* src = x + ((size_t)n * h + (live ? gr : 0)) * w * c + (size_t)j * cc + kk * 16;
+  const int step = (int)blockDim.x / 4;  // columns of the block a step
+  for (int c0 = threadIdx.x / 4; c0 < wp; c0 += QB * step) {
+    uint4 raw[QB][Words<T>::VW];
+    bool ok[QB];
+#pragma unroll
+    for (int i = 0; i < QB; ++i) {
+      const int gc = c0 + i * step - 1;  // column col holds input column col - 1
+      ok[i] = live && gc >= 0 && gc < w;
+      if (ok[i]) load_words(src + (size_t)gc * c, raw[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < QB; ++i) {
+      const int col = c0 + i * step;
+      if (col < wp) {
+        uint4 o = make_uint4(0, 0, 0, 0);
+        if (ok[i]) {
+          float v[16];
+          unpack16(raw[i], v);
+          o = quant16_i8(v, q.a, q.y, q.a24);
+        }
+        dst[col] = o;
+      }
+    }
+  }
+}
+
 // mbarrier and bulk-copy (TMA without a tensor map) helpers
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 __device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
@@ -198,10 +266,6 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) 
       "r"(cta)
       : "memory");
 }
-// ask for `bytes` of global memory at src to be brought into L2
-__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
-}
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
@@ -227,7 +291,8 @@ __device__ __forceinline__ void named_arrive(int id, int count) {
 enum : int { kFull = 1, kEmpty = 3, kConsumers = 5 };  // named barrier ids (+ buffer)
 
 struct I8Args {
-  const void* x;              // [n, h, w, c] T
+  const void* x;              // 1x1: [n, h, w, c] T
+  const uint4* xq;            // 3x3: the band copy [n][h/k_rows][k_rows+2][words][wp] int8 x 16
   const int4* wp;             // [TAPS][c/16][co][16] int8
   const float* s;             // [co] weight scales
   const float* b;             // [co] bias
@@ -294,71 +359,6 @@ __host__ __device__ constexpr size_t wg_smem_bytes(int nchunks) {
          sizeof(float) * ((CHUNKED ? 128 * i8wg::NC : 0) + 2 * i8wg::TN + (size_t)nchunks);
 }
 
-// Activations of one stage: words [wlo, wlo + KW) (zero at or past whi) of
-// input row gr, columns col0 - 1 .. col0 + TM, as 16-byte pieces (8 bf16 or
-// 4 float32 channels).  Piece e = column * PPC + p is the column's p-th
-// piece of its KW * 16 channels; producer thread tid takes pieces tid + NP *
-// i, so the PPC threads of a column read its channels' contiguous bytes and
-// a warp's load touches 32 / PPC columns; NB pieces in flight together.
-template <typename T>
-struct RowLoad {
-  static constexpr int PPC = i8wg::KW * (int)sizeof(T);     // pieces a column
-  static constexpr int VPP = 16 / (int)sizeof(T);           // values a piece
-  static constexpr int TT = i8wg::NP / i8wg::TEAMS;         // threads of a team
-  static constexpr int NL = i8wg::XS_COLS * PPC / TT;        // pieces a producer thread
-  static constexpr int NB = 16 / (int)sizeof(T);             // loads in flight: 8 (4 float32)
-  static_assert(NL * TT == i8wg::XS_COLS * PPC && NL % NB == 0, "whole batches a thread");
-  uint4 raw[NB];
-  bool ok[NB];
-};
-
-// load pieces b0 .. b0 + NB of producer thread tid
-template <typename T>
-__device__ __forceinline__ void load_row(RowLoad<T>& ld, const T* xn, int h, int w, int c, int gr,
-                                         int col0, int wlo, int whi, int b0, int tid) {
-  using L = RowLoad<T>;
-  const bool row_ok = gr >= 0 && gr < h;
-  const T* xr = xn + (size_t)(row_ok ? gr : 0) * w * c + (size_t)wlo * 16;
-#pragma unroll
-  for (int i = 0; i < L::NB; ++i) {
-    const int e = tid + L::TT * (b0 + i), p = e % L::PPC, gc = col0 + e / L::PPC - 1;
-    ld.ok[i] = row_ok && gc >= 0 && gc < w && wlo + p * L::VPP / 16 < whi;
-    if (ld.ok[i]) ld.raw[i] = __ldg(reinterpret_cast<const uint4*>(xr + (size_t)gc * c) + p);
-  }
-}
-
-// quantize them by q into xs [KW][XW][16] (zeros where nothing was loaded)
-template <typename T>
-__device__ __forceinline__ void quant_row(int8_t* xs, const RowLoad<T>& ld, const Quant& q,
-                                          int b0, int tid) {
-  using L = RowLoad<T>;
-#pragma unroll
-  for (int i = 0; i < L::NB; ++i) {
-    const int e = tid + L::TT * (b0 + i), p = e % L::PPC, col = e / L::PPC;
-    uint32_t o[L::VPP / 4] = {};
-    if (ld.ok[i]) {
-      const uint32_t u[4] = {ld.raw[i].x, ld.raw[i].y, ld.raw[i].z, ld.raw[i].w};
-      float v[L::VPP];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if constexpr (sizeof(T) == 2) {  // bf16 -> float32 is exact: the bits, shifted
-          v[2 * k] = __uint_as_float(u[k] << 16);
-          v[2 * k + 1] = __uint_as_float(u[k] & 0xffff0000u);
-        } else {
-          v[k] = __uint_as_float(u[k]);
-        }
-      }
-      quant_i8<L::VPP>(v, q.a, q.y, q.a24, o);
-    }
-    // channel p * VPP of the column's KW words
-    int8_t* dst = xs + ((size_t)(p * L::VPP / 16) * i8wg::XW + col) * 16 + p * L::VPP % 16;
-    if constexpr (L::VPP == 8)
-      *reinterpret_cast<uint2*>(dst) = make_uint2(o[0], o[1]);
-    else
-      *reinterpret_cast<uint32_t*>(dst) = o[0];
-  }
-}
-
 // grid (n * (co / split) * ceil(split / TN), ceil(w / TM) rounded up to
 // whole clusters, h): block (z, x, row) computes output row `row`, columns
 // x*TM .. x*TM + TM (those inside the frame), channels [n0, n1) of
@@ -368,15 +368,12 @@ __device__ __forceinline__ void quant_row(int8_t* xs, const RowLoad<T>& ld, cons
 //
 // Stage g is (slice g / 3, dy = g % 3); slice l holds words wlo .. wlo + 1
 // of chunk l / spc.  Stage g lives in ring buffer g % STAGES:
-// - the producer warpgroup (threads NC .. NC + NP) is TEAMS teams of two
-//   warps; team t stages the stages g = t (mod TEAMS), so two stages' loads
-//   are in flight at once.  Its first thread asks, once the consumers of the
-//   whole cluster have handed the buffer back (its "empty" mbarrier), for
-//   this CTA's share of the three taps' weight words by bulk copies
-//   multicast to both CTAs of the cluster, completing on each CTA's "full"
-//   mbarrier; the team's threads read, quantize and store the activations
-//   and arrive there too, one arrival a warp.  At the start the producers
-//   ask for the block's three input rows (its columns, every channel) in L2;
+// - the producer warp's first thread (thread NC), once the consumers of the
+//   whole cluster have handed buffer g % STAGES back (its "empty" mbarrier),
+//   asks for stage g: this CTA's share of the three taps' weight words by
+//   bulk copies multicast to both CTAs of the cluster, and the stage's two
+//   words of band copy row row % k_rows + dy, 128 columns from col0, by two
+//   bulk copies, all completing on each CTA's "full" mbarrier;
 // - each consumer warpgroup (threads 0 .. NC) waits on "full", issues the
 //   stage's three wgmma on its 64 pixels, waits until only this stage's are
 //   in flight, hands the previous buffer back to every CTA of the cluster,
@@ -384,7 +381,7 @@ __device__ __forceinline__ void quant_row(int8_t* xs, const RowLoad<T>& ld, cons
 //   epilogue.
 // The cluster's CTAs are adjacent pixel tiles of one row and channel tile,
 // so they read the same weights; each waits for the other before exiting.
-template <typename T, typename OT, bool CHUNKED>
+template <typename OT, bool CHUNKED>
 __global__ void __cluster_dims__(1, i8wg::CLUSTER, 1) __launch_bounds__(i8wg::NC + i8wg::NP, 1)
     int8_taps_kernel_wgmma(const I8Args A) {
   using namespace i8wg;
@@ -424,7 +421,7 @@ __global__ void __cluster_dims__(1, i8wg::CLUSTER, 1) __launch_bounds__(i8wg::NC
   }
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(smem_u32(&full[s]), NP / TEAMS / 32 + 1);  // a team's warps, its expect_tx
+      mbar_init(smem_u32(&full[s]), 1);  // the producer's expect_tx
       // one arrival per consumer warpgroup of the cluster: the buffer's
       // weights are written into every CTA of it
       mbar_init(smem_u32(&empty[s]), NC / 128 * CLUSTER);
@@ -435,47 +432,38 @@ __global__ void __cluster_dims__(1, i8wg::CLUSTER, 1) __launch_bounds__(i8wg::NC
   const uint32_t rank = cluster_rank();
 
   if (threadIdx.x >= NC) {  // ---------------------------------------- producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    using L = RowLoad<T>;
-    const int pt = threadIdx.x - NC, team = pt / L::TT, tt = pt % L::TT;
-    const T* xn = reinterpret_cast<const T*>(A.x) + (size_t)n * h * w * c;
-    if (pt < 3) {  // the three input rows' columns, every channel, into L2 at the start
-      const int gr = row + pt - 1, c_lo = max(col0 - 1, 0), c_hi = min(col0 + XS_COLS - 1, w);
-      if (gr >= 0 && gr < h && c_lo < c_hi)
-        prefetch_l2(xn + ((size_t)gr * w + c_lo) * c, (uint32_t)((c_hi - c_lo) * c * sizeof(T)));
-    }
+    const int words = band_words(c, cc), bcols = band_cols(w), cpw = words / nchunks;
+    const bool live = col0 < w;  // a tile past the frame copies no activations
+    // word 0 of this block's band copy row row % k_rows + dy, column col0, at
+    // xb + dy * words * bcols; word k of a row is k * bcols further
+    const size_t r0 = (size_t)(n * nbands + band) * (A.k_rows + 2) + row % A.k_rows;
+    const uint4* xb = A.xq + r0 * words * bcols + col0;
+    if (threadIdx.x == NC) {
 #pragma unroll 1
-    for (int g = team; g < nsteps; g += TEAMS) {  // team t stages every TEAMS-th stage
-      const int sl = g / 3, dy = g % 3, j = sl / spc;
-      const int wlo = j * ccw + (sl % spc) * KW, whi = (j + 1) * ccw;
-      unsigned char* st = ring + (g % STAGES) * STAGE_BYTES;
-      const uint32_t bar = smem_u32(&full[g % STAGES]);
-      if (g >= STAGES) mbar_wait(smem_u32(&empty[g % STAGES]), (g / STAGES - 1) & 1);
-      if (tt == 0) {  // weight words [wlo, wlo + nw) of taps 3 dy .. 3 dy + 2, channels [n0, n1):
-        // this CTA's share of the copies, multicast to the whole cluster
-        const int nw = min(KW, whi - wlo);
-        mbar_arrive_tx(bar, (uint32_t)(3 * nw * nlim * 16));
+      for (int g = 0; g < nsteps; ++g) {
+        const int sl = g / 3, dy = g % 3, j = sl / spc, kw0 = (sl % spc) * KW;
+        const int wlo = j * ccw + kw0, nw = min(KW, ccw - kw0);
+        unsigned char* st = ring + (g % STAGES) * STAGE_BYTES;
+        const uint32_t bar = smem_u32(&full[g % STAGES]);
+        if (g >= STAGES) mbar_wait(smem_u32(&empty[g % STAGES]), (g / STAGES - 1) & 1);
+        mbar_arrive_tx(bar, (uint32_t)(3 * nw * nlim * 16 + (live ? KW * XS_COLS * 16 : 0)));
+        // weight words [wlo, wlo + nw) of taps 3 dy .. 3 dy + 2, channels
+        // [n0, n1): this CTA's share of the copies, multicast to the cluster
         for (int i = rank; i < 3 * nw; i += CLUSTER) {
           const int dx = i / nw, k = i % nw;
           bulk_copy_multicast(smem_u32(st) + (dx * KW + k) * TN * 16,
                               A.wp + ((size_t)(3 * dy + dx) * cw16 + wlo + k) * co + n0,
                               nlim * 16, bar, (1u << CLUSTER) - 1);
         }
+        if (live)  // words j * cpw + kw0 .. + KW of the band copy (zero past the chunk)
+          for (int k = 0; k < KW; ++k)
+            bulk_copy(smem_u32(st + WS_BYTES) + k * XW * 16,
+                      xb + ((size_t)dy * words + j * cpw + kw0 + k) * bcols, XS_COLS * 16, bar);
       }
-      const Quant qj = make_quant(a_s[j]);
-#pragma unroll
-      for (int b0 = 0; b0 < L::NL; b0 += L::NB) {
-        L ld;
-        load_row(ld, xn, h, w, c, row + dy - 1, col0, wlo, whi, b0, tt);
-        quant_row(reinterpret_cast<int8_t*>(st + WS_BYTES), ld, qj, b0, tt);
-      }
-      fence_async_smem();
-      __syncwarp();
-      if ((pt & 31) == 0) mbar_arrive(bar);  // one arrival per producer warp
     }
+    __syncwarp();
   } else {
     // ------------------------------------------------------------ consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31, v = (threadIdx.x >> 5) & 3;
     const int g4 = lane >> 2, q = lane & 3;
     const bool leader = (threadIdx.x & 127) == 0;
@@ -557,10 +545,10 @@ __global__ void __cluster_dims__(1, i8wg::CLUSTER, 1) __launch_bounds__(i8wg::NC
 
 // One int8_taps_kernel_wgmma launch over all of A's rows and channels.  The
 // largest plan (one scale per 16 channels of 1024) is allowed up front.
-template <typename T, typename OT, bool CHUNKED>
+template <typename OT, bool CHUNKED>
 int launch_taps_wgmma(const I8Args& A, int n, cudaStream_t stream) {
   static unsigned done = 0;
-  auto kernel = int8_taps_kernel_wgmma<T, OT, CHUNKED>;
+  auto kernel = int8_taps_kernel_wgmma<OT, CHUNKED>;
   const int nchunks = A.c / A.cc;
   if (nchunks > 64) return (int)cudaErrorInvalidValue;
   const int e = allow_smem((const void*)kernel, wg_smem_bytes<CHUNKED>(64), done);
@@ -759,24 +747,40 @@ int launch_pointwise(const I8Args& A, int n, cudaStream_t stream) {
   return 0;
 }
 
-// rowmax_kernel then the 3x3 on one stream; co is split into groups of
-// `split` channels (K7's co_tile) that only divide the work.  MAY_CHUNK
-// false builds only the one-chunk kernel (K7: cc == c).
-template <typename T, typename OT, bool MAY_CHUNK>
-int launch_conv3x3_int8(const void* x, const void* wp, const void* s, const void* b,
-                        void* rowmax, void* bandmax, void* out, int n, int h, int w, int c, int cc,
-                        int co, int split, int k_rows, float slope, int apply_leaky,
-                        cudaStream_t stream) {
+// rowmax_kernel, then rowmax_kernel_quant_bands into xq, on one stream.
+template <typename T>
+int launch_quant_bands(const void* x, void* rowmax, void* bandmax, void* xq, int n, int h, int w,
+                       int c, int cc, int k_rows, cudaStream_t stream) {
   const int nchunks = c / cc;
   rowmax_kernel<T><<<dim3(n * h, nchunks), 512, 0, stream>>>(
       (const T*)x, (float*)rowmax, (unsigned int*)bandmax, w, c, cc, h, k_rows);
   PCSS_CHECK_LAUNCH();
-  const I8Args A{x, (const int4*)wp, (const float*)s, (const float*)b, (const float*)rowmax,
-                 nullptr, (unsigned*)bandmax, out, h, w, c, cc, co, split, k_rows,
-                 apply_leaky, slope};
-  if (nchunks == 1) return launch_taps_wgmma<T, OT, false>(A, n, stream);
-  if (!MAY_CHUNK) return (int)cudaErrorInvalidValue;
-  return launch_taps_wgmma<T, OT, MAY_CHUNK>(A, n, stream);
+  const long long blocks =
+      (long long)n * (h / k_rows) * (k_rows + 2) * ((band_words(c, cc) + 3) / 4);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  rowmax_kernel_quant_bands<T><<<(unsigned)blocks, 128, 0, stream>>>(
+      (const T*)x, (const float*)rowmax, (uint4*)xq, h, w, c, cc, k_rows);
+  PCSS_CHECK_LAUNCH();
+  return 0;
+}
+
+// The band copy, then the 3x3 on one stream; co is split into groups of
+// `split` channels (K7's co_tile) that only divide the work.  MAY_CHUNK
+// false builds only the one-chunk kernel (K7: cc == c).
+template <typename T, typename OT, bool MAY_CHUNK>
+int launch_conv3x3_int8(const void* x, const void* wp, const void* s, const void* b,
+                        void* rowmax, void* bandmax, void* xq, void* out, int n, int h, int w,
+                        int c, int cc, int co, int split, int k_rows, float slope,
+                        int apply_leaky, cudaStream_t stream) {
+  const int nchunks = c / cc;
+  if (nchunks > 1 && !MAY_CHUNK) return (int)cudaErrorInvalidValue;
+  const int e = launch_quant_bands<T>(x, rowmax, bandmax, xq, n, h, w, c, cc, k_rows, stream);
+  if (e) return e;
+  const I8Args A{nullptr, (const uint4*)xq, (const int4*)wp, (const float*)s, (const float*)b,
+                 (const float*)rowmax, nullptr, (unsigned*)bandmax, out, h, w, c, cc, co,
+                 split, k_rows, apply_leaky, slope};
+  if (nchunks == 1) return launch_taps_wgmma<OT, false>(A, n, stream);
+  return launch_taps_wgmma<OT, MAY_CHUNK>(A, n, stream);
 }
 
 }  // namespace

@@ -14,8 +14,9 @@
 // pixel keeps every row 16-byte aligned):
 //   activations [words][columns][16] int8; column j is input column
 //                col0 + j - 1, so tap dx of output pixel p reads column
-//                p + dx + 1.  The producers stage zeros outside the frame,
-//                which is exactly SAME padding.
+//                p + dx + 1.  Zeros outside the frame (the 3x3 copies them
+//                from the band copy, the 1x1's producers stage them) are
+//                exactly SAME padding.
 //   weights     [taps][words][channels][16] int8, one 16-byte word per
 //                (tap, word, output channel): the K-contiguous B operand, as
 //                pack_taps_i8 lays it out globally, so bulk copies move it
@@ -42,18 +43,15 @@ namespace i8wg {
 // each against that tap's weights.
 constexpr int TM = 126;                         // output pixels stored per block
 constexpr int TN = 256;                         // output channels per block
-constexpr int XS_COLS = TM + 2;                 // staged columns: whole pieces a thread
+constexpr int XS_COLS = TM + 2;                 // staged columns: one bulk copy of 2 KB a word
 constexpr int XW = 130;                         // columns the two 64-row halves' three taps read
 constexpr int KW = 2;                           // 16-byte words per stage
 constexpr int NC = 256;                         // consumer threads: two warpgroups
-constexpr int NP = 128;                         // producer threads: one warpgroup
-constexpr int TEAMS = 2;                        // producer teams: even and odd stages
+constexpr int NP = 32;                          // producer threads: one warp, one of them copies
 constexpr int XS_BYTES = KW * XW * 16;          // activations of a stage
 constexpr int WS_BYTES = 3 * KW * TN * 16;      // weights of a stage: 3 taps
 constexpr int STAGE_BYTES = WS_BYTES + (XS_BYTES + 127) / 128 * 128;
 constexpr int CLUSTER = 2;                      // CTAs along the pixel tiles sharing weights
-constexpr int CONSUMER_REGS = 176;              // setmaxnreg: 2 x 176 + 152 of 3 x 168
-constexpr int PRODUCER_REGS = 152;
 
 // A shared-memory matrix descriptor without swizzle: 8-row x 16-byte core
 // matrices, `lbo` bytes apart along K, `sbo` bytes apart along M or N.

@@ -39,12 +39,13 @@ _SIGNATURES = {
     "pcss_mask_to_u8": (_P, _P, _LL, _I, _P),
     "pcss_convblock_chw": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _F, _I, _I, _I, _I, _P),
-    "pcss_block_int8_nhwc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                             _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    "pcss_block_int8_nhwc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    "pcss_quant_bands": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "pcss_block128_nhwc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                            _I, _P),
-    "pcss_conv3x3_int8_nhwc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _F, _I, _I, _I, _P),
+    "pcss_conv3x3_int8_nhwc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _F, _I, _I, _I, _P),
     "pcss_band_resize": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "pcss_bn_train_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _F, _F, _F, _F, _F, _P),

@@ -21,9 +21,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pcss_unet_tpu_torch.ops.int8 import div_ieee
 from pcss_unet_tpu_torch.ops.kernels import _build
-from pcss_unet_tpu_torch.ops.kernels.taps import conv3x3_band_taps
+from pcss_unet_tpu_torch.ops.kernels.taps import (band_copy_shape, band_rows,
+                                                  band_scale,
+                                                  conv3x3_band_taps, quant_i8,
+                                                  quantize_bands_plain)
 
 
 def pick_k_rows_int8(h: int, w: int, c: int, cout: int) -> int | None:
@@ -104,10 +106,6 @@ def pack_block_int8_params(params: dict, device: str | torch.device = "cpu"):
 # ------------------------------------------------------------ plain versions
 
 
-def _quant(v: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(torch.round(v / scale), -127, 127)
-
-
 def _leaky(v: torch.Tensor, slope: float) -> torch.Tensor:
     return torch.where(v >= 0, v, v * slope)
 
@@ -121,17 +119,13 @@ def band_conv3x3_int8_plain(x, wq, s, b, *, k_rows: int, c_chunk: int,
     and its halo rows (zero outside the frame) / 127 + 1e-12.  Returns
     float32 ``[N·bands, k_rows·W, Co]``.  Integer products run in float64,
     which holds every int8·int8 sum here exactly."""
-    n, h, w, c = x.shape
-    nb = h // k_rows
-    xp = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 1, 1))  # zero halo rows
-    rows = (torch.arange(nb, device=x.device)[:, None] * k_rows
-            + torch.arange(k_rows + 2, device=x.device)[None, :])
-    ext = xp[:, rows].reshape(n * nb, k_rows + 2, w, c)           # bands + halos
+    c = x.shape[-1]
+    ext = band_rows(x, k_rows)                                    # bands + halos
     f = None
     for c0 in range(0, c, c_chunk):
         e = ext[..., c0:c0 + c_chunk]
-        a = div_ieee(e.abs().amax(dim=(1, 2, 3)), 127.0) + 1e-12   # [n·nb]
-        acc = conv3x3_band_taps(_quant(e, a[:, None, None, None]).double(),
+        a = band_scale(e)                                         # [n·nb]
+        acc = conv3x3_band_taps(quant_i8(e, a[:, None, None, None]).double(),
                                 wq[:, c0:c0 + c_chunk].double(), k_rows)
         part = acc.float() * (a[:, None, None] * s.float())
         f = part if f is None else f + part
@@ -142,8 +136,8 @@ def band_conv3x3_int8_plain(x, wq, s, b, *, k_rows: int, c_chunk: int,
 def _pointwise_int8_plain(hid, w2q, s2, b2, slope, shape, dtype):
     """Second half of the int8 blocks: per-band scale of the hidden values,
     int8 1×1, dequantize, bias, LeakyReLU, cast; ``shape`` is [N,H,W]."""
-    a2 = div_ieee(hid.abs().amax(dim=(1, 2)), 127.0) + 1e-12
-    acc2 = _quant(hid, a2[:, None, None]).double() @ w2q.double()
+    a2 = band_scale(hid)
+    acc2 = quant_i8(hid, a2[:, None, None]).double() @ w2q.double()
     out = acc2.float() * (a2[:, None, None] * s2.float()) + b2.float()
     return _leaky(out, slope).reshape(*shape, w2q.shape[1]).to(dtype)
 
@@ -221,13 +215,16 @@ def _launch_block(x, w1q, s1, b1, w2q, s2, b2, k_rows, c_chunk,
     rowmax = torch.empty(n * h * (c // c_chunk), dtype=torch.float32,
                          device=x.device)
     bandmax = torch.empty(n * (h // k_rows), dtype=torch.int32, device=x.device)
+    xq = torch.empty(band_copy_shape(n, h, w, c, k_rows, c_chunk),
+                     dtype=torch.int8, device=x.device)
     hbuf = torch.empty((n, h, w, cmid), dtype=hidden_dtype, device=x.device)
     out = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
     _build.check_extent(x, hbuf, out)
     _build.call("pcss_block_int8_nhwc", x.data_ptr(), w1p.data_ptr(),
                 f32[0].data_ptr(), f32[1].data_ptr(), w2p.data_ptr(),
                 f32[2].data_ptr(), f32[3].data_ptr(), out.data_ptr(),
-                rowmax.data_ptr(), bandmax.data_ptr(), hbuf.data_ptr(),
+                rowmax.data_ptr(), bandmax.data_ptr(), xq.data_ptr(),
+                hbuf.data_ptr(),
                 n, h, w, c, c_chunk, cmid, cout, k_rows, float(negative_slope),
                 int(x.dtype == torch.bfloat16),
                 int(hidden_dtype == torch.float32),
@@ -274,6 +271,37 @@ def fused_block_int8_kchunked(x: torch.Tensor, w1q: torch.Tensor,
                         negative_slope, torch.float32)
     fused_block_int8_kchunked.launches += 1
     return out
+
+
+@_build.on_device
+def quantize_bands(x: torch.Tensor, *, k_rows: int,
+                   c_chunk: int) -> torch.Tensor:
+    """The band copy the int8 kernels' 3×3 reads (K3, K5, K7: the first two
+    of their launches), as :func:`~.taps.quantize_bands_plain` lays it out;
+    its plain version on a CPU tensor.  x [N,H,W,C] bf16/f32, C % c_chunk
+    == 0, c_chunk % 16 == 0, H % k_rows == 0."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be [N, H, W, C], got {tuple(x.shape)}")
+    n, h, w, c = x.shape
+    if (k_rows < 1 or h % k_rows or c_chunk < 16 or c_chunk % 16
+            or c % c_chunk):
+        raise ValueError(f"bad operands: x {tuple(x.shape)}, k_rows={k_rows}, "
+                         f"c_chunk={c_chunk}")
+    if x.device.type == "cpu":
+        return quantize_bands_plain(x, k_rows=k_rows, c_chunk=c_chunk)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"kernel takes bfloat16 or float32, got {x.dtype}")
+    x = _build.aligned(x)
+    rowmax = torch.empty(n * h * (c // c_chunk), dtype=torch.float32,
+                         device=x.device)
+    xq = torch.empty(band_copy_shape(n, h, w, c, k_rows, c_chunk),
+                     dtype=torch.int8, device=x.device)
+    _build.check_extent(x)
+    _build.call("pcss_quant_bands", x.data_ptr(), rowmax.data_ptr(),
+                xq.data_ptr(), n, h, w, c, c_chunk, k_rows,
+                int(x.dtype == torch.bfloat16),
+                torch.cuda.current_stream(x.device).cuda_stream)
+    return xq
 
 
 fused_block_int8_nhwc.launches = 0

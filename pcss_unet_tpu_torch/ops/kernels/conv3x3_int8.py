@@ -19,6 +19,7 @@ import torch
 from pcss_unet_tpu_torch.ops.kernels import _build
 from pcss_unet_tpu_torch.ops.kernels.block_int8 import (band_conv3x3_int8_plain,
                                                         pack_taps_i8)
+from pcss_unet_tpu_torch.ops.kernels.taps import band_copy_shape
 
 
 def pick_tiles(h: int, w: int, c: int, co: int) -> tuple[int, int] | None:
@@ -89,11 +90,13 @@ def conv3x3_int8_nhwc(x: torch.Tensor, wq: torch.Tensor,
     ws = w_scales.float().reshape(-1).contiguous()
     b = bias.float().reshape(-1).contiguous()
     rowmax = torch.empty(n * h, dtype=torch.float32, device=x.device)
+    xq = torch.empty(band_copy_shape(n, h, w, c, k_rows, c),
+                     dtype=torch.int8, device=x.device)
     out = torch.empty((n, h, w, co), dtype=out_dtype, device=x.device)
     _build.check_extent(x, out)
     _build.call("pcss_conv3x3_int8_nhwc", x.data_ptr(), wp.data_ptr(),
                 ws.data_ptr(), b.data_ptr(), out.data_ptr(), rowmax.data_ptr(),
-                n, h, w, c, co, k_rows, co_tile,
+                xq.data_ptr(), n, h, w, c, co, k_rows, co_tile,
                 0.0 if negative_slope is None else float(negative_slope),
                 int(negative_slope is not None),
                 int(x.dtype == torch.bfloat16),

@@ -473,6 +473,9 @@ def test_banded_resize_train_forward_and_backward_match_dense(dev, monkeypatch):
     # the w64 frame's dec_1 (K3: 512 -> 512 -> 128 at 480 x 272), N = 1 and 4
     (512, 128, 1, 272, 480),
     (512, 128, 4, 272, 480),
+    # W = 300: three pixel tiles, the last ragged, and a fourth past the
+    # frame that rounds the clusters up
+    (512, 128, 2, 16, 300),
 ])
 def test_block_int8_kernel(dev, gen, dtype, c, co, n, h, w):
     """K3 ≡ its plain version exactly at k_rows 1, 2, 4, H and the
@@ -522,6 +525,7 @@ def _int8_block_operands(gen, dev, dtype, n, h, w, c, co):
     # (k_rows, c_chunk) deploy.py picks), N = 1 and 4
     (1024, 512, 1, 136, 240, 2, 256),
     (1024, 512, 4, 136, 240, 2, 256),
+    (1024, 512, 2, 8, 300, 2, 256),  # three ragged pixel tiles and one past the frame
 ])
 def test_block_int8_kchunked_kernel(dev, gen, dtype, c, co, n, h, w, k, cc):
     x, ops = _int8_block_operands(gen, dev, dtype, n, h, w, c, co)
@@ -642,6 +646,8 @@ def test_convblock_nhwc_kernel(dev, gen, dtype, rel):
     (2, 4, 130, 256, 384, 2, 192, None),   # two co_tiles of 192: 128 + 64 channels each
     (1, 3, 20, 384, 320, 1, 320, 0.2),     # k_rows = 1; a full and a 64-channel tile
     (1, 272, 480, 512, 512, 2, 256, 0.2),  # the w64 dec_1a shape, pick_tiles' choice
+    (4, 272, 480, 512, 512, 2, 256, 0.2),  # ... at the serving batch
+    (2, 8, 300, 256, 256, 4, 256, None),   # three ragged pixel tiles and one past the frame
 ])
 def test_conv3x3_int8_kernel(dev, gen, dtype, out_dtype, n, h, w, c, co, k,
                              cot, slope):
@@ -656,6 +662,27 @@ def test_conv3x3_int8_kernel(dev, gen, dtype, out_dtype, n, h, w, c, co, k,
     want = kc7.conv3x3_int8_plain(x, wq, ws, bias, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,c,k,cc", [
+    (1, 4, 130, 256, 2, 128),     # halo rows in and outside the frame, ragged W
+    (2, 6, 20, 512, 3, 256),      # N = 2, chunks of 256, W under one tile
+    (1, 4, 130, 512, 2, 16),      # 16-channel chunks: a zero word after each
+    (1, 272, 480, 512, 2, 512),   # w64 dec_1 (K3), deploy's bands
+    (4, 136, 240, 1024, 2, 256),  # w64 dec_0 (K5) at the serving batch
+    (2, 8, 300, 256, 4, 256),     # W = 300: three pixel tiles
+])
+def test_band_copy_kernel(dev, gen, dtype, n, h, w, c, k, cc):
+    """The int8 kernels' band copy (``rowmax_kernel`` then
+    ``rowmax_kernel_quant_bands``) ≡ its plain version byte for byte:
+    zeros included."""
+    x = torch.from_numpy(gen.standard_normal((n, h, w, c)).astype(np.float32)).to(dev, dtype)
+    got = kb8.quantize_bands(x, k_rows=k, c_chunk=cc)
+    want = kb8.quantize_bands_plain(x, k_rows=k, c_chunk=cc)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.int8
+    assert torch.equal(got, want), (got != want).sum().item()
 
 
 @pytest.mark.parametrize("c_chunk", [128, 256])

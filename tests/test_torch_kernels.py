@@ -20,6 +20,7 @@ from pcss_unet_tpu_torch.ops.kernels import conv3x3_int8 as tc7
 from pcss_unet_tpu_torch.ops.kernels import convblock as tcb
 from pcss_unet_tpu_torch.ops.kernels import convblock128 as tc128
 from pcss_unet_tpu_torch.ops.kernels import fused as tfused
+from pcss_unet_tpu_torch.ops.kernels import taps as taps_mod
 from pcss_unet_tpu_torch.ops.kernels.taps import conv3x3_band_taps as t_taps
 
 
@@ -487,19 +488,16 @@ def test_int8_tile_fits_shared_memory():
     assert total + 2 * 8 + 4 + 4 * mma["NT"] // 32 <= 232_448
     # the 3×3: two consumer warpgroups of 64 rows × TN channels (wgmma
     # m64nTNk32, 128 int32 accumulators a thread) cover TM pixels, whose three
-    # taps read XW columns; the producers stage XS_COLS = TM + 2 of them, two
-    # units of 16 channels, 128 a producer warp (one stage each); setmaxnreg
-    # moves registers within the 168 a thread that 384 threads are launched
-    # with
+    # taps read XW columns; one producer warp copies XS_COLS = TM + 2 of them
+    # a word from the band copy (one bulk copy);
+    # 288 threads leave each 224 registers, above the 168 that held the
+    # accumulators without spills when 384 threads shared the file
     assert wg["TM"] + 2 <= 64 * wg["NC"] // 128 and wg["TN"] * 64 // 128 == 128
     assert wg["XW"] == 64 * wg["NC"] // 128 + 2 and wg["XS_COLS"] == wg["TM"] + 2
-    assert wg["KW"] * wg["XS_COLS"] % 32 == 0
-    assert wg["NP"] == 128 and wg["KW"] * 16 == 32
+    assert wg["XS_COLS"] <= wg["XW"]
+    assert wg["NP"] == 32 and wg["KW"] * 16 == 32
     threads = wg["NC"] + wg["NP"]
-    launch = 65536 // threads // 8 * 8
-    assert (wg["PRODUCER_REGS"] * wg["NP"] + wg["CONSUMER_REGS"] * wg["NC"]
-            <= launch * threads)
-    assert wg["CONSUMER_REGS"] % 8 == 0 and wg["PRODUCER_REGS"] % 8 == 0
+    assert 65536 // threads // 8 * 8 >= 168
     # the 1×1: 8 consumer warps of 32 × 64 cover 128 × 128; producers are
     # whole warpgroups; every thread keeps 128 registers (65536 / 512)
     assert (mma["TM"] // 32) * (mma["TN"] // 64) * 32 == mma["NT"] and mma["NP"] % 128 == 0
@@ -514,20 +512,23 @@ def _gmma_operand(smem: np.ndarray, start: int, lbo: int, sbo: int, rows: int) -
     return smem[start + (r // 8) * sbo + (r % 8) * 16 + (k // 16) * lbo + k % 16].astype(np.int64)
 
 
-def _wgmma_conv3x3(q: np.ndarray, packed: np.ndarray, *, cc: int, split: int,
-                   rng) -> list[np.ndarray]:
+def _wgmma_conv3x3(xq: np.ndarray, packed: np.ndarray, *, h: int, w: int, k_rows: int,
+                   cc: int, split: int, rng) -> list[np.ndarray]:
     """The 3×3 stage of ``int8_taps_kernel_wgmma`` modelled byte for byte on
-    its shared memory: every block's ring stages (the producer's staged
-    rows, the bulk copies of the packed weights, zeroed rows past the tile,
-    stale words past a chunk's end), read through the consumers' descriptors
-    as wgmma reads them.  q [H, W, C] int8 (one image, one band), packed
-    [9, C/16, Co, 16].  Returns each chunk's int32 sums [H, W, Co]."""
+    its shared memory: every block's ring stages (each word's bulk copy of
+    XS_COLS columns of the band copy, the bulk copies of the packed weights,
+    zeroed rows past the tile, stale weight words past a chunk's end and
+    stale columns past XS_COLS), read through the consumers' descriptors as
+    wgmma reads them.  xq: one image's band copy [H/k_rows, k_rows+2, words,
+    Wp, 16] int8, packed [9, C/16, Co, 16].  Returns each chunk's int32 sums
+    [H, W, Co]."""
     k = _taps_constants()["i8wg"]
     tm, tn, xw, kw, ws_bytes = k["TM"], k["TN"], k["XW"], k["KW"], k["WS_BYTES"]
     cols = k["XS_COLS"]
-    h, w, c = q.shape
-    co, cw16, ccw = packed.shape[2], c // 16, cc // 16
+    c, co = packed.shape[1] * 16, packed.shape[2]
+    ccw = cc // 16
     spc = (ccw + kw - 1) // kw
+    cpw = xq.shape[2] // (c // cc)
     sums = [np.zeros((h, w, co), np.int64) for _ in range(c // cc)]
     tiles = [(g * split + t * tn, min(g * split + (t + 1) * tn, (g + 1) * split))
              for g in range(co // split) for t in range((split + tn - 1) // tn)]
@@ -541,19 +542,15 @@ def _wgmma_conv3x3(q: np.ndarray, packed: np.ndarray, *, cc: int, split: int,
                 for g in range(c // cc * 3 * spc):
                     sl, dy = divmod(g, 3)
                     j = sl // spc
-                    wlo, whi = j * ccw + (sl % spc) * kw, (j + 1) * ccw
-                    nw = min(kw, whi - wlo)
+                    kw0 = (sl % spc) * kw
+                    wlo, nw = j * ccw + kw0, min(kw, ccw - kw0)
                     ws = stage[:ws_bytes].reshape(3, kw, tn, 16)
                     for dx in range(3):
                         ws[dx, :nw, :nlim] = packed[3 * dy + dx, wlo:wlo + nw, n0:n1]
                     xs = stage[ws_bytes:ws_bytes + kw * xw * 16].reshape(kw, xw, 16)
-                    gr = row + dy - 1
                     for word in range(kw):
-                        xs[word, :cols] = 0
-                        for cl in range(cols):
-                            gc = col0 + cl - 1
-                            if 0 <= gr < h and 0 <= gc < w and wlo + word < whi:
-                                xs[word, cl] = q[gr, gc, (wlo + word) * 16:(wlo + word + 1) * 16]
+                        xs[word, :cols] = xq[row // k_rows, row % k_rows + dy,
+                                             j * cpw + kw0 + word, col0:col0 + cols]
                     if g % (3 * spc) == 0:
                         d[:] = 0
                     for wg in range(2):
@@ -568,26 +565,64 @@ def _wgmma_conv3x3(q: np.ndarray, packed: np.ndarray, *, cc: int, split: int,
     return sums
 
 
-@pytest.mark.parametrize("h,w,c,co,cc,split", [
-    (3, 20, 64, 24, 64, 24),       # one chunk, a ragged channel tile
-    (2, 130, 48, 16, 48, 16),      # two pixel tiles; a slice with one word
-    (2, 12, 96, 272, 32, 272),     # three chunks; a full and a 16-channel tile
-    (1, 9, 32, 384, 32, 192),      # K7's split: two groups of 192 channels
+@pytest.mark.parametrize("h,w,c,co,cc,split,k_rows", [
+    (3, 20, 64, 24, 64, 24, 3),       # one chunk, a ragged channel tile, one band
+    (2, 130, 48, 16, 48, 16, 1),      # two pixel tiles; a slice with one word
+    (2, 12, 96, 272, 32, 272, 2),     # three chunks; a full and a 16-channel tile
+    (4, 9, 32, 384, 32, 192, 2),      # K7's split: two groups of 192 channels; two bands
 ])
-def test_wgmma_stage_schedule_equals_plain_sums(rng, h, w, c, co, cc, split):
+def test_wgmma_stage_schedule_equals_plain_sums(rng, h, w, c, co, cc, split, k_rows):
     """The 3×3 as ``int8_taps_kernel_wgmma`` schedules it (stages of one dy
-    row and 32 channels, three dx descriptors a stage, each consumer
-    warpgroup on its 64 pixels, chunk by chunk) gives each chunk's integer
-    3×3 sums of the plain version exactly."""
+    row and 32 channels copied from the band copy, three dx descriptors a
+    stage, each consumer warpgroup on its 64 pixels, chunk by chunk) gives
+    each chunk's integer 3×3 sums of the plain version exactly.  Column 0
+    holds 127 on every channel, so every band's scale is 1 and the band
+    copy holds the integers themselves."""
     q = rng.integers(-127, 128, (h, w, c)).astype(np.int8)
+    q[:, 0] = 127
     wq = rng.integers(-127, 128, (9, c, co)).astype(np.int8)
     packed = tb8.pack_taps_i8(torch.from_numpy(wq)).numpy()
-    got = _wgmma_conv3x3(q, packed, cc=cc, split=split, rng=rng)
+    xq = tb8.quantize_bands(_t(q.astype(np.float32))[None], k_rows=k_rows, c_chunk=cc)[0]
+    got = _wgmma_conv3x3(xq.numpy(), packed, h=h, w=w, k_rows=k_rows, cc=cc, split=split,
+                         rng=rng)
     ext = torch.from_numpy(np.pad(q, ((1, 1), (0, 0), (0, 0)))[None]).double()
     for j, sums in enumerate(got):
         want = t_taps(ext[..., j * cc:(j + 1) * cc],
                       torch.from_numpy(wq[:, j * cc:(j + 1) * cc]).double(), h)
         np.testing.assert_array_equal(sums.reshape(h * w, co), want[0].numpy())
+
+
+@pytest.mark.parametrize("n,h,w,c,k_rows,c_chunk", [
+    (1, 4, 130, 256, 2, 128),   # two bands, halo rows in and outside the frame; W = 130
+    (2, 6, 20, 512, 3, 256),    # N = 2, chunks of 256
+    (1, 2, 12, 128, 2, 128),    # one band: both halo rows outside the frame
+    (1, 2, 20, 96, 1, 48),      # 48-channel chunks: three words rounded up to four
+])
+def test_band_copy_plain_matches_reference_quantization(rng, n, h, w, c, k_rows, c_chunk):
+    """The band copy's plain version (K3, K5, K7's first two launches) holds
+    exactly what the reference kernels quantize: per band, its rows and one
+    halo row above and below (zero outside the frame), each contraction
+    chunk by its own max / 127 + 1e-12 (``block_int8.py::_quant``); laid
+    out word-major with zero columns 0 and past W, and zero words past a
+    chunk."""
+    x = rng.standard_normal((n, h, w, c)).astype(np.float32)
+    got = tb8.quantize_bands(_t(x), k_rows=k_rows, c_chunk=c_chunk).numpy()
+    tm, kw = _taps_constants()["i8wg"]["TM"], _taps_constants()["i8wg"]["KW"]
+    assert (tm, kw) == (taps_mod.TM, taps_mod.KW)
+    cpw = -(-c_chunk // 16 // kw) * kw
+    assert got.shape == (n, h // k_rows, k_rows + 2, c // c_chunk * cpw,
+                         -(-w // tm) * tm + 2, 16) and got.dtype == np.int8
+    xp = np.pad(x, ((0, 0), (1, 1), (0, 0), (0, 0)))
+    want = np.zeros_like(got)
+    for i in range(n):
+        for b in range(h // k_rows):
+            ext = jnp.asarray(xp[i, b * k_rows:b * k_rows + k_rows + 2])
+            for j in range(c // c_chunk):
+                e = ext[..., j * c_chunk:(j + 1) * c_chunk]
+                q = np.asarray(jb8._quant(e, jnp.max(jnp.abs(e)) / 127.0 + 1e-12))
+                want[i, b, :, j * cpw:j * cpw + c_chunk // 16, 1:w + 1] = (
+                    q.reshape(k_rows + 2, w, c_chunk // 16, 16).transpose(0, 2, 1, 3))
+    np.testing.assert_array_equal(got, want)
 
 
 _PICKER_SHAPES = [
