@@ -10,14 +10,16 @@ one JSON line:
 
 1. ``build``: the card (name, power limit), the kernels' build time and the
    ``ptxas`` register/spill report.  For the bf16 tensor-core kernels (K2's
-   ``convblock_chw_tc_kernel``, K6's ``block128_tc_kernel``) and each int8
-   kernel (the 3×3 ``int8_taps_kernel_wgmma`` and 1×1 ``int8_taps_kernel``
-   instantiations) it prints the registers, spill bytes, shared memory per
-   block (K6 at the recorded w64 ``dec_2`` shape, K5's 3×3 at four chunks)
-   and the count of ``HMMA``, ``IMMA``, ``IGMMA`` and ``IDP4A`` instructions
-   in the library's SASS (``cuobjdump``); it fails if any of them spills, if
-   a bf16 kernel has no ``HMMA``, the 1×1 no ``IMMA`` or the 3×3 no
-   ``IGMMA`` (warpgroup MMA), or if any function has an ``IDP4A``.
+   ``convblock_chw_tc_kernel``, K6's ``block128_tc_kernel`` and
+   ``block128_tc_kernel_wgmma``) and each int8 kernel (the 3×3
+   ``int8_taps_kernel_wgmma`` and 1×1 ``int8_taps_kernel`` instantiations)
+   it prints the registers, spill bytes, shared memory per block (K6 at the
+   recorded w64 ``dec_2`` shape, K5's 3×3 at four chunks) and the count of
+   ``HMMA``, ``HGMMA``, ``IMMA``, ``IGMMA`` and ``IDP4A`` instructions in the
+   library's SASS (``cuobjdump``); it fails if any of them spills, if a
+   ``mma.sync`` bf16 kernel has no ``HMMA``, K6's wgmma kernel no ``HGMMA``,
+   the 1×1 no ``IMMA`` or the 3×3 no ``IGMMA`` (warpgroup MMA), or if any
+   function has an ``IDP4A``.
    ``band_copy``: the int8 blocks' band copy (``rowmax_kernel_quant_bands``,
    each input quantized once) at the w64 ``dec_1`` (K3) and ``dec_0`` (K5)
    shapes: equal to its plain version byte for byte, no spills, each block
@@ -152,9 +154,11 @@ Then the chain from renders to a trained net, every command through
    the values' magnitude, and of float32 per addition in the float32 case;
    its bound is the bytes of x, the output and the band tables.
    ``block128_storage``: K6's recorded main-path input (channels-last
-   storage, as the resize before it keeps its input's) reaches the kernel
-   in place, with no copy, and the output comes back in the same storage
-   order.  ``weight_prep``: the per-frame int8
+   storage, as the resize before it keeps its input's) reaches
+   ``block128_tc_kernel_wgmma`` in place, with no copy (one more
+   ``fused_block128_nhwc.wgmma_launches``, printed), and the output comes
+   back channels-last.  Every main path's K6 calls take that kernel
+   (``wgmma_launches`` equal to ``launches``).  ``weight_prep``: the per-frame int8
    quantization of the w64 int8 blocks' weights.  ``w64_vs_plain``: the w64
    forward through the kernels against the same forward with every kernel
    swapped for its plain version, within twice the plain forward's change
@@ -337,8 +341,8 @@ def ptxas_entries(log: str, kernel: str) -> list[dict]:
 
 
 def sass_counts(lib_path: str) -> dict:
-    """{function: {"HMMA": n, "IMMA": n, "IGMMA": n, "IDP4A": n}} over the
-    library's SASS."""
+    """{function: {"HMMA": n, "HGMMA": n, "IMMA": n, "IGMMA": n, "IDP4A": n}}
+    over the library's SASS."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "--dump-sass", lib_path], capture_output=True,
                           text=True, timeout=300, check=True).stdout
@@ -347,9 +351,10 @@ def sass_counts(lib_path: str) -> dict:
         m = re.search(r"Function : (\S+)", ln)
         if m:
             fn = m.group(1)
-            counts[fn] = {"HMMA": 0, "IMMA": 0, "IGMMA": 0, "IDP4A": 0}
+            counts[fn] = {"HMMA": 0, "HGMMA": 0, "IMMA": 0, "IGMMA": 0, "IDP4A": 0}
         elif fn is not None:
             counts[fn]["HMMA"] += len(re.findall(r"\bHMMA\b", ln))
+            counts[fn]["HGMMA"] += len(re.findall(r"\bHGMMA\b", ln))
             counts[fn]["IMMA"] += len(re.findall(r"\bIMMA\b", ln))
             counts[fn]["IGMMA"] += len(re.findall(r"\bIGMMA\b", ln))
             counts[fn]["IDP4A"] += len(re.findall(r"\bIDP\.?4A\b", ln))
@@ -913,31 +918,36 @@ def resize_dense_plain(x, bands, axis):
 
 def block128_storage(kc128, build, call) -> None:
     """K6 once on its recorded main-path call with the C entry watched: the
-    main path's input (channels-last storage since the resizes keep their
-    input's layout; an NHWC view of channels-major storage before) must
-    reach the kernel in place (the same pointer, the mode of that storage)
-    and come back in the same storage order."""
+    main path's input (channels-last storage: the resize before ``dec_2``
+    keeps the layout of K3's output) must reach ``block128_tc_kernel_wgmma``
+    in place (the same pointer, its entry ``pcss_block128_wgmma``, one more
+    ``wgmma_launches``) and come back channels-last."""
     args, kw = call
     seen, real = [], build.call
 
     def watch(name, *a):
-        seen.append(a)
+        seen.append((name, a))
         return real(name, *a)
 
+    before = kc128.fused_block128_nhwc.wgmma_launches
     with swapped([(build, "call", watch)]):
         out = kc128.fused_block128_nhwc(*args, **kw)
     x = args[0]
-    cmajor = x.permute(0, 3, 1, 2).is_contiguous()
+    (entry, a), = seen
     line = {"phase": "block128_storage", "x_shape": list(x.shape),
             "x_strides": list(x.stride()),
-            "x_channels_major": cmajor, "x_nhwc": x.is_contiguous(),
-            "x_in_place": seen[0][0] == x.data_ptr(), "mode": seen[0][13],
-            "out_strides": list(out.stride()),
-            "out_channels_major": out.permute(0, 3, 1, 2).is_contiguous()}
+            "x_channels_major": x.permute(0, 3, 1, 2).is_contiguous(),
+            "x_nhwc": x.is_contiguous(), "mode": build.stage_mode(
+                tuple(x.shape), x.stride(), x.data_ptr() % 16),
+            "kernel": kc128.bf16_kernel(x.shape, x.stride(), x.data_ptr() % 16,
+                                        args[3].shape[1]),
+            "entry": entry, "x_in_place": a[0] == x.data_ptr(),
+            "wgmma_launches": kc128.fused_block128_nhwc.wgmma_launches - before,
+            "out_strides": list(out.stride()), "out_nhwc": out.is_contiguous()}
     emit(line)
-    want_mode = kc128.CMAJOR_VEC if cmajor else kc128.NHWC
-    if not ((cmajor or line["x_nhwc"]) and line["x_in_place"]
-            and line["mode"] == want_mode and line["out_channels_major"] == cmajor):
+    if not (line["x_nhwc"] and line["mode"] == kc128.NHWC and line["x_in_place"]
+            and line["kernel"] == kc128.WGMMA_KERNEL and entry == "pcss_block128_wgmma"
+            and line["wgmma_launches"] == 1 and line["out_nhwc"]):
         raise AssertionError(f"K6 main-path storage: {line}")
 
 
@@ -1024,11 +1034,13 @@ def golden_phase(phase, variables, meta, xv, yv, layout):
 def main_path(phase, engine, frames, n_frames, want, card, own):
     """``n_frames`` frames through ``render_u8`` with every launch counter
     zeroed just before and read just after; every kernel must have launched
-    exactly ``want[name]`` times per frame (0 if absent), and K2′ must have
-    read its input in place (``fused_conv_block_nhwc.copies`` 0)."""
+    exactly ``want[name]`` times per frame (0 if absent), K2′ must have
+    read its input in place (``fused_conv_block_nhwc.copies`` 0) and every
+    K6 call must have taken ``block128_tc_kernel_wgmma``."""
     import torch
 
     from pcss_unet_tpu_torch.ops.kernels import (KERNELS, banded_resize,
+                                                 fused_block128_nhwc,
                                                  fused_conv_block_nhwc,
                                                  reset_launch_counts)
 
@@ -1050,6 +1062,10 @@ def main_path(phase, engine, frames, n_frames, want, card, own):
     if fused_conv_block_nhwc.copies:
         raise AssertionError(f"{phase}: K2′ copied its input "
                              f"{fused_conv_block_nhwc.copies} times")
+    k6 = {"launches": fused_block128_nhwc.launches,
+          "wgmma_launches": fused_block128_nhwc.wgmma_launches}
+    if k6["wgmma_launches"] != k6["launches"]:
+        raise AssertionError(f"{phase}: K6 took its wgmma kernel in {k6}")
     out = outs[-1]
     b, h, w, _ = frames.shape
     if (tuple(out.shape) != (b, h, w, 1) or out.dtype != torch.uint8
@@ -1057,7 +1073,7 @@ def main_path(phase, engine, frames, n_frames, want, card, own):
         raise AssertionError(f"{phase}: bad output {tuple(out.shape)} {out.dtype}")
     line = {"phase": phase, "frames": n_frames, "frame_hw": [h, w],
             "ms_per_frame": frame_ms, "launches": launches,
-            "k2n_copies": fused_conv_block_nhwc.copies,
+            "k2n_copies": fused_conv_block_nhwc.copies, "k6": k6,
             "launches_per_frame_want": want, "banded_resize": resize, "card": card}
     if engine.model is not None:
         line["routes"] = engine.model.routes()
@@ -3322,16 +3338,19 @@ def main() -> int:
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
     sass = sass_counts(str(_build._target()))
-    no_ops = {"HMMA": 0, "IMMA": 0, "IGMMA": 0, "IDP4A": 0}
+    no_ops = {"HMMA": 0, "HGMMA": 0, "IMMA": 0, "IGMMA": 0, "IDP4A": 0}
     bf16_tc = []
     for kernel, src, smem in (
             ("convblock_chw_tc_kernel", "convblock.cu", None),
             ("block128_tc_kernel", "convblock128.cu",
-             _build.library().pcss_block128_smem_bytes(128, 64))):
-        e = ptxas_entries(log, kernel)[0]
+             _build.library().pcss_block128_smem_bytes(128, 64)),
+            ("block128_tc_kernel_wgmma", "convblock128_wgmma.cu",
+             _build.library().pcss_block128_wgmma_smem_bytes())):
+        wgmma = "wgmma" in kernel
+        e = next(e for e in ptxas_entries(log, kernel) if ("wgmma" in e["name"]) == wgmma)
         bf16_tc.append({"kernel": f"{src}: {kernel}", "registers": e["registers"],
                         "spill_bytes": e["spill_bytes"], "smem_bytes_per_block": smem,
-                        **sass.get(e["name"], no_ops)})
+                        "mma": "HGMMA" if wgmma else "HMMA", **sass.get(e["name"], no_ops)})
     int8 = ptxas_entries(log, "int8_taps_kernel")
     for e, pretty in zip(int8, demangle([e["name"] for e in int8])):
         m = re.search(r"int8_taps_kernel\w*<[^>]*>", pretty)
@@ -3353,10 +3372,10 @@ def main() -> int:
                                               "smem_bytes_per_block", "IMMA", "IGMMA",
                                               "IDP4A")}
                            for e in int8]})
-    bad = ([e["kernel"] for e in bf16_tc if e["spill_bytes"] != [0, 0] or not e["HMMA"]]
+    bad = ([e["kernel"] for e in bf16_tc if e["spill_bytes"] != [0, 0] or not e[e["mma"]]]
            + [e["kernel"] for e in int8 if e["spill_bytes"] != [0, 0] or not e[e["mma"]]])
     if bad or dp4a:
-        raise AssertionError(f"tensor-core kernels spilling or without HMMA / IMMA / IGMMA: "
+        raise AssertionError(f"tensor-core kernels spilling or without HMMA / HGMMA / IMMA / IGMMA: "
                              f"{bad}; functions with IDP4A: {dp4a}")
     band_copy_phase(log, card, own)
 

@@ -12,16 +12,22 @@
 //
 // bf16: block128_tc_kernel, an implicit GEMM on the tensor cores (mma.sync
 // m16n8k16 bf16 -> float32, ldmatrix fragments; the helpers are K2's, in
-// bf16_mma.cuh).  What bounds it on the H100: at w64 dec_2 (x [1,544,960,128],
+// bf16_mma.cuh).  It takes every bf16 input but the one the w64 dec_2 block
+// hands over: C = 128 in channels-last storage with Cout % 8 == 0 goes to
+// block128_tc_kernel_wgmma (convblock128_wgmma.cu: warpgroup MMA fed by the
+// TMA, a persistent grid), the wrapper's pick (ops/kernels/convblock128.py::
+// bf16_kernel).  What bounds it on the H100: at w64 dec_2 (x [1,544,960,128],
 // Cout 64) the block does 81.3 G multiply-adds, 0.1644 ms at the 989 TFLOP/s
 // bf16 tensor-core rate, and moves ~0.2 GB (~0.06 ms): operations.  Design:
 // - one block (8 warps) per (n, row, 128-column tile): GEMM M = 128 pixels,
 //   N = the hidden channels 128 at a time, K = 9 taps x C in slices of 16;
 //   columns >= W read as zero and are never written (960 = 7.5 tiles);
-// - x is read in the storage the caller has.  The main path hands over an
-//   NHWC view of channels-major storage: the rows r-1..r+1 are staged from it
-//   in place, 16-byte reads along W transposed in registers into a
-//   pixel-major stage [3][130][kc + 8] (kCmajorVec; bf16_mma.cuh::stage_rows),
+// - x is read in the storage the caller has.  An NHWC view of channels-major
+//   storage (the channels-major engine's; the w64 main path has handed over
+//   channels-last storage since the banded resize keeps its input's layout)
+//   has its rows r-1..r+1 staged in place, 16-byte reads along W transposed
+//   in registers into a pixel-major stage [3][130][kc + 8] (kCmajorVec;
+//   bf16_mma.cuh::stage_rows),
 //   or element by element where W % 8 != 0 or x is not 16-byte aligned
 //   (kCmajorScalar; stage_rows_scalar).  Channels-last storage is staged by
 //   16-byte cp.async along C (kNhwc; stage_rows_nhwc).  The output keeps the
@@ -41,8 +47,9 @@
 //   of 4 channels (channels-last).
 // Every row stride is a multiple of 16 plus 8 bf16, so each ldmatrix is free
 // of bank conflicts.  Shared memory is 210,528 bytes at C = 128: one block per
-// SM.  Left for later work: wgmma fed by TMA, a persistent grid, and staging
-// that overlaps the first taps.
+// SM.  Left for later work on the inputs this kernel keeps: wgmma fed by TMA
+// (channels-major storage needs a transpose or three shifted loads to give
+// the wgmma kernel's K-major stage), a persistent grid.
 //
 // float32: block128_f32_kernel on the CUDA cores (tensor cores would mean
 // TF32, which the float32 tolerance of 1e-4 does not allow), channels-last

@@ -29,10 +29,7 @@
 #pragma once
 
 #include "common.cuh"
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+#include "sm90.cuh"
 
 namespace i8wg {
 
@@ -53,23 +50,6 @@ constexpr int WS_BYTES = 3 * KW * TN * 16;      // weights of a stage: 3 taps
 constexpr int STAGE_BYTES = WS_BYTES + (XS_BYTES + 127) / 128 * 128;
 constexpr int CLUSTER = 2;                      // CTAs along the pixel tiles sharing weights
 
-// A shared-memory matrix descriptor without swizzle: 8-row x 16-byte core
-// matrices, `lbo` bytes apart along K, `sbo` bytes apart along M or N.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 // keep the compiler from moving reads of the accumulators across a wait
 __device__ __forceinline__ void fence_operands(int (&d)[128]) {
 #pragma unroll
@@ -127,8 +107,8 @@ __device__ __forceinline__ void conv_row_taps(int (&d)[128], uint32_t xs, uint32
                                               bool first) {
 #pragma unroll
   for (int dx = 0; dx < 3; ++dx)
-    mma_64x256(d, desc(xs + (p0 + dx) * 16, XW * 16, 128),
-               desc(ws + dx * KW * TN * 16, TN * 16, 128), first && dx == 0 ? 0 : 1);
+    mma_64x256(d, wg_desc(xs + (p0 + dx) * 16, XW * 16, 128),
+               wg_desc(ws + dx * KW * TN * 16, TN * 16, 128), first && dx == 0 ? 0 : 1);
 }
 
 }  // namespace i8wg

@@ -11,7 +11,8 @@ a kernel with no TPU counterpart: it is not in ``KERNELS`` (the ported
 ones), and ``reset_launch_counts`` zeroes its ``launches`` too.  So does
 ``bn_train``: the train-mode BatchNorm → activation → Dropout2d tail of a
 ConvBlock, forward and backward, which no TPU kernel computes either.
-It also zeroes ``fused_conv_block_nhwc.copies``, K2′'s copies of its input.
+It also zeroes ``fused_conv_block_nhwc.copies``, K2′'s copies of its input,
+and ``fused_block128_nhwc.wgmma_launches``, K6's calls on its wgmma kernel.
 """
 
 from pcss_unet_tpu_torch.ops.kernels.block_int8 import (fused_block_int8_kchunked,
@@ -34,5 +35,6 @@ def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
     fused_conv_block_nhwc.copies = 0
+    fused_block128_nhwc.wgmma_launches = 0
     banded_resize.launches = 0
     bn_act_dropout_train.launches = 0

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "pcss_quant_bands": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "pcss_block128_nhwc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                            _I, _P),
+    "pcss_block128_wgmma": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "pcss_conv3x3_int8_nhwc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _F, _I, _I, _I, _P),
     "pcss_band_resize": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -132,6 +133,8 @@ def library() -> ctypes.CDLL:
             lib.pcss_int8_smem_bytes.restype = ctypes.c_size_t
             lib.pcss_block128_smem_bytes.argtypes = (ctypes.c_int, ctypes.c_int)
             lib.pcss_block128_smem_bytes.restype = ctypes.c_size_t
+            lib.pcss_block128_wgmma_smem_bytes.argtypes = ()
+            lib.pcss_block128_wgmma_smem_bytes.restype = ctypes.c_size_t
             lib.pcss_error_string.argtypes = (ctypes.c_int,)
             lib.pcss_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -12,9 +12,15 @@ float32, where both agree).  The output does not depend on the reference's
 band height, so the port takes none; :func:`pick_k_rows_128` is copied
 because the model's gate asks it whether the reference would take a stage.
 
-On the card x is read in the storage it has: the NHWC model hands over an
-NHWC view of channels-major storage, which the bf16 kernel stages in place
-(:func:`_storage`).
+On the card x is read in the storage it has (:func:`_storage`).  bf16 takes
+one of two kernels (:func:`bf16_kernel`, a pure function of x's shape,
+strides and alignment): ``block128_tc_kernel_wgmma`` (Hopper's warpgroup MMA
+fed by the TMA, ``csrc/convblock128_wgmma.cu``) where x reaches the card
+channels-last with C = 128 and Cout % 8 == 0, which is what every main path
+hands over (the w64 ``dec_2`` block: the resize before it keeps the
+channels-last layout of K3's output); ``block128_tc_kernel`` (``mma.sync``)
+for every other bf16 input.  ``fused_block128_nhwc.wgmma_launches`` counts
+the calls that took the first.
 """
 
 from __future__ import annotations
@@ -29,6 +35,11 @@ from pcss_unet_tpu_torch.utils.profiling import span
 
 _MAX_SMEM = 232448   # bytes of shared memory one block can use on the H100
 MAX_C = 384          # the widest C whose plan fits, on either card kernel
+WGMMA_KERNEL, TC_KERNEL = "block128_tc_kernel_wgmma", "block128_tc_kernel"
+# the wgmma kernel's plan (csrc/convblock128_wgmma.cu): C, the tile's output
+# pixels, input channels a stage, the ring's stages, columns a channel group
+# takes in a stage
+WG_C, WG_TP, WG_KC, WG_STAGES, WG_XPS = 128, 240, 32, 4, 248
 
 
 def pick_k_rows_128(h: int, w: int, c: int, cout: int) -> int | None:
@@ -102,11 +113,39 @@ def smem_plan(c: int, cout: int) -> tuple[int, int]:
     return kc, nbytes
 
 
+def wgmma_smem_plan() -> int:
+    """Bytes of dynamic shared memory the wgmma kernel takes (a mirror of
+    ``SMEM`` in ``csrc/convblock128_wgmma.cu``): ``WG_STAGES`` stages, each
+    the three dx taps' weights ``[3][KC/8][128][8]`` and the activations
+    ``[KC/8][XPS][8]``; the hidden tile ``[16][240][8]``, later the output
+    tile ``[240][136]``; two mbarriers a stage and 128 bytes to align the
+    ring, all bf16 but the barriers."""
+    stage = 3 * (WG_KC // 8) * WG_C * 16 + (WG_KC // 8) * WG_XPS * 16
+    return WG_STAGES * stage + WG_TP * (128 + 8) * 2 + 2 * WG_STAGES * 8 + 128
+
+
+def bf16_kernel(shape, strides, offset: int, cout: int) -> str:
+    """The bf16 kernel that takes x ``[N, H, W, C]`` → Cout, a pure function
+    of x's ``shape``, ``strides`` (elements) and ``offset`` (its start
+    modulo 16 bytes): ``WGMMA_KERNEL`` where x reaches the card in
+    channels-last storage (in place, or as the channels-last copy
+    :func:`_storage` makes of storage no stage reads), C = 128 and Cout % 8
+    == 0; ``TC_KERNEL`` for channels-major storage, C of 256 or 384 and any
+    other Cout."""
+    mode = _build.stage_mode(tuple(shape), tuple(strides), offset)
+    return _kernel_for(NHWC if mode is None else mode, shape[3], cout)
+
+
+def _kernel_for(mode: int, c: int, cout: int) -> str:
+    """The bf16 kernel for x in the storage ``mode`` as it reaches the card."""
+    return WGMMA_KERNEL if mode == NHWC and c == WG_C and cout % 8 == 0 else TC_KERNEL
+
+
 def _storage(x: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """The tensor the bf16 kernel reads and its storage mode
-    (:func:`_build.stage_mode`).  Channels-major storage (the NHWC view of
-    NCHW that the model hands over) and aligned channels-last storage go in
-    place; any other storage goes channels-last, by a copy."""
+    """The tensor a bf16 kernel reads and its storage mode
+    (:func:`_build.stage_mode`).  Aligned channels-last storage (what the
+    main paths hand over) and channels-major storage (the NHWC view of NCHW)
+    go in place; any other storage goes channels-last, by a copy."""
     mode = _build.stage_mode(tuple(x.shape), x.stride(), x.data_ptr() % 16)
     if mode is None:
         return _build.aligned(x), NHWC
@@ -129,6 +168,22 @@ def pack_tc_weights(w1: torch.Tensor, w2: torch.Tensor, kc: int):
             _build.aligned(w2p.reshape(op, c // kc, kc).permute(1, 0, 2)))
 
 
+def pack_wgmma_weights(w1: torch.Tensor, w2: torch.Tensor):
+    """``w1 [9, 128, 128]``, ``w2 [128, Cout]`` → the wgmma kernel's A
+    operands in the order it takes them: ``w1p [4, 3, 3, 4, 128, 8]`` (32
+    input channels a stage: slice, dy; then the three dx taps' [channel
+    group][hidden channel][8 input channels]) and ``w2p [16, op, 8]``
+    ([hidden group][output channel][8 hidden channels], op = Cout rounded up
+    to 64, rows past Cout zero)."""
+    c, cout = w2.shape
+    w1p = (w1.to(torch.bfloat16).reshape(3, 3, c // WG_KC, WG_KC // 8, 8, c)
+           .permute(2, 0, 1, 3, 5, 4))
+    w2p = w2.to(torch.bfloat16).reshape(c // 8, 8, cout).permute(0, 2, 1)
+    if cout % 64:
+        w2p = F.pad(w2p, (0, 0, 0, -cout % 64))
+    return _build.aligned(w1p), _build.aligned(w2p)
+
+
 def _launch(x, w1, b1, w2, b2, negative_slope: float, stream) -> torch.Tensor:
     """Check the card kernels' limits, lay out the operands and launch."""
     n, h, w, c = x.shape
@@ -141,6 +196,17 @@ def _launch(x, w1, b1, w2, b2, negative_slope: float, stream) -> torch.Tensor:
     b2f = b2.float().reshape(-1).contiguous()
     if x.dtype == torch.bfloat16:
         x, mode = _storage(x)
+        if _kernel_for(mode, c, cout) == WGMMA_KERNEL:
+            with span("ops.weight_prep"):
+                w1k, w2k = pack_wgmma_weights(w1, w2)
+            out = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
+            _build.check_extent(x, out)
+            _build.call("pcss_block128_wgmma", x.data_ptr(), w1k.data_ptr(),
+                        b1f.data_ptr(), w2k.data_ptr(), b2f.data_ptr(),
+                        out.data_ptr(), n, cout, h, w, float(negative_slope),
+                        stream)
+            fused_block128_nhwc.wgmma_launches += 1
+            return out
         with span("ops.weight_prep"):
             w1k, w2k = pack_tc_weights(w1, w2, smem_plan(c, cout)[0])
     else:
@@ -172,11 +238,13 @@ def fused_block128_nhwc(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
     The CPU takes the plain version, for any ``C % 128 == 0``.  On the card
     both kernels take ``C ≤ 384`` (``MAX_C``) and ``Cout % 4 == 0``, and
-    raise ``ValueError`` otherwise.  bfloat16 runs the tensor-core kernel on
-    x's storage as it is (no copy of an NHWC view of channels-major storage,
-    nor of a contiguous aligned NHWC tensor) and returns the output in the
-    same storage order; float32 runs the CUDA-core kernel on a channels-last
-    copy (tensor cores would mean TF32) and returns channels-last."""
+    raise ``ValueError`` otherwise.  bfloat16 runs a tensor-core kernel
+    (:func:`bf16_kernel`) on x's storage as it is (no copy of an NHWC view of
+    channels-major storage, nor of a contiguous aligned NHWC tensor) and
+    returns the output in the same storage order; float32 runs the CUDA-core
+    kernel on a channels-last copy (tensor cores would mean TF32) and returns
+    channels-last.  ``.launches`` counts every call on the card,
+    ``.wgmma_launches`` those on ``block128_tc_kernel_wgmma``."""
     if x.dim() != 4:
         raise ValueError(f"x must be [N, H, W, C], got {tuple(x.shape)}")
     n, h, w, c = x.shape
@@ -200,3 +268,4 @@ def fused_block128_nhwc(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 
 fused_block128_nhwc.launches = 0
+fused_block128_nhwc.wgmma_launches = 0

@@ -540,10 +540,15 @@ def test_block_int8_kchunked_kernel(dev, gen, dtype, c, co, n, h, w, k, cc):
 
 def _in_storage(x: torch.Tensor, storage: str) -> torch.Tensor:
     """x [N,H,W,C] with the same values in the given storage: contiguous
-    NHWC, an NHWC view of contiguous NCHW (the main path's), or that view
-    starting 2 bytes past a 16-byte boundary."""
+    NHWC (the main path's), the same starting 2 bytes past a 16-byte
+    boundary, an NHWC view of contiguous NCHW, or that view 2 bytes off."""
     if storage == "nhwc":
         return x.contiguous()
+    if storage == "nhwc_unaligned":
+        buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+        view = buf[1:1 + x.numel()].view(x.shape)
+        view.copy_(x)
+        return view
     nchw = x.permute(0, 3, 1, 2)
     if storage == "cmajor":
         return nchw.contiguous().permute(0, 2, 3, 1)
@@ -571,44 +576,81 @@ def _in_storage(x: torch.Tensor, storage: str) -> torch.Tensor:
     (384, 384, 1, 2, 24),     # Cout = C = 384: three output blocks
 ])
 def test_block128_kernel(dev, gen, dtype, rel, storage, c, cout, n, h, w):
-    params = {
-        "conv_a": {"kernel": gen.standard_normal((3, 3, c, c)) * 0.05,
-                   "bias": gen.standard_normal(c) * 0.1},
-        "conv_b": {"kernel": gen.standard_normal((1, 1, c, cout)) * 0.1,
-                   "bias": gen.standard_normal(cout) * 0.1},
-    }
-    ops = kc128.pack_block128_params(params, dtype=dtype, device=dev)
+    ops = _block128_ops(gen, dev, dtype, c, cout)
     x = torch.from_numpy(gen.standard_normal((n, h, w, c)).astype(np.float32)).to(dev, dtype)
     x = _in_storage(x, storage)
-    before = kc128.fused_block128_nhwc.launches
-    got = kc128.fused_block128_nhwc(x, *ops)
-    assert kc128.fused_block128_nhwc.launches == before + 1
+    got = _block128_call(x, ops)
     want = kc128.block128_nhwc_plain(x, *ops)
     torch.cuda.synchronize()
     assert tuple(got.shape) == (n, h, w, cout) and got.dtype == dtype
     _close(got, want, rel)
 
 
-@pytest.mark.parametrize("storage,channels_major", [
-    ("cmajor", True), ("cmajor_unaligned", True), ("nhwc", False)])
-@pytest.mark.parametrize("w", [24, 20])
-def test_block128_keeps_storage_order(dev, gen, storage, channels_major, w):
-    """bf16: the output comes back in x's storage order, the 16-byte,
-    element-by-element and channels-last staging paths agree with plain."""
-    c, cout = 128, 64
+def _block128_ops(gen, dev, dtype, c, cout):
     params = {
         "conv_a": {"kernel": gen.standard_normal((3, 3, c, c)) * 0.05,
                    "bias": gen.standard_normal(c) * 0.1},
         "conv_b": {"kernel": gen.standard_normal((1, 1, c, cout)) * 0.1,
                    "bias": gen.standard_normal(cout) * 0.1},
     }
-    ops = kc128.pack_block128_params(params, dtype=torch.bfloat16, device=dev)
-    x = torch.from_numpy(gen.standard_normal((2, 5, w, c)).astype(np.float32)).to(
+    return kc128.pack_block128_params(params, dtype=dtype, device=dev)
+
+
+def _block128_call(x, ops):
+    """K6 on x: one more ``launches``, and one more ``wgmma_launches``
+    exactly where the pick (``bf16_kernel``) names the wgmma kernel."""
+    k6 = kc128.fused_block128_nhwc
+    on_wgmma = x.dtype == torch.bfloat16 and kc128.bf16_kernel(
+        x.shape, x.stride(), x.data_ptr() % 16, ops[2].shape[1]) == kc128.WGMMA_KERNEL
+    before = (k6.launches, k6.wgmma_launches)
+    got = k6(x, *ops)
+    assert (k6.launches, k6.wgmma_launches) == (before[0] + 1, before[1] + on_wgmma)
+    return got
+
+
+@pytest.mark.parametrize("storage", ["nhwc", "nhwc_unaligned"])
+@pytest.mark.parametrize("cout,n,h,w", [
+    (64, 1, 544, 960),   # the w64 dec_2 block
+    (64, 4, 6, 960),     # a batch of four frames
+    (64, 1, 1, 20),      # H = 1: both halo rows outside the frame; one tile
+    (64, 2, 2, 136),     # H = 2, N = 2
+    (64, 1, 3, 250),     # a second tile of 10 columns
+    (128, 1, 2, 250),    # Cout = 128: both warpgroups on the 1x1
+    (128, 2, 3, 960),
+    (72, 1, 2, 480),     # Cout between the two m64 blocks
+])
+def test_block128_wgmma_kernel(dev, gen, storage, cout, n, h, w):
+    """K6's wgmma kernel (channels-last storage, in place or by the copy of
+    storage no stage reads; C = 128, Cout % 8 == 0) ≡ its plain version
+    within one bf16 rounding plus flips of the hidden rounding (2e-2)."""
+    ops = _block128_ops(gen, dev, torch.bfloat16, 128, cout)
+    x = torch.from_numpy(gen.standard_normal((n, h, w, 128)).astype(np.float32)).to(
         dev, torch.bfloat16)
     x = _in_storage(x, storage)
-    before = kc128.fused_block128_nhwc.launches
-    got = kc128.fused_block128_nhwc(x, *ops)
-    assert kc128.fused_block128_nhwc.launches == before + 1
+    assert kc128.bf16_kernel(x.shape, x.stride(), x.data_ptr() % 16,
+                             cout) == kc128.WGMMA_KERNEL
+    got = _block128_call(x, ops)
+    want = kc128.block128_nhwc_plain(x, *ops)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (n, h, w, cout) and got.is_contiguous()
+    _close(got, want, 2e-2)
+
+
+@pytest.mark.parametrize("storage,channels_major", [
+    ("cmajor", True), ("cmajor_unaligned", True), ("nhwc", False),
+    ("nhwc_unaligned", False)])
+@pytest.mark.parametrize("w", [24, 20])
+@pytest.mark.parametrize("cout", [64, 68])
+def test_block128_keeps_storage_order(dev, gen, storage, channels_major, w, cout):
+    """bf16: the output comes back in x's storage order, the 16-byte,
+    element-by-element and channels-last staging paths of the mma.sync
+    kernel and the wgmma kernel (channels-last, Cout % 8 == 0) agree with
+    plain."""
+    ops = _block128_ops(gen, dev, torch.bfloat16, 128, cout)
+    x = torch.from_numpy(gen.standard_normal((2, 5, w, 128)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    x = _in_storage(x, storage)
+    got = _block128_call(x, ops)
     want = kc128.block128_nhwc_plain(x, *ops)
     torch.cuda.synchronize()
     assert got.permute(0, 3, 1, 2).is_contiguous() == channels_major
@@ -1011,23 +1053,19 @@ def test_block_int8_kchunked_kernel_batch_of_frames(dev, gen):
                            kb8.fused_block_int8_kchunked(x[i:i + 1], *ops, **kw))
 
 
-def test_block128_kernel_batch_of_frames(dev, gen):
-    """K6 at w64 dec_2's channels (128 → 64) on a batch of two frames in
-    the main path's channels-major storage ≡ its plain version within 2e-2,
-    and each image ≡ the kernel on it alone."""
-    params = {
-        "conv_a": {"kernel": gen.standard_normal((3, 3, 128, 128)) * 0.05,
-                   "bias": gen.standard_normal(128) * 0.1},
-        "conv_b": {"kernel": gen.standard_normal((1, 1, 128, 64)) * 0.1,
-                   "bias": gen.standard_normal(64) * 0.1},
-    }
-    ops = kc128.pack_block128_params(params, dtype=torch.bfloat16, device=dev)
+@pytest.mark.parametrize("storage", ["nhwc", "cmajor"])
+def test_block128_kernel_batch_of_frames(dev, gen, storage):
+    """K6 at w64 dec_2's channels (128 → 64) on a batch of two frames, in
+    the main path's channels-last storage (the wgmma kernel) and in
+    channels-major storage (the mma.sync kernel), ≡ its plain version within
+    2e-2, and each image ≡ the kernel on it alone."""
+    ops = _block128_ops(gen, dev, torch.bfloat16, 128, 64)
     x = torch.from_numpy(gen.standard_normal((2, 6, 960, 128)).astype(np.float32))
-    x = _in_storage(x.to(dev, torch.bfloat16), "cmajor")
-    got = kc128.fused_block128_nhwc(x, *ops)
+    x = _in_storage(x.to(dev, torch.bfloat16), storage)
+    got = _block128_call(x, ops)
     _close(got, kc128.block128_nhwc_plain(x, *ops), 2e-2)
     for i in range(2):
-        assert torch.equal(got[i:i + 1], kc128.fused_block128_nhwc(x[i:i + 1], *ops))
+        assert torch.equal(got[i:i + 1], _block128_call(x[i:i + 1], ops))
 
 
 def test_mask_to_u8_kernel_batch_of_frames(dev, gen):

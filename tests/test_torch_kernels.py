@@ -798,37 +798,87 @@ def _in_storage(x: torch.Tensor, storage: str) -> torch.Tensor:
     return view.permute(0, 2, 3, 1)
 
 
-@pytest.mark.parametrize("dtype,storage,w,mode,in_place", [
-    (torch.bfloat16, "cmajor", 24, tc128.CMAJOR_VEC, True),
-    (torch.bfloat16, "cmajor", 20, tc128.CMAJOR_SCALAR, True),   # W % 8 != 0
-    (torch.bfloat16, "cmajor_unaligned", 24, tc128.CMAJOR_SCALAR, True),
-    (torch.bfloat16, "nhwc", 20, tc128.NHWC, True),
-    (torch.bfloat16, "strided", 24, tc128.NHWC, False),          # one copy
-    (torch.float32, "cmajor", 24, tc128.NHWC, False),            # CUDA cores
-    (torch.float32, "nhwc", 24, tc128.NHWC, True),
+@pytest.mark.parametrize("dtype,storage,w,cout,mode,in_place,kernel", [
+    (torch.bfloat16, "cmajor", 24, 64, tc128.CMAJOR_VEC, True, tc128.TC_KERNEL),
+    (torch.bfloat16, "cmajor", 20, 64, tc128.CMAJOR_SCALAR, True,   # W % 8 != 0
+     tc128.TC_KERNEL),
+    (torch.bfloat16, "cmajor_unaligned", 24, 64, tc128.CMAJOR_SCALAR, True,
+     tc128.TC_KERNEL),
+    (torch.bfloat16, "nhwc", 20, 64, tc128.NHWC, True, tc128.WGMMA_KERNEL),
+    (torch.bfloat16, "nhwc", 20, 68, tc128.NHWC, True,              # Cout % 8 != 0
+     tc128.TC_KERNEL),
+    (torch.bfloat16, "strided", 24, 64, tc128.NHWC, False,          # one copy
+     tc128.WGMMA_KERNEL),
+    (torch.float32, "cmajor", 24, 64, tc128.NHWC, False, None),     # CUDA cores
+    (torch.float32, "nhwc", 24, 64, tc128.NHWC, True, None),
 ])
-def test_block128_storage_decision(rng, monkeypatch, dtype, storage, w, mode,
-                                   in_place):
-    """Which storage reaches the card kernel and in which order its output
-    comes back, with a stub in place of the C entry: bf16 reads an NHWC view
-    of channels-major storage in place and answers channels-major; anything
-    else goes channels-last."""
+def test_block128_storage_decision(rng, monkeypatch, dtype, storage, w, cout, mode,
+                                   in_place, kernel):
+    """Which storage reaches which card kernel and in which order its output
+    comes back, with a stub in place of the C entries: bf16 channels-last
+    storage (in place, or the copy of storage no stage reads) goes to the
+    wgmma kernel where Cout % 8 == 0 and answers channels-last; the
+    mma.sync kernel reads an NHWC view of channels-major storage in place
+    and answers channels-major; float32 goes channels-last.  Only the wgmma
+    kernel's calls count in ``wgmma_launches``."""
     seen = []
     monkeypatch.setattr(tc128._build, "call", lambda name, *a: seen.append((name, a)))
-    n, h, c, cout = 2, 3, 128, 64
+    monkeypatch.setattr(tc128.fused_block128_nhwc, "wgmma_launches", 0)
+    n, h, c = 2, 3, 128
     x = _in_storage(_t(rng.standard_normal((n, h, w, c)).astype(np.float32)).to(dtype),
                     storage)
     out = tc128._launch(x, torch.zeros(9, c, c, dtype=dtype), torch.zeros(c),
                         torch.zeros(c, cout, dtype=dtype), torch.zeros(cout), 0.2,
                         None)
     (name, a), = seen
-    assert name == "pcss_block128_nhwc"
-    assert a[12] == int(dtype == torch.bfloat16) and a[13] == mode
-    assert (a[0] == x.data_ptr()) == in_place
-    assert a[6:11] == (n, c, cout, h, w) and a[5] == out.data_ptr()
+    assert (a[0] == x.data_ptr()) == in_place and a[5] == out.data_ptr()
+    if kernel == tc128.WGMMA_KERNEL:
+        assert name == "pcss_block128_wgmma"
+        assert a[6:10] == (n, cout, h, w) and a[10] == pytest.approx(0.2)
+    else:
+        assert name == "pcss_block128_nhwc"
+        assert a[12] == int(dtype == torch.bfloat16) and a[13] == mode
+        assert a[6:11] == (n, c, cout, h, w)
+    assert tc128.fused_block128_nhwc.wgmma_launches == int(kernel == tc128.WGMMA_KERNEL)
     assert tuple(out.shape) == (n, h, w, cout) and out.dtype == dtype
     assert out.permute(0, 3, 1, 2).is_contiguous() == (mode != tc128.NHWC)
     assert out.is_contiguous() == (mode == tc128.NHWC)
+
+
+def _strides(storage: str, shape) -> tuple[tuple, int]:
+    """Strides (elements) and start modulo 16 bytes of x [N, H, W, C] bf16 in
+    a storage: dense channels-last, aligned or 2 bytes off; the NHWC view of
+    dense NCHW, aligned or off; a W slice of a twice-wider channels-last
+    tensor (neither layout)."""
+    n, h, w, c = shape
+    nhwc, cmajor = (h * w * c, w * c, c, 1), (c * h * w, w, 1, h * w)
+    return {"nhwc": (nhwc, 0), "nhwc_unaligned": (nhwc, 2),
+            "cmajor": (cmajor, 0), "cmajor_unaligned": (cmajor, 2),
+            "strided": ((h * 2 * w * c, 2 * w * c, c, 1), 0)}[storage]
+
+
+@pytest.mark.parametrize("c", [128, 256, 384])
+@pytest.mark.parametrize("storage,w,cout,mode,on_wgmma", [
+    ("nhwc", 24, 64, tc128.NHWC, True),
+    ("nhwc", 20, 128, tc128.NHWC, True),
+    ("nhwc", 24, 68, tc128.NHWC, False),          # Cout % 8 != 0
+    ("nhwc_unaligned", 24, 64, None, True),       # the copy is channels-last
+    ("strided", 24, 64, None, True),
+    ("cmajor", 24, 64, tc128.CMAJOR_VEC, False),
+    ("cmajor", 20, 64, tc128.CMAJOR_SCALAR, False),
+    ("cmajor_unaligned", 24, 64, tc128.CMAJOR_SCALAR, False),
+])
+def test_block128_bf16_kernel_pick(c, storage, w, cout, mode, on_wgmma):
+    """The bf16 kernel K6 takes, a pure function of x's shape, strides and
+    alignment: the wgmma kernel for channels-last storage (in place, or as
+    the copy of storage no stage reads) at C = 128 with Cout % 8 == 0, the
+    mma.sync kernel for channels-major storage, C of 256 or 384 and any other
+    Cout."""
+    shape = (2, 3, w, c)
+    strides, offset = _strides(storage, shape)
+    assert _build.stage_mode(shape, strides, offset) == mode
+    want = tc128.WGMMA_KERNEL if on_wgmma and c == 128 else tc128.TC_KERNEL
+    assert tc128.bf16_kernel(shape, strides, offset, cout) == want
 
 
 @pytest.mark.parametrize("c,cout,match", [
@@ -920,6 +970,104 @@ def test_block128_packed_slices(rng, c, cout):
     # it within one bf16 rounding plus sum-order flips of the hidden rounding
     scale = max(1.0, want.abs().max().item())
     assert (got - want).abs().max().item() <= 2e-2 * scale
+
+
+def _operand(buf: torch.Tensor, start: int, lbo: int, sbo: int, rows: int) -> torch.Tensor:
+    """The [rows][16] bf16 operand a wgmma shared-memory descriptor without
+    swizzle reads from ``buf`` (a flat bf16 buffer; offsets in bytes): 8-row x
+    16-byte core matrices, rows 16 bytes apart inside one, ``sbo`` bytes
+    between 8-row blocks, ``lbo`` bytes between the two 8-element K halves."""
+    r = torch.arange(rows)[:, None]
+    k = torch.arange(16)[None, :]
+    byte = start + (r // 8) * sbo + (r % 8) * 16 + (k // 8) * lbo + (k % 8) * 2
+    return buf[byte // 2].float()
+
+
+@pytest.mark.parametrize("cout", [64, 128])
+def test_block128_wgmma_packing(rng, cout):
+    """The wgmma kernel's packed weights, read through the descriptors it
+    builds, stage by stage in its order (12 stages of one dy row of a
+    32-channel slice, three dx taps each, then W2) from shared memory laid
+    out as its TMA and bulk copies fill it, rebuild the block: the emulated
+    GEMMs ≡ the plain version on random weights (float32 sums of bf16
+    values; within one bf16 rounding of the output)."""
+    src = (tc128._build.CSRC / "convblock128_wgmma.cu").read_text()
+    tp, kc, xps, c = tc128.WG_TP, tc128.WG_KC, tc128.WG_XPS, 128
+    kg, ng, ostr = kc // 8, c // 8, 128 + 8
+    n, h, w = 1, 2, 250                                  # two tiles, the second ragged
+    x = _t(rng.standard_normal((n, h, w, c)).astype(np.float32)).bfloat16()
+    w1 = _t(rng.standard_normal((9, c, c)).astype(np.float32) * 0.05).bfloat16()
+    w2 = _t(rng.standard_normal((c, cout)).astype(np.float32) * 0.1).bfloat16()
+    b1 = _t(rng.standard_normal(c).astype(np.float32) * 0.1)
+    b2 = _t(rng.standard_normal(cout).astype(np.float32) * 0.1)
+    w1p, w2p = tc128.pack_wgmma_weights(w1, w2)
+    op = w2p.shape[1]
+    assert tuple(w1p.shape) == (c // kc, 3, 3, kg, c, 8) and op == -(-cout // 64) * 64
+    assert tuple(w2p.shape) == (ng, op, 8) and not w2p[:, cout:].any()
+    stages1 = w1p.reshape(-1, 3 * kg * c * 8)           # stage g's bytes at g * WS_BYTES
+    assert "bulk_copy_multicast(st + rank * half, w1b + (size_t)g * WS_BYTES" in src
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 1, 2 * tp - w + 1, 1, 1)).bfloat16()
+    got = torch.zeros(n, h, w, cout)
+    for row in range(h):
+        for col0 in range(0, w, tp):
+            hid = torch.zeros(c, tp)                     # [hidden][pixel], as the accumulators
+            for g in range(stages1.shape[0]):
+                dy, c0 = g % 3, g // 3 * kc
+                ws = stages1[g]
+                # the TMA box of each channel group: columns col0 - 1 .. col0 + 240
+                xs = torch.zeros(kg, xps, 8, dtype=torch.bfloat16)
+                for k in range(kg):
+                    xs[k, :tp + 2] = xp[0, row + dy, col0:col0 + tp + 2, c0 + 8 * k:c0 + 8 * k + 8]
+                xs = xs.reshape(-1)
+                for wg in range(2):
+                    for dx in range(3):
+                        for kk in range(kg // 2):
+                            a = _operand(ws, ((dx * kg + 2 * kk) * c + 64 * wg) * 16, c * 16,
+                                         128, 64)
+                            b = _operand(xs, (2 * kk * xps + dx) * 16, xps * 16, 128, tp)
+                            hid[64 * wg:64 * wg + 64] += a @ b.T
+            hid = hid + b1[:, None]
+            hid = torch.where(hid >= 0, hid, hid * 0.2).bfloat16()
+            hs = hid.reshape(ng, 8, tp).permute(0, 2, 1).reshape(-1)   # [NG][TP][8]
+            w2s = w2p.reshape(-1)
+            acc = torch.zeros(op, tp)
+            for wg in range(op // 64):
+                for kk in range(ng // 2):
+                    a = _operand(w2s, (2 * kk * op + 64 * wg) * 16, op * 16, 128, 64)
+                    b = _operand(hs, 2 * kk * tp * 16, tp * 16, 128, tp)
+                    acc[64 * wg:64 * wg + 64] += a @ b.T
+            acc = acc[:cout] + b2[:, None]
+            acc = torch.where(acc >= 0, acc, acc * 0.2)
+            cols = min(tp, w - col0)
+            got[0, row, col0:col0 + cols] = acc[:, :cols].T
+    assert ostr * 2 % 16 == 0
+    want = tc128.block128_nhwc_plain(x, w1, b1, w2, b2).float()
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= 2e-2 * scale
+
+
+def test_block128_wgmma_smem_plan_mirrors_source():
+    """``wgmma_smem_plan`` and the tile constants mirror
+    ``csrc/convblock128_wgmma.cu``, and the plan fits one H100 block (232,448
+    bytes of shared memory)."""
+    import re
+
+    src = (tc128._build.CSRC / "convblock128_wgmma.cu").read_text()
+    const = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert (const["C"], const["TP"], const["KC"], const["STAGES"], const["XPS"]) == (
+        tc128.WG_C, tc128.WG_TP, tc128.WG_KC, tc128.WG_STAGES, tc128.WG_XPS)
+    assert const["MAX_OP"] == 128 and const["NC"] == 256 and const["NP"] == 32
+    for line in ("constexpr int XP = TP + 2;", "constexpr int KG = KC / 8;",
+                 "constexpr int WS_BYTES = 3 * KG * C * 16;",
+                 "constexpr int XS_BYTES = KG * XPS * 16;",
+                 "constexpr int OSTR = MAX_OP + 8;",
+                 "constexpr int HID_BYTES = TP * OSTR * 2;",
+                 "constexpr int SMEM = STAGES * STAGE_BYTES + HID_BYTES + 2 * STAGES * 8 + 128;"):
+        assert line in src, line
+    assert tc128.wgmma_smem_plan() == 227_264 <= 232_448
+    # every TMA destination 128-byte aligned: the stage, its weights, each group
+    assert (tc128.WG_XPS * 16) % 128 == 0 and (3 * 4 * 128 * 16) % 128 == 0
+    assert tc128.WG_XPS >= tc128.WG_TP + 2
 
 
 # --------------------------------------------------------------------- K2′
